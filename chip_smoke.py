@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--reference-kernel PATH]
 
 Run from the root of the repository on a machine with a CUDA GPU.  It
 imports only ``rapidnet_tpu_torch``, torch and numpy, and in order:
@@ -22,15 +22,44 @@ imports only ``rapidnet_tpu_torch``, torch and numpy, and in order:
 5. times the kernel and the plain version (median of 7 solves each,
    inputs staged on the device, synchronised around each solve).
 
+Then the batched kernel, at B = 32 instances whose states are
+x0 * (1 + 0.02 N(0, 1)) (numpy seed 7, as bench.py:133-136):
+
+6a. holds every instance of a batched call, in the shared-forecast form
+    (uhat and e read by every instance) and in the stacked form, to the
+    single-solve kernel on that instance's step: control, u, x, y and
+    the trace within 1e-6 * max(|single|, 1), and says whether they are
+    equal bit for bit, as they should be;
+6b. holds all 32 instances to the plain batched version at 500
+    iterations (1e-3 bound, as phase 3), and checks that under a
+    tolerance every instance of a batched call stops at the plain
+    version's iteration for it;
+6c. holds the batched entry at B = 1 to the single solve, bit for bit;
+    with ``--reference-kernel PATH`` (an earlier ``apg_solve.cu``) also
+    the single solve to that source's kernel;
+7.  runs 3-step batched closed loops through
+    ``BatchedSmpcController(device="cuda")`` with a shared forecaster,
+    cold and warm-started: one kernel call per step, finite controls and
+    KPIs, and instance 0's controls agree with a single-instance
+    ``SmpcController(device="cuda")`` from the same state;
+8.  times it: batch-32 solves/s (median of 5 batched 500-iteration
+    solves), the pipelined rate (4 batched solves enqueued back to back,
+    one synchronise, median of 3 rounds), the plain batched version
+    (median of 3), and the batched solve's peak device memory.
+
 Each phase prints its own line.  The last lines are the card's name and
-power limit, one JSON line describing each kernel, and the result
+power limit, one JSON line describing each kernel (with its bound: the
+larger of its FP32 operations over 67 TFLOP/s and its bytes, each input
+read once and each output written once, over 3.35 TB/s), and the result
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 the result line, as does a machine without a CUDA GPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
+import ctypes
 import json
 import subprocess
 import sys
@@ -46,6 +75,13 @@ WITNESS_FACTOR = 4.0  # the kernel may stray from the float64 witness
                       # at most this many times as far as the plain
                       # float32 version does: two float32 solves that
                       # sum in another order drift alike
+BATCH = 32            # bench.py:32
+SAME_FACTOR = 1e-6    # batched against single kernel: the same code on
+                      # the same inputs, expected equal bit for bit
+BATCH_REPEATS = 5     # bench.py:138-147
+PIPELINE_DEPTH, PIPELINE_ROUNDS = 4, 3     # bench.py:161-171
+FP32_FLOPS = 67e12    # H100 SXM, FP32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
 
 
 class SmokeFailure(Exception):
@@ -92,6 +128,78 @@ def witness_check(name, kern, plain, wit):
     return e_k, e_p
 
 
+def compare_instances(name, got, refs):
+    """Instance b of the batched outputs ``got`` against ``refs[b]``, on
+    control, u, x, y and the trace: max |error| within SAME_FACTOR *
+    max(|ref|, 1).  Returns (max error, whether all were bit-equal)."""
+    import torch
+    keys = ("control", "u", "x", "primal_infeasibility", "y.xi", "y.psi")
+
+    def leaf(out, k):
+        return out["y"][k[2:]] if k.startswith("y.") else out[k]
+
+    worst, equal = 0.0, True
+    for k in keys:
+        err, scale = 0.0, 0.0
+        for b, ref in enumerate(refs):
+            g, r = leaf(got, k)[b], leaf(ref, k)
+            if not (torch.isfinite(g).all() and torch.isfinite(r).all()):
+                raise SmokeFailure(f"{name}.{k}[{b}]: non-finite values")
+            equal &= bool(torch.equal(g, r))
+            err = max(err, float((g.double() - r.double()).abs().max()))
+            scale = max(scale, float(r.abs().max()))
+        bound = SAME_FACTOR * max(scale, 1.0)
+        print(f"[batch] {name}.{k:22s} max_abs_err {err:.6g} over "
+              f"{len(refs)} instances  bound {bound:.6g}")
+        if not err <= bound:
+            raise SmokeFailure(f"{name}.{k}: batched and single kernel "
+                               f"disagree ({err:.6g} > {bound:.6g})")
+        worst = max(worst, err)
+    for b, ref in enumerate(refs):
+        if int(got["iterations"][b]) != int(ref["iterations"]):
+            raise SmokeFailure(f"{name}: instance {b} iterations differ")
+    return worst, equal
+
+
+def solve_bound(kc, tensors, outputs, iterations, prefix_stages):
+    """The least time (ms) the card could take for a solve and what
+    sets it: the FP32 operations of its five products per row and the
+    prefix aggregations, over 67 TFLOP/s, against the bytes of its
+    inputs (each distinct buffer once, a batch-stride-0 view once) and
+    outputs over 3.35 TB/s.  Elementwise work (~5% of the operations)
+    is left out.  Returns (bound_ms, bound_by, flops, bytes)."""
+    fa = kc["fa"]
+    N, ns, nx = fa["d1"].shape
+    nu = fa["g"].shape[-1]
+    nv = fa["invWbar"].shape[0]
+    per_row = 2 * (nu * nv + nx * nv + nv * nv + nv * nu + nu * nx)
+    n_agg = sum(1 for s in prefix_stages if s > 0)
+    B = outputs["u"].shape[0] if outputs["u"].dim() == 4 else 1
+    flops = iterations * B * (N * ns * per_row +
+                              2 * n_agg * ns * ns * (nx + nv))
+    storages = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        storages[st.data_ptr()] = st.nbytes()
+    nbytes = sum(storages.values()) + sum(
+        t.numel() * t.element_size() for t in
+        (outputs["x"], outputs["u"], outputs["y"]["xi"],
+         outputs["y"]["psi"], outputs["primal_infeasibility"],
+         outputs["iterations"], outputs["control"]))
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def solve_inputs(kc, step):
+    """Every tensor a solve reads: the constants and the step."""
+    from rapidnet_tpu_torch.ops import apg_solve as K
+    return ([kc["fa"][k] for k in K.ROW_KEYS] +
+            [kc[k] for k in K.MATRIX_KEYS] +
+            [step[k] for k in ("beta", "uhat", "e", "x0", "prev_u",
+                               "prev_uhat")])
+
+
 def as_f64(d):
     """A copy of a dict of tensors (nested dicts too) in float64."""
     return {k: as_f64(v) if isinstance(v, dict) else v.double()
@@ -100,12 +208,16 @@ def as_f64(d):
 
 def build_problem(device):
     """The port's copy of bench.py:42-65 (Barcelona-scale synthetic)."""
+    import numpy as np
     from rapidnet_tpu_torch.convert import (factor_arrays, factor_tensors,
-                                            step_arrays, step_tensors)
+                                            shared_step_tensors,
+                                            stacked_step_tensors, step_arrays,
+                                            step_tensors)
     from rapidnet_tpu_torch.model.config import synthetic_config
     from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
     from rapidnet_tpu_torch.model.network import synthetic_network
     from rapidnet_tpu_torch.model.scenario_tree import generate_tree
+    from rapidnet_tpu_torch.solver.apg import expand_shared_step
     from rapidnet_tpu_torch.solver.tuning import auto_tune
 
     nx, nu, nd, ne = 63, 114, 88, 17
@@ -123,10 +235,31 @@ def build_problem(device):
             fc.nominal_demand, fc.nominal_prices, x0, cfg.prev_u,
             cfg.prev_demand)), device)
 
-    return cfg, eng, net, tree, fa, make_step
+    def make_batch(x0s, shared=True):
+        """B instances from states x0s: assembled on the device from the
+        shared base (uhat and e with batch stride 0), or stacked from B
+        single steps."""
+        B = len(x0s)
+        if not shared:
+            return stacked_step_tensors([step_arrays(eng.prepare_step(
+                fc.nominal_demand, fc.nominal_prices, x0, cfg.prev_u,
+                cfg.prev_demand)) for x0 in x0s], device)
+        base, inst = shared_step_tensors(*eng.prepare_step_shared(
+            fc.nominal_demand, fc.nominal_prices, x0s,
+            np.tile(cfg.prev_u, (B, 1)), np.tile(cfg.prev_demand, (B, 1))),
+            device)
+        return expand_shared_step(base, **inst)
+
+    return cfg, eng, net, tree, fa, make_step, make_batch
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reference-kernel", default=None,
+                    help="an earlier csrc/apg_solve.cu: phase 6c also "
+                         "holds the single solve to its kernel, bit for "
+                         "bit")
+    args = ap.parse_args()
     import numpy as np
     import torch
 
@@ -137,6 +270,7 @@ def main() -> int:
     from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
     from rapidnet_tpu_torch.ops import apg_solve as K
     from rapidnet_tpu_torch.ops import build
+    from rapidnet_tpu_torch.solver.batch import BatchedSmpcController
     from rapidnet_tpu_torch.solver.controller import SmpcController
 
     # full float32 products everywhere (the JAX package's HIGHEST)
@@ -159,7 +293,7 @@ def main() -> int:
 
     # 2. the Barcelona-scale problem
     t0 = time.perf_counter()
-    cfg, eng, net, tree, fa, make_step = build_problem(device)
+    cfg, eng, net, tree, fa, make_step, make_batch = build_problem(device)
     prefix = eng.factor_step().prefix_stages
     hyper = dict(inv_step=1.0 / cfg.step_size, step_size=cfg.step_size,
                  penalty_state=cfg.penalty_state,
@@ -236,7 +370,7 @@ def main() -> int:
 
     steps = 4
     ctrl = controller("auto")
-    K.apg_solve.launches = 0
+    K.apg_solve.launches = K.apg_solve_batch.launches = 0
     t0 = time.perf_counter()
     log = ctrl.closed_loop(steps)
     loop_ms = (time.perf_counter() - t0) * 1e3 / steps
@@ -285,17 +419,199 @@ def main() -> int:
         print(f"[timing] {name} {MAX_ITER}-iteration solve: median "
               f"{med[name]:.3f} ms of {REPEATS} ({runs})")
 
+    single_bound = solve_bound(kc, solve_inputs(kc, step_r), out, MAX_ITER,
+                               prefix)
+
+    # 6. the batched kernel at B = 32
+    rng = np.random.default_rng(7)
+    x0s = (x0 * (1.0 + 0.02 * rng.standard_normal((BATCH, x0.size)))
+           ).astype(np.float32)
+    steps_sh = make_batch(x0s)
+    steps_st = make_batch(x0s, shared=False)
+    print(f"[batch] B {BATCH}: uhat batch stride "
+          f"{steps_sh['uhat'].stride(0)} (shared), "
+          f"{steps_st['uhat'].stride(0)} (stacked)")
+
+    def instance(steps, b):
+        return {k: v[b].contiguous() for k, v in steps.items()}
+
+    # 6a. every instance against the single-solve kernel
+    bitwise = {}
+    for form, steps_b in (("shared", steps_sh), ("stacked", steps_st)):
+        kb = K.apg_solve_batch(kc, steps_b, None, **hyper)
+        singles = [K.apg_solve(kc, instance(steps_b, b), None, **hyper)
+                   for b in range(BATCH)]
+        _, bitwise[form] = compare_instances(f"6a.{form}", kb, singles)
+        print(f"[batch] 6a.{form}: all {BATCH} instances equal to the "
+              f"single-solve kernel bit for bit: {bitwise[form]}")
+    del singles
+
+    # 6b. every instance against the plain version; a tolerance batch
+    kb = K.apg_solve_batch(kc, steps_sh, None, **hyper)
+    pb = K.apg_solve_plain(kc, steps_sh, None, **hyper)
+    for k in ("control", "u", "x", "primal_infeasibility"):
+        errs["batch." + k] = check_close("6b." + k, kb[k], pb[k])
+    for k in ("xi", "psi"):
+        check_close(f"6b.y.{k}", kb["y"][k], pb["y"][k])
+    kt = K.apg_solve_batch(kc, steps_sh, None, tolerance=tol, **hyper)
+    pt = K.apg_solve_plain(kc, steps_sh, None, tolerance=tol, **hyper)
+    its_k, its_p = kt["iterations"].tolist(), pt["iterations"].tolist()
+    print(f"[batch] 6b.tolerance {tol:g}: kernel exits {sorted(set(its_k))}"
+          f" (per instance {its_k})")
+    if its_k != its_p:
+        raise SmokeFailure(f"tolerance exits differ: kernel {its_k}, "
+                           f"plain {its_p}")
+    for b, it in enumerate(its_k):
+        if bool((kt["primal_infeasibility"][b, it:] != 0).any()):
+            raise SmokeFailure(f"instance {b}: trace not zero past exit")
+    check_close("6b.tol.control", kt["control"], pt["control"])
+
+    # 6c. the batched entry at B = 1 is the single solve
+    one = {k: v[:1] for k, v in steps_sh.items()}
+    b1 = K.apg_solve_batch(kc, one, None, **hyper)
+    s1 = K.apg_solve(kc, instance(steps_sh, 0), None, **hyper)
+    _, eq1 = compare_instances("6c.B=1", b1, [s1])
+    if not eq1:
+        raise SmokeFailure("B = 1 differs from the single solve")
+    print("[batch] 6c: B = 1 equals the single solve bit for bit: True")
+    if args.reference_kernel:
+        ref_lib = ctypes.CDLL(str(build.build("apg_solve",
+                                              args.reference_kernel)))
+        with torch.cuda.device(device):
+            r1 = K._launch(ref_lib, torch.cuda.current_stream().cuda_stream,
+                           kc, instance(steps_sh, 0), None, batch=None,
+                           tolerance=None, **hyper)
+        same = all(torch.equal(r1[k], s1[k]) for k in ("x", "u",
+                   "primal_infeasibility", "iterations")) and all(
+            torch.equal(r1["y"][k], s1["y"][k]) for k in ("xi", "psi"))
+        print(f"[batch] 6c: single solve equals the kernel of "
+              f"{args.reference_kernel} bit for bit: {same}")
+        if not same:
+            raise SmokeFailure("the single solve changed")
+
+    # 7. batched closed loops through the controller (the batch's main
+    # path), cold and warm-started
+    def batched(warm):
+        fc = synthetic_forecaster(N=24, nd=net.nd, nu=net.nu,
+                                  sim_horizon=4, seed=42)
+        return BatchedSmpcController(copy.deepcopy(cfg), net, tree, fc,
+                                     x0s, warm_start=warm, device="cuda")
+
+    b_steps, b_launches, blogs = 3, 0, {}
+    for warm in (False, True):
+        bctrl = batched(warm)
+        K.apg_solve.launches = K.apg_solve_batch.launches = 0
+        t0 = time.perf_counter()
+        blog = bctrl.closed_loop(b_steps)
+        loop_ms = (time.perf_counter() - t0) * 1e3 / b_steps
+        n = K.apg_solve_batch.launches
+        b_launches += n
+        label = "warm" if warm else "cold"
+        print(f"[batched_loop] {label}: {b_steps} steps of B {BATCH}, "
+              f"batched kernel calls {n}, single-solve calls "
+              f"{K.apg_solve.launches}, solve ms per step "
+              f"{', '.join(f'{m:.3f}' for m in blog['solve_times_ms'])}; "
+              f"whole step {loop_ms:.3f} ms")
+        if n != b_steps or K.apg_solve.launches:
+            raise SmokeFailure(f"{n} batched kernel calls for {b_steps} "
+                               "batched solves")
+        kpis = {k: blog[k] for k in ("economicKpi", "smoothKpi",
+                                     "safetyKpi", "networkKpi")}
+        if not (np.isfinite(blog["controls"]).all() and
+                all(np.isfinite(v).all() for v in kpis.values())):
+            raise SmokeFailure(f"{label} batched loop: non-finite "
+                               "controls or KPIs")
+        print(f"[batched_loop] {label} kpis of instance 0: " + json.dumps(
+            {k: float(v[0]) for k, v in kpis.items()}))
+        blogs[label] = blog
+    cfg0 = copy.deepcopy(cfg)
+    cfg0.set_current_state(x0s[0])
+    fc0 = synthetic_forecaster(N=24, nd=net.nd, nu=net.nu, sim_horizon=4,
+                               seed=42)
+    slog = SmpcController(cfg0, network=net, tree=tree, forecaster=fc0,
+                          device="cuda").closed_loop(b_steps)
+    check_close("7.instance0.controls",
+                torch.as_tensor(blogs["cold"]["controls"][:, 0]),
+                torch.as_tensor(np.array([slog[f"control{t}"]
+                                          for t in range(b_steps)])))
+
+    # 8. timing: batched solves, inputs staged on the device
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, res
+
+    batch_ms = []
+    for r in range(BATCH_REPEATS):
+        steps_r = make_batch((x0 * (1.0 + 0.02 * rng.standard_normal(
+            (BATCH, x0.size)))).astype(np.float32))
+        ms_r, out_b = timed(lambda: K.apg_solve_batch(kc, steps_r, None,
+                                                      **hyper))
+        batch_ms.append(ms_r)
+        if not bool(torch.isfinite(out_b["control"]).all()):
+            raise SmokeFailure("batched solve gave non-finite controls")
+    batch_med = float(np.median(batch_ms))
+    per = []
+    for _ in range(PIPELINE_ROUNDS):
+        ms_r, _ = timed(lambda: [K.apg_solve_batch(kc, steps_r, None,
+                                                   **hyper)
+                                 for _ in range(PIPELINE_DEPTH)])
+        per.append(ms_r / PIPELINE_DEPTH)
+    pipe_med = float(np.median(per))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)
+    K.apg_solve_batch(kc, steps_r, None, **hyper)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    plain_batch = [timed(lambda: K.apg_solve_plain(
+        kc, steps_r, None, **hyper))[0] for _ in range(3)]
+    plain_batch_ms = float(np.median(plain_batch))
+    batch_bound = solve_bound(kc, solve_inputs(kc, steps_r), out_b,
+                              MAX_ITER, prefix)
+    print(f"[timing] batched kernel, B {BATCH}, {MAX_ITER} iterations: "
+          f"median {batch_med:.3f} ms of {BATCH_REPEATS} ("
+          f"{', '.join(f'{t:.3f}' for t in batch_ms)}): "
+          f"{BATCH * 1e3 / batch_med:.3f} solves/s")
+    print(f"[timing] pipelined, {PIPELINE_DEPTH} batched calls per "
+          f"synchronise: median {pipe_med:.3f} ms per call of "
+          f"{PIPELINE_ROUNDS} rounds ({', '.join(f'{t:.3f}' for t in per)})"
+          f": {BATCH * 1e3 / pipe_med:.3f} solves/s")
+    print(f"[timing] single solve {med['kernel']:.3f} ms: "
+          f"{1e3 / med['kernel']:.3f} solves/s; batched per instance "
+          f"{batch_med / BATCH:.3f} ms")
+    print(f"[timing] plain batched version, B {BATCH}: median "
+          f"{plain_batch_ms:.3f} ms of 3 ("
+          f"{', '.join(f'{t:.3f}' for t in plain_batch)})")
+    print(f"[memory] batched solve: peak {peak / 2**20:.3f} MiB allocated, "
+          f"{(peak - held) / 2**20:.3f} MiB above the "
+          f"{held / 2**20:.3f} MiB held before it")
+    for name, (b_ms, by, flops, nbytes) in (("single", single_bound),
+                                            ("batched", batch_bound)):
+        print(f"[bound] {name}: {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.3f} MB: {b_ms:.6f} ms, set by {by}")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
-    print(json.dumps({"kernels": [{
-        "name": "apg_solve", "route": "cuda",
-        "source": "rapidnet_tpu_torch/csrc/apg_solve.cu",
-        "replaces": "rapidnet_tpu/ops/pallas_apg.py:177",
-        "launches": launches, "max_abs_err": errs["u"],
-        "ms": med["kernel"], "plain_ms": med["plain"]}]}))
+    source = "rapidnet_tpu_torch/csrc/apg_solve.cu"
+    print(json.dumps({"kernels": [
+        {"name": "apg_solve", "route": "cuda", "source": source,
+         "replaces": "rapidnet_tpu/ops/pallas_apg.py:177",
+         "launches": launches, "max_abs_err": errs["u"],
+         "ms": med["kernel"], "plain_ms": med["plain"],
+         "bound_ms": single_bound[0], "bound_by": single_bound[1],
+         "library_ms": None},
+        {"name": "apg_solve_batch", "route": "cuda", "source": source,
+         "replaces": "rapidnet_tpu/ops/pallas_apg.py:477",
+         "launches": b_launches, "max_abs_err": errs["batch.u"],
+         "ms": batch_med, "plain_ms": plain_batch_ms,
+         "bound_ms": batch_bound[0], "bound_by": batch_bound[1],
+         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of one whole-solve kernel call goes, on one GPU.
 
-    python3 profile_solve.py [--iterations 500] [--out profile_out]
+    python3 profile_solve.py [--iterations 500] [--batch B] [--out profile_out]
 
 Builds the Barcelona-scale problem of ``chip_smoke.py``, warms the
-kernel up, then prints:
+kernel up, then prints, for one solve or, with ``--batch B``, one
+batched call of B solves (states x0 * (1 + 0.02 N(0, 1)), numpy seed 7,
+assembled on the device from the shared base):
 
-* the CUDA-event time of one solve and the host's time to enqueue it;
+* the CUDA-event time of one call and the host's time to enqueue it;
 * per phase kernel, its launches and its device µs per iteration
   (``torch.profiler``);
 * the device's busy time over the span of the traced solve, and the
@@ -45,6 +47,9 @@ def busy_span(intervals):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iterations", type=int, default=500)
+    ap.add_argument("--batch", type=int, default=0,
+                    help="trace one batched call of this many solves "
+                         "(0: one single solve)")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
 
@@ -62,26 +67,39 @@ def main() -> int:
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     device = torch.device("cuda", 0)
-    cfg, eng, net, tree, fa, make_step = build_problem(device)
+    cfg, eng, net, tree, fa, make_step, make_batch = build_problem(device)
     hyper = dict(inv_step=1.0 / cfg.step_size, step_size=cfg.step_size,
                  penalty_state=cfg.penalty_state,
                  penalty_safety=cfg.penalty_safety,
                  xs_upper=float(XS_UPPER), max_iterations=n_it)
     kc = K.kernel_constants(fa, prefix_stages=eng.factor_step().prefix_stages,
                             max_iterations=n_it)
-    step = make_step(cfg.current_x)
+    if args.batch:
+        import numpy as np
+        x0 = cfg.current_x
+        rng = np.random.default_rng(7)
+        steps = make_batch((x0 * (1.0 + 0.02 * rng.standard_normal(
+            (args.batch, x0.size)))).astype(np.float32))
+
+        def call():
+            return K.apg_solve_batch(kc, steps, None, **hyper)
+    else:
+        step = make_step(cfg.current_x)
+
+        def call():
+            return K.apg_solve(kc, step, None, **hyper)
     for _ in range(3):
-        K.apg_solve(kc, step, None, **hyper)
+        call()
     torch.cuda.synchronize()
 
-    summary = {"iterations": n_it, "solves": []}
+    summary = {"iterations": n_it, "batch": args.batch, "solves": []}
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     for _ in range(3):
         torch.cuda.synchronize()
         ev0.record()
         t0 = time.perf_counter()
-        K.apg_solve(kc, step, None, **hyper)
+        call()
         t1 = time.perf_counter()
         ev1.record()
         torch.cuda.synchronize()
@@ -93,7 +111,7 @@ def main() -> int:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        K.apg_solve(kc, step, None, **hyper)
+        call()
         torch.cuda.synchronize()
     prof.export_chrome_trace(str(out_dir / "trace.json"))
 

@@ -6,7 +6,8 @@ the JAX package's, because importing any ``rapidnet_tpu`` module imports
 JAX; tensors begin at the factor-array boundary (``convert``).  The
 solver is plain PyTorch (``solver``), and the whole APG solve runs as a
 CUDA kernel written for Hopper (``ops/apg_solve.py``,
-``csrc/apg_solve.cu``), built with nvcc on first use.
+``csrc/apg_solve.cu``), built with nvcc on first use; the same kernel
+runs B independent solves in one call for ``BatchedSmpcController``.
 
 This package imports torch and never jax.
 """
@@ -18,6 +19,7 @@ from rapidnet_tpu_torch.model.scenario_tree import ScenarioTree
 from rapidnet_tpu_torch.model.config import SmpcConfig
 from rapidnet_tpu_torch.engine.engine import Engine
 from rapidnet_tpu_torch.solver.controller import SmpcController
+from rapidnet_tpu_torch.solver.batch import BatchedSmpcController
 
 __all__ = [
     "DwnNetwork",
@@ -25,4 +27,5 @@ __all__ = [
     "SmpcConfig",
     "Engine",
     "SmpcController",
+    "BatchedSmpcController",
 ]

@@ -1,12 +1,13 @@
 """The boundary between the NumPy host layer and the solver's tensors.
 
 Counterpart of ``_factor_arrays``/``_step_arrays`` in
-``rapidnet_tpu/solver/controller.py``.  ``factor_arrays`` and
+``rapidnet_tpu/solver/controller.py`` and ``_stack`` in
+``rapidnet_tpu/solver/batch.py``.  ``factor_arrays`` and
 ``step_arrays`` gather the host layer's outputs into plain dicts of
-numpy arrays with the JAX package's keys; ``factor_tensors`` and
-``step_tensors`` turn such dicts (from either package) into float32
-tensors on one device, so the tests can feed both packages the same
-inputs.
+numpy arrays with the JAX package's keys; ``factor_tensors``,
+``step_tensors``, ``stacked_step_tensors`` and ``shared_step_tensors``
+turn such dicts (from either package) into float32 tensors on one
+device, so the tests can feed both packages the same inputs.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from rapidnet_tpu_torch.engine.engine import Engine, StepData
 
 PREFIX_KEYS = ("prefix_C", "prefix_Cp", "prefix_Bp")
+SHARED_BASE_KEYS = ("beta", "uhat", "e")
 
 
 def factor_arrays(engine: Engine) -> dict:
@@ -64,3 +66,22 @@ def factor_tensors(fa_np: dict, device) -> dict:
 
 def step_tensors(step_np: dict, device) -> dict:
     return {k: _tensor(v, device) for k, v in step_np.items()}
+
+
+def stacked_step_tensors(steps_np, device) -> dict:
+    """B step dicts of numpy arrays -> one dict of (B, ...) tensors (the
+    JAX package's ``solver/batch.py::_stack``)."""
+    return {k: _tensor(np.stack([s[k] for s in steps_np]), device)
+            for k in steps_np[0]}
+
+
+def shared_step_tensors(base_np: dict, inst_np: dict, device
+                        ) -> tuple[dict, dict]:
+    """``Engine.prepare_step_shared``'s ``(base, inst)`` -> tensors.
+
+    ``base`` keeps the solver's fan arrays (beta, uhat, e: O(tree)
+    bytes); ``inst`` the per-instance (B, ...) vectors x0, prev_u,
+    prev_uhat and delta_beta0 (O(B nu) bytes).
+    """
+    return ({k: _tensor(base_np[k], device) for k in SHARED_BASE_KEYS},
+            {k: _tensor(v, device) for k, v in inst_np.items()})

@@ -1,9 +1,9 @@
 """The whole-solve APG kernel: its wrapper, its plain version, its count.
 
-Counterpart of ``rapidnet_tpu/ops/pallas_apg.py`` (``make_pallas_solve``
-and the single-solve wrapper ``make_apg_pallas``).  The kernel is
-``csrc/apg_solve.cu``, CUDA C++ for sm_90a, built on first use by
-``ops/build.py``.
+Counterpart of ``rapidnet_tpu/ops/pallas_apg.py`` (``make_pallas_solve``,
+the single-solve wrapper ``make_apg_pallas`` and the batch wrappers).
+The kernel is ``csrc/apg_solve.cu``, CUDA C++ for sm_90a, built on first
+use by ``ops/build.py``.
 
 ``apg_solve`` is the wrapper.  It checks its inputs, then:
 
@@ -11,9 +11,17 @@ and the single-solve wrapper ``make_apg_pallas``).  The kernel is
   (the same solve in plain PyTorch: ``solver/apg.py``);
 * for tensors on a CUDA device it launches the kernel, or raises.
 
-``apg_solve.launches`` counts kernel launches (one per solve) and
-nothing else.  The dual pair keeps the XLA path's unpadded layout
-``{"xi": (N, ns, 2nx), "psi": (N, ns, nu)}``.
+``apg_solve_batch`` is the batched wrapper (the counterpart of
+``make_apg_pallas_batch`` and ``make_apg_pallas_batch_shared``,
+``pallas_apg.py:477-523``): B independent solves over one factor step
+in one call of the same kernel, with a leading batch axis on every
+per-instance array.  Its plain version is ``apg_solve_plain`` too: the
+plain solve takes the leading batch axis as it comes.
+
+``apg_solve.launches`` and ``apg_solve_batch.launches`` count kernel
+calls (one per solve, one per batched solve) and nothing else.  The
+dual pair keeps the XLA path's unpadded layout ``{"xi": (N, ns, 2nx),
+"psi": (N, ns, nu)}``, with a leading B in a batch.
 
 The kernel keeps one slot's stage rows, and the branching prefix's
 slot rows, in a block's shared memory (at most 227 KB): at the
@@ -66,7 +74,7 @@ def kernel_constants(fa: dict, *, prefix_stages: tuple,
     }
 
 
-def _check(name, t, shape, device):
+def _check(name, t, shape, device, *, contiguous=True):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t)}")
     if t.device != device:
@@ -77,11 +85,28 @@ def _check(name, t, shape, device):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
 
 
-def _check_inputs(kc, step, y0, max_iterations):
+def _check_shareable(name, t, shape, device) -> int:
+    """A (B, ...) step input that the kernel also takes as one array read
+    by every instance (an ``expand`` of it: batch stride 0).  Returns the
+    batch stride in elements."""
+    _check(name, t, shape, device, contiguous=False)
+    if not t[0].is_contiguous():
+        raise ValueError(f"{name}: an instance is not contiguous")
+    inner = t[0].numel()
+    if t.shape[0] == 1 or t.stride(0) == 0:
+        return 0
+    if t.stride(0) != inner:
+        raise ValueError(f"{name}: batch stride {t.stride(0)}, the kernel "
+                         f"takes {inner} (one instance after another) or 0 "
+                         "(one array for every instance)")
+    return inner
+
+
+def _check_constants(kc, max_iterations):
     fa = kc["fa"]
     N, ns, nx = fa["d1"].shape
     nu = fa["g"].shape[-1]
@@ -97,6 +122,11 @@ def _check_inputs(kc, step, y0, max_iterations):
     }
     for k, shp in shapes.items():
         _check(k, fa[k] if k in ROW_KEYS else kc[k], shp, dev)
+    return N, ns, nx, nu, nv, dev
+
+
+def _check_inputs(kc, step, y0, max_iterations):
+    N, ns, nx, nu, nv, dev = _check_constants(kc, max_iterations)
     for k, shp in {"beta": (N, ns, nv), "uhat": (N, ns, nu),
                    "e": (N, ns, nx), "x0": (nx,), "prev_u": (nu,),
                    "prev_uhat": (nu,)}.items():
@@ -104,13 +134,35 @@ def _check_inputs(kc, step, y0, max_iterations):
     if y0 is not None:
         _check("y0.xi", y0["xi"], (N, ns, 2 * nx), dev)
         _check("y0.psi", y0["psi"], (N, ns, nu), dev)
-    return N, ns, nx, nu, nv, dev
+    return dev
+
+
+def _check_batch_inputs(kc, steps, y0, max_iterations):
+    """Returns B, the batch strides of uhat and e, and the device."""
+    N, ns, nx, nu, nv, dev = _check_constants(kc, max_iterations)
+    beta = steps["beta"]
+    if not isinstance(beta, torch.Tensor) or beta.dim() != 4:
+        raise ValueError("steps['beta'] must be a (B, N, ns, nv) tensor")
+    B = beta.shape[0]
+    if B < 1:
+        raise ValueError("an empty batch")
+    for k, shp in {"beta": (N, ns, nv), "x0": (nx,), "prev_u": (nu,),
+                   "prev_uhat": (nu,)}.items():
+        _check(k, steps[k], (B, *shp), dev)
+    uhat_bs = _check_shareable("uhat", steps["uhat"], (B, N, ns, nu), dev)
+    e_bs = _check_shareable("e", steps["e"], (B, N, ns, nx), dev)
+    if y0 is not None:
+        _check("y0.xi", y0["xi"], (B, N, ns, 2 * nx), dev)
+        _check("y0.psi", y0["psi"], (B, N, ns, nu), dev)
+    return B, uhat_bs, e_bs, dev
 
 
 def apg_solve_plain(kc, step, y0=None, *, inv_step, step_size,
                     penalty_state, penalty_safety, xs_upper,
                     max_iterations, tolerance=None):
-    """The plain PyTorch version: ``solver/apg.py``'s solve, any device."""
+    """The plain PyTorch version: ``solver/apg.py``'s solve, any device,
+    single or (with a leading batch axis on ``step`` and ``y0``)
+    batched."""
     run = apg_mod.make_apg(
         prefix_stages=kc["prefix_stages"], inv_step=inv_step,
         step_size=step_size, penalty_state=penalty_state,
@@ -132,7 +184,7 @@ def apg_solve(kc, step, y0=None, *, inv_step, step_size, penalty_state,
                  penalty_state=penalty_state, penalty_safety=penalty_safety,
                  xs_upper=xs_upper, max_iterations=max_iterations,
                  tolerance=tolerance)
-    *_, dev = _check_inputs(kc, step, y0, max_iterations)
+    dev = _check_inputs(kc, step, y0, max_iterations)
     if dev.type == "cpu":
         return apg_solve_plain(kc, step, y0, **hyper)
     if dev.type != "cuda":
@@ -142,7 +194,7 @@ def apg_solve(kc, step, y0=None, *, inv_step, step_size, penalty_state,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         apg_solve.launches += 1
-        out = _launch(lib, stream, kc, step, y0, **hyper)
+        out = _launch(lib, stream, kc, step, y0, batch=None, **hyper)
     lo, hi = ss.root_control_bounds(kc["fa"])
     out["control"] = torch.clamp(out["u"][0, 0], lo, hi)
     return out
@@ -151,36 +203,85 @@ def apg_solve(kc, step, y0=None, *, inv_step, step_size, penalty_state,
 apg_solve.launches = 0
 
 
-def _declare(lib):
-    fn = lib.apg_solve
+def apg_solve_batch(kc, steps, y0=None, *, inv_step, step_size,
+                    penalty_state, penalty_safety, xs_upper, max_iterations,
+                    tolerance=None):
+    """B independent whole APG solves in one call.
+
+    Every leaf of ``steps`` (and of ``y0``) carries a leading batch axis,
+    as do the outputs; ``uhat`` and ``e`` may be ``expand``-ed views of
+    one array (batch stride 0).  Returns control (B, nu), x, u, y, the
+    traces (B, max_iterations) and ``iterations`` (B,).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    hyper = dict(inv_step=inv_step, step_size=step_size,
+                 penalty_state=penalty_state, penalty_safety=penalty_safety,
+                 xs_upper=xs_upper, max_iterations=max_iterations,
+                 tolerance=tolerance)
+    B, uhat_bs, e_bs, dev = _check_batch_inputs(kc, steps, y0,
+                                                max_iterations)
+    if dev.type == "cpu":
+        return apg_solve_plain(kc, steps, y0, **hyper)
+    if dev.type != "cuda":
+        raise ValueError(f"apg_solve_batch runs on cpu or cuda, not "
+                         f"{dev.type}")
+    lib = build.load("apg_solve")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        apg_solve_batch.launches += 1
+        out = _launch(lib, stream, kc, steps, y0, batch=B, uhat_bs=uhat_bs,
+                      e_bs=e_bs, **hyper)
+    lo, hi = ss.root_control_bounds(kc["fa"])
+    out["control"] = torch.clamp(out["u"][:, 0, 0], lo, hi)
+    return out
+
+
+apg_solve_batch.launches = 0
+
+
+def _entry(lib, batched: bool):
+    """The C entry ``apg_solve_batch`` or ``apg_solve``, declared."""
+    fn = lib.apg_solve_batch if batched else lib.apg_solve
     if fn.argtypes is None:
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([ptr] * (len(ROW_KEYS) + len(MATRIX_KEYS) +
-                                len(STEP_KEYS) + len(STATE_KEYS)) +
-                       [i32] * 7 + [f32] * 5 + [i32, f32, ptr])
+        ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_longlong, ctypes.c_float)
+        fn.argtypes = (
+            [ptr] * (len(ROW_KEYS) + len(MATRIX_KEYS) + len(STEP_KEYS) +
+                     len(STATE_KEYS)) +
+            ([i32, i64, i64] if batched else []) +
+            [i32] * 7 + [f32] * 5 + [i32, f32, ptr])
         fn.restype = i32
         lib.apg_solve_error_string.argtypes = [i32]
         lib.apg_solve_error_string.restype = ctypes.c_char_p
     return fn
 
 
-def _launch(lib, stream, kc, step, y0, *, inv_step, step_size,
-            penalty_state, penalty_safety, xs_upper, max_iterations,
-            tolerance):
+def _launch(lib, stream, kc, step, y0, *, batch, uhat_bs=0, e_bs=0,
+            inv_step, step_size, penalty_state, penalty_safety, xs_upper,
+            max_iterations, tolerance):
     """Allocate the outputs and scratch, then run the kernel on
-    ``stream`` (the argument order of ``apg_solve`` in the source)."""
+    ``stream`` (the argument order of ``apg_solve`` in the source).
+
+    ``batch=None`` is the single solve (C entry ``apg_solve``); an int B
+    the batched one (``apg_solve_batch``), with a leading B on every
+    per-instance array.
+    """
     fa = kc["fa"]
     N, ns, nx = fa["d1"].shape
     nu = fa["g"].shape[-1]
     nv = fa["invWbar"].shape[0]
     dev = fa["d1"].device
+    lead = () if batch is None else (batch,)
 
     def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+        return torch.empty(lead + shape, dtype=torch.float32, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(lead + shape, dtype=torch.float32, device=dev)
 
     if y0 is None:
-        y_xi = torch.zeros((N, ns, 2 * nx), dtype=torch.float32, device=dev)
-        y_psi = torch.zeros((N, ns, nu), dtype=torch.float32, device=dev)
+        y_xi, y_psi = zeros(N, ns, 2 * nx), zeros(N, ns, nu)
     else:
         y_xi, y_psi = y0["xi"].clone(), y0["psi"].clone()
     state = {
@@ -190,12 +291,10 @@ def _launch(lib, stream, kc, step, y0, *, inv_step, step_size,
         "t": empty(N, ns, nx), "a": empty(N, ns, nv),
         "df_xi": empty(N, ns, 2 * nx), "df_psi": empty(N, ns, nu),
         # x, u and the trace start at zero, as the JAX solve's carry
-        "x": torch.zeros((N, ns, nx), dtype=torch.float32, device=dev),
-        "u": torch.zeros((N, ns, nu), dtype=torch.float32, device=dev),
+        "x": zeros(N, ns, nx), "u": zeros(N, ns, nu),
         "norm_part": empty(ns, 2), "champ_part": empty(ns, 6),
-        "trace": torch.zeros(max_iterations, dtype=torch.float32,
-                             device=dev),
-        "status": torch.zeros(2, dtype=torch.int32, device=dev),
+        "trace": zeros(max_iterations),
+        "status": torch.zeros(lead + (2,), dtype=torch.int32, device=dev),
     }
     pdu = step["prev_u"] - step["prev_uhat"]
     stepd = dict(step, pdu=pdu)
@@ -203,20 +302,23 @@ def _launch(lib, stream, kc, step, y0, *, inv_step, step_size,
             [kc[k].data_ptr() for k in MATRIX_KEYS] +
             [stepd[k].data_ptr() for k in STEP_KEYS] +
             [state[k].data_ptr() for k in STATE_KEYS])
-    fn = _declare(lib)
-    err = fn(*ptrs, N, ns, nx, nu, nv, kc["fp"], max_iterations,
+    hyper = (N, ns, nx, nu, nv, kc["fp"], max_iterations,
              float(inv_step), float(step_size),
              float(inv_step * penalty_state),
              float(inv_step * penalty_safety), float(xs_upper),
              int(tolerance is not None),
              float(tolerance) if tolerance is not None else 0.0, stream)
+    if batch is None:
+        err = _entry(lib, False)(*ptrs, *hyper)
+    else:
+        err = _entry(lib, True)(*ptrs, batch, uhat_bs, e_bs, *hyper)
     if err != 0:
         msg = lib.apg_solve_error_string(err).decode()
         raise RuntimeError(f"apg_solve kernel failed: error {err} ({msg})")
     return {"x": state["x"], "u": state["u"],
             "y": {"xi": state["y_xi"], "psi": state["y_psi"]},
             "primal_infeasibility": state["trace"],
-            "iterations": state["status"][1]}
+            "iterations": state["status"][..., 1]}
 
 
 def make_apg_kernel(fa: dict, *, prefix_stages: tuple, inv_step, step_size,
@@ -235,5 +337,41 @@ def make_apg_kernel(fa: dict, *, prefix_stages: tuple, inv_step, step_size,
 
     def run(step, y0=None):
         return apg_solve(kc, step, y0, **hyper)
+
+    return run
+
+
+def make_apg_kernel_batch(fa: dict, *, prefix_stages: tuple, inv_step,
+                          step_size, penalty_state, penalty_safety,
+                          xs_upper, max_iterations, tolerance=None):
+    """The batched wrapper (``make_apg_pallas_batch``'s counterpart).
+
+    Builds the kernel constants once and returns run(steps, y0=None),
+    every leaf of ``steps`` and ``y0`` with a leading batch axis.
+    """
+    kc = kernel_constants(fa, prefix_stages=prefix_stages,
+                          max_iterations=max_iterations)
+    hyper = dict(inv_step=inv_step, step_size=step_size,
+                 penalty_state=penalty_state, penalty_safety=penalty_safety,
+                 xs_upper=xs_upper, max_iterations=max_iterations,
+                 tolerance=tolerance)
+
+    def run(steps, y0=None):
+        return apg_solve_batch(kc, steps, y0, **hyper)
+
+    return run
+
+
+def make_apg_kernel_batch_shared(fa: dict, **kwargs):
+    """The shared-forecast batched wrapper
+    (``make_apg_pallas_batch_shared``'s counterpart): run(base, inst,
+    y0=None), with ``(base, inst)`` from ``Engine.prepare_step_shared``
+    as tensors.  Each instance's beta is assembled on the device; uhat
+    and e go to the kernel as one array read by every instance.
+    """
+    run_batch = make_apg_kernel_batch(fa, **kwargs)
+
+    def run(base, inst, y0=None):
+        return run_batch(apg_mod.expand_shared_step(base, **inst), y0)
 
     return run

@@ -45,20 +45,25 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+def _source(name: str, source=None) -> Path:
+    return Path(source) if source is not None else CSRC_DIR / f"{name}.cu"
+
+
+def library_path(name: str, source=None) -> Path:
+    src = _source(name, source).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; return it."""
-    so = library_path(name)
+def build(name: str, source=None) -> Path:
+    """Compile ``csrc/<name>.cu`` (or the file ``source``) unless its
+    library exists; return it."""
+    so = library_path(name, source)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name, source))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "

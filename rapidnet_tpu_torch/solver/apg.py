@@ -13,6 +13,20 @@ held to.
 * ``tolerance``: early termination on the true residual magnitude
   (``max_abs_residual``); the reference always runs the full budget.
   This path reads the magnitude on the host once per iteration.
+
+The batched solves (``make_apg_batch``, ``make_apg_batch_shared``: B
+independent instances over one factor step, the JAX package's ``vmap``
+of ``make_apg``) write the batch dimension out: the same loop runs with
+a leading batch axis on every per-instance tensor, and the sweeps reduce
+their norms, champions and stopping tests per instance.  Under a
+``tolerance`` an instance that has met it is frozen (``torch.where``
+keeps its state, its trace is zero past its exit) while the others go
+on, which is what a ``vmap`` of JAX's ``while_loop`` gives.  A loop over
+instances through the single solve would repeat its arithmetic exactly,
+but pay the per-operation overhead B times: at Barcelona scale with
+B = 32 that took 87-104 s on an H100 against ~2 s for one solve.  The
+batched products run as one larger product, so an instance of a batch
+can differ from its single solve in the last bits.
 """
 
 from __future__ import annotations
@@ -76,6 +90,8 @@ def make_apg(*, prefix_stages: tuple, inv_step: float, step_size: float,
     stage-0 u projected onto the physical bounds), x, u, v, the dual
     pair y and the per-iteration primal-infeasibility trace
     (zero-padded past the termination point when ``tolerance`` is set).
+    A leading batch axis on ``step`` and ``y0`` runs B instances at once
+    (``make_apg_batch``).
     """
     oracle_kw = dict(prefix_stages=prefix_stages, inv_step=inv_step,
                      step_size=step_size, penalty_state=penalty_state,
@@ -83,17 +99,24 @@ def make_apg(*, prefix_stages: tuple, inv_step: float, step_size: float,
     lams = nesterov_lambdas(max_iterations)
 
     def run(fa, step, y0=None):
-        N, ns = step["beta"].shape[:2]
+        lead = step["beta"].shape[:-3]
+        N, ns = step["beta"].shape[-3:-1]
         nx = fa["d1"].shape[-1]
         nu = fa["g"].shape[-1]
         nv = fa["invWbar"].shape[0]
-        zeros = step["beta"].new_zeros
+
+        def zeros(*shape):
+            return step["beta"].new_zeros((*lead, *shape))
+
         if y0 is None:
-            y0 = {"xi": zeros((N, ns, 2 * nx)), "psi": zeros((N, ns, nu))}
+            y0 = {"xi": zeros(N, ns, 2 * nx), "psi": zeros(N, ns, nu)}
         y = {"xi": y0["xi"], "psi": y0["psi"]}
         z = {"xi": torch.zeros_like(y["xi"]),
              "psi": torch.zeros_like(y["psi"])}
-        x, u, v = zeros((N, ns, nx)), zeros((N, ns, nu)), zeros((N, ns, nv))
+        x, u, v = zeros(N, ns, nx), zeros(N, ns, nu), zeros(N, ns, nv)
+        # instances still iterating, and their iteration counts
+        active = torch.ones(lead, dtype=torch.bool, device=x.device)
+        iterations = torch.zeros(lead, dtype=torch.int32, device=x.device)
         trace = []
         for it in range(max_iterations):
             lam = float(lams[it])
@@ -102,23 +125,79 @@ def make_apg(*, prefix_stages: tuple, inv_step: float, step_size: float,
             w_xi = y["xi"] + lam * z["xi"]
             w_psi = y["psi"] + lam * z["psi"]
             o = apg_oracle(fa, step, w_xi, w_psi, **oracle_kw)
-            y_new = {"xi": o["y_xi"], "psi": o["y_psi"]}
-            z = {k: y_new[k] - y[k] for k in y}
-            y = y_new
-            x, u, v = o["x"], o["u"], o["v"]
-            trace.append(ss.signed_max_abs(o["res_xi"], o["res_psi"]))
-            if tolerance is not None and not (
-                    float(ss.max_abs_residual(o["res_xi"], o["res_psi"]))
-                    > tolerance):
-                break
-        iterations = len(trace)
-        infeas = zeros((max_iterations,))
+            new = {"y_xi": o["y_xi"], "y_psi": o["y_psi"],
+                   "z_xi": o["y_xi"] - y["xi"],
+                   "z_psi": o["y_psi"] - y["psi"],
+                   "x": o["x"], "u": o["u"], "v": o["v"]}
+            signed = ss.signed_max_abs(o["res_xi"], o["res_psi"])
+            if tolerance is not None:
+                # an instance that has stopped keeps its state
+                old = {"y_xi": y["xi"], "y_psi": y["psi"], "z_xi": z["xi"],
+                       "z_psi": z["psi"], "x": x, "u": u, "v": v}
+                keep = ss.per_instance(active)
+                new = {k: torch.where(keep, new[k], old[k]) for k in new}
+                signed = torch.where(active, signed,
+                                     torch.zeros_like(signed))
+            y = {"xi": new["y_xi"], "psi": new["y_psi"]}
+            z = {"xi": new["z_xi"], "psi": new["z_psi"]}
+            x, u, v = new["x"], new["u"], new["v"]
+            trace.append(signed)
+            iterations += active.to(torch.int32)
+            if tolerance is not None:
+                active = active & (ss.max_abs_residual(o["res_xi"],
+                                                       o["res_psi"])
+                                   > tolerance)
+                if not bool(active.any()):
+                    break
+        infeas = zeros(max_iterations)
         if trace:
-            infeas[:iterations] = torch.stack(trace)
+            infeas[..., :len(trace)] = torch.stack(trace, dim=-1)
         lo, hi = ss.root_control_bounds(fa)
-        return {"control": torch.clamp(u[0, 0], lo, hi), "x": x, "u": u, "v": v, "y": y,
-                "primal_infeasibility": infeas,
-                "iterations": torch.tensor(iterations, dtype=torch.int32,
-                                           device=u.device)}
+        return {"control": torch.clamp(u[..., 0, 0, :], lo, hi), "x": x,
+                "u": u, "v": v, "y": y, "primal_infeasibility": infeas,
+                "iterations": iterations}
+
+    return run
+
+
+def make_apg_batch(**kwargs):
+    """Batched APG: B independent instances sharing the factor tensors.
+
+    Returns fn(fa, steps, y0=None): every leaf of ``steps`` (and of the
+    warm start ``y0``, when given) carries a leading batch axis, as do
+    the outputs (``iterations`` is (B,)).  It is ``make_apg``'s solve,
+    which takes the leading axis as it comes.
+    """
+    return make_apg(**kwargs)
+
+
+def expand_shared_step(base: dict, x0, prev_u, prev_uhat, delta_beta0):
+    """The step dict from the shared base + the per-instance vectors
+    (Engine.prepare_step_shared): only the root-stage beta differs.
+
+    With a leading batch axis on the vectors, every leaf of the result
+    gets one: beta is assembled on the vectors' device, and uhat and e
+    are views of the base with batch stride 0.
+    """
+    lead = tuple(delta_beta0.shape[:-1])
+    beta = base["beta"].expand(*lead, *base["beta"].shape).clone()
+    beta[..., 0, :, :] += delta_beta0[..., None, :]
+    return {"beta": beta,
+            "uhat": base["uhat"].expand(*lead, *base["uhat"].shape),
+            "e": base["e"].expand(*lead, *base["e"].shape),
+            "x0": x0, "prev_u": prev_u, "prev_uhat": prev_uhat}
+
+
+def make_apg_batch_shared(**kwargs):
+    """Batched APG over a shared forecast: fn(fa, base, inst, y0=None).
+
+    ``base`` holds the unbatched fan arrays; ``inst`` the per-instance
+    {x0, prev_u, prev_uhat, delta_beta0} (Engine.prepare_step_shared).
+    The batched steps are assembled on the device (``expand_shared_step``).
+    """
+    run_batch = make_apg_batch(**kwargs)
+
+    def run(fa, base, inst, y0=None):
+        return run_batch(fa, expand_shared_step(base, **inst), y0)
 
     return run

@@ -1,0 +1,249 @@
+"""Batched receding-horizon closed loops, in PyTorch.
+
+Counterpart of ``rapidnet_tpu/solver/batch.py``: B independent
+closed-loop SMPC instances in lockstep over one network, tree and factor
+step.  Per time step, every instance's forecast and disturbance
+elimination run on the host (NumPy), the B solves run as one batched
+call, and the built-in simulator advances each instance (NumPy).
+
+Typical uses: Monte-Carlo evaluation of a controller over initial
+conditions or demand realisations, tuning sweeps, and throughput
+benchmarking.
+
+This slice runs the APG algorithm on one device.  ``backend`` as in
+``solver/controller.py``:
+
+* ``'auto'`` (default): the batched whole-solve kernel wrapper
+  (``ops/apg_solve.apg_solve_batch``), which launches the CUDA kernel
+  on a CUDA device, with or without a tolerance, and runs its plain
+  version on the CPU;
+* ``'cuda'``: the same, and raises unless ``device`` is a CUDA device;
+* ``'torch'``: the plain batched PyTorch solve (``solver/apg.py``) on
+  any device.
+
+With one forecaster shared by every instance, the disturbance
+elimination runs once per step (``Engine.prepare_step_shared``) and the
+batch is assembled on the device from the shared base plus O(B nu)
+per-instance vectors.  With one forecaster per instance, B step dicts
+are prepared and stacked.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+
+from rapidnet_tpu_torch.convert import (factor_arrays, factor_tensors,
+                                        shared_step_tensors, step_arrays,
+                                        stacked_step_tensors)
+from rapidnet_tpu_torch.engine.engine import XS_UPPER, Engine
+from rapidnet_tpu_torch.model.config import ALGORITHM_APG, SmpcConfig
+from rapidnet_tpu_torch.model.forecaster import Forecaster
+from rapidnet_tpu_torch.model.network import DwnNetwork
+from rapidnet_tpu_torch.model.scenario_tree import ScenarioTree
+from rapidnet_tpu_torch.ops import apg_solve
+from rapidnet_tpu_torch.solver import apg as apg_mod
+from rapidnet_tpu_torch.solver.controller import BACKENDS, resolve_device
+
+
+class BatchedSmpcController:
+    """B closed-loop instances, one batched solve per time step.
+
+    Instances share the network, scenario tree, factor step and
+    iteration budget; they differ in initial state (``x0_batch``) and,
+    optionally, in demand realisation (pass one forecaster per instance
+    in ``forecasters``).  KPIs are tracked per instance.
+    """
+
+    def __init__(self, config: SmpcConfig, network: DwnNetwork,
+                 tree: ScenarioTree,
+                 forecasters: Forecaster | Sequence[Forecaster],
+                 x0_batch: np.ndarray,
+                 backend: str = "auto",
+                 warm_start: bool = False,
+                 tolerance: Optional[float] = None,
+                 device="cuda",
+                 mesh=None):
+        """device: where the solves run ('cuda' by default; raises when
+        no GPU is present).  mesh is the JAX controller's multi-device
+        option, not ported yet."""
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend '{backend}' "
+                             f"(expected one of {BACKENDS})")
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-GPU solves are not ported yet (ROADMAP queue 1, "
+                "item 12)")
+        if config.algorithm != ALGORITHM_APG:
+            raise NotImplementedError(
+                f"algorithm '{config.algorithm}': FBE/NAMA are not ported "
+                "yet (ROADMAP queue 1, item 8)")
+        self.device = resolve_device(device)
+        if backend == "cuda" and self.device.type != "cuda":
+            raise ValueError(
+                f"backend='cuda' needs a CUDA device, got '{device}'")
+        self.backend = backend
+        self.tolerance = tolerance
+        self.config = config
+        self.network = network
+        self.tree = tree
+        x0_batch = np.asarray(x0_batch, np.float32)
+        if x0_batch.ndim != 2:
+            raise ValueError("x0_batch must be (B, nx)")
+        self.batch = x0_batch.shape[0]
+        if isinstance(forecasters, Forecaster):
+            forecasters = [forecasters] * self.batch
+        if len(forecasters) != self.batch:
+            raise ValueError("need one forecaster (shared) or B")
+        self.forecasters = list(forecasters)
+        # one shared forecaster -> one elimination per time step with a
+        # per-instance root correction, the batch assembled on the device
+        self._shared_forecast = all(f is self.forecasters[0]
+                                    for f in self.forecasters)
+        self.engine = Engine(network, tree, config)
+        self.warm_start = warm_start
+        self._y_carry = None
+        self._solver = None
+        self._fa = None
+        self._last_control: Optional[np.ndarray] = None
+        self.solve_times_ms: list[float] = []
+
+        # per-instance closed-loop state
+        self.current_x = x0_batch.copy()
+        self.prev_u = np.tile(np.asarray(config.prev_u, np.float32),
+                              (self.batch, 1))
+        self.prev_demand = np.tile(
+            np.asarray(config.prev_demand, np.float32), (self.batch, 1))
+
+        # per-instance KPI accumulators
+        self.economic_kpi_acc = np.zeros(self.batch)
+        self.smooth_kpi_acc = np.zeros(self.batch)
+        self.safe_kpi_acc = np.zeros(self.batch)
+        self.network_kpi_acc = np.zeros(self.batch)
+
+    # ------------------------------------------------------------------
+    def initialise(self) -> None:
+        self._fa = factor_tensors(factor_arrays(self.engine), self.device)
+        cfg = self.config
+        kw = dict(prefix_stages=self.engine.factor_step().prefix_stages,
+                  inv_step=float(1.0 / cfg.step_size),
+                  step_size=float(cfg.step_size),
+                  penalty_state=float(cfg.penalty_state),
+                  penalty_safety=float(cfg.penalty_safety),
+                  xs_upper=float(XS_UPPER),
+                  max_iterations=int(cfg.max_iterations),
+                  tolerance=self.tolerance)
+        shared = self._shared_forecast
+        if self.backend == "torch":
+            fa = self._fa
+            if shared:
+                run_s = apg_mod.make_apg_batch_shared(**kw)
+                self._solver = lambda base, inst, y0: run_s(fa, base, inst,
+                                                            y0)
+            else:
+                run_b = apg_mod.make_apg_batch(**kw)
+                self._solver = lambda steps, y0: run_b(fa, steps, y0)
+        elif shared:
+            self._solver = apg_solve.make_apg_kernel_batch_shared(self._fa,
+                                                                  **kw)
+        else:
+            self._solver = apg_solve.make_apg_kernel_batch(self._fa, **kw)
+
+    # ------------------------------------------------------------------
+    def _forecast(self, fc: Forecaster, sim_time: int) -> None:
+        if not (fc.predict_demand(sim_time) and fc.predict_prices(sim_time)):
+            raise IndexError(f"forecaster exhausted at t={sim_time}")
+
+    def control_action(self, sim_time: int) -> np.ndarray:
+        """One batched solve; returns the (B, nu) stage-0 controls."""
+        if self._solver is None:
+            self.initialise()
+        if self._shared_forecast:
+            fc = self.forecasters[0]
+            self._forecast(fc, sim_time)
+            args = shared_step_tensors(*self.engine.prepare_step_shared(
+                fc.nominal_demand, fc.nominal_prices, self.current_x,
+                self.prev_u, self.prev_demand), self.device)
+        else:
+            steps = []
+            for b, fc in enumerate(self.forecasters):
+                self._forecast(fc, sim_time)
+                steps.append(step_arrays(self.engine.prepare_step(
+                    fc.nominal_demand, fc.nominal_prices,
+                    self.current_x[b], self.prev_u[b],
+                    self.prev_demand[b])))
+            args = (stacked_step_tensors(steps, self.device),)
+        t0 = time.perf_counter()
+        y0 = self._y_carry if self.warm_start else None
+        out = self._solver(*args, y0)
+        control = out["control"].cpu().numpy()     # waits for the solves
+        self.solve_times_ms.append((time.perf_counter() - t0) * 1e3)
+        if self.warm_start:
+            self._y_carry = out["y"]
+        self._last_control = control
+        return control
+
+    # ------------------------------------------------------------------
+    def move_forward_in_time(self) -> np.ndarray:
+        """Built-in simulator for every instance: x+ = x + B u + Gd d."""
+        u = self._last_control
+        if u is None:
+            raise RuntimeError("call control_action first")
+        d = np.stack([fc.nominal_demand[0] for fc in self.forecasters])
+        x = (self.current_x + u @ self.network.matB.T +
+             d @ self.network.matGd.T).astype(np.float32)
+        self._update_kpi(x, u)
+        self.current_x = x
+        self.prev_u = u.copy()
+        self.prev_demand = d
+        return x
+
+    def _update_kpi(self, state, control) -> None:
+        net, cfg = self.network, self.config
+        prices = np.stack([fc.nominal_prices[0]
+                           for fc in self.forecasters])
+        self.economic_kpi_acc += np.sum(
+            cfg.weight_economical * (net.alpha1 + prices) *
+            np.abs(control), axis=1)
+        du = self.prev_u - control
+        self.smooth_kpi_acc += np.sum(du * du, axis=1)
+        level = np.minimum(state - net.xsafe, 0.0)
+        self.safe_kpi_acc += np.abs(level).sum(axis=1)
+        self.network_kpi_acc += np.abs(state).sum(axis=1)
+
+    # per-instance KPI getters (same normalisation as SmpcController)
+    def economic_kpi(self, sim_time: int) -> np.ndarray:
+        return self.economic_kpi_acc / 3600.0 / max(sim_time, 1)
+
+    def smooth_kpi(self, sim_time: int) -> np.ndarray:
+        return self.smooth_kpi_acc / 3600.0 / max(sim_time, 1)
+
+    def safety_kpi(self, sim_time: int) -> np.ndarray:
+        return self.safe_kpi_acc.copy()
+
+    def network_kpi(self, sim_time: int) -> np.ndarray:
+        safe_norm = float(np.sum(self.network.xsafe))
+        out = np.zeros(self.batch)
+        nz = self.network_kpi_acc != 0
+        out[nz] = (100.0 * max(sim_time, 1) * safe_norm /
+                   self.network_kpi_acc[nz])
+        return out
+
+    # ------------------------------------------------------------------
+    def closed_loop(self, steps: int) -> dict:
+        """Run all B instances for ``steps`` time instances; returns the
+        per-step (B, nu) controls, solve times and per-instance KPIs."""
+        controls = []
+        for t in range(steps):
+            controls.append(self.control_action(t))
+            self.move_forward_in_time()
+        return {
+            "controls": np.stack(controls),      # (T, B, nu)
+            "solve_times_ms": list(self.solve_times_ms),
+            "economicKpi": self.economic_kpi(steps),
+            "smoothKpi": self.smooth_kpi(steps),
+            "safetyKpi": self.safety_kpi(steps),
+            "networkKpi": self.network_kpi(steps),
+        }

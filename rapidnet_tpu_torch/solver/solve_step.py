@@ -15,6 +15,12 @@ per-stage math is two products against shared small matrices.
 Every array is float32; products run in full float32 (PyTorch's default
 with TF32 off), the counterpart of ``Precision.HIGHEST`` in the JAX
 package.
+
+Every function also takes a leading batch axis on the per-instance
+arrays (the duals, beta, uhat, e, x0, prev_u, prev_uhat): B independent
+instances over one factor step, with the stage, slot and feature axes
+last.  The norms, champions and residual magnitudes are then per
+instance (over the last three axes).
 """
 
 from __future__ import annotations
@@ -46,23 +52,22 @@ def backward_sweep(fa: dict, w_xi: torch.Tensor, w_psi: torch.Tensor,
     """
     Bb, L, invWbar = fa["Bb"], fa["L"], fa["invWbar"]
     nx = Bb.shape[1]
-    N, ns = w_xi.shape[:2]
-    nv = invWbar.shape[0]
+    N = w_xi.shape[-3]
     tb = fa["d1"] * w_xi[..., :nx] + fa["d2"] * w_xi[..., nx:]
     h = (fa["g"] * w_psi) @ L
     BbT = Bb.T
-    q = w_xi.new_zeros((ns, nx))
-    r = w_xi.new_zeros((ns, nv))
+    q = torch.zeros_like(tb[..., 0, :, :])
+    r = torch.zeros_like(h[..., 0, :, :])
     inner = []
     for s in range(N - 1, -1, -1):
-        q = tb[s] + q
-        r = beta[s] + r + q @ BbT + h[s]
+        q = tb[..., s, :, :] + q
+        r = beta[..., s, :, :] + r + q @ BbT + h[..., s, :, :]
         inner.append(r)
         if s > 0 and s in prefix_stages:
             Cp, Bp = fa["prefix_Cp"][s], fa["prefix_Bp"][s]
             q = Bp @ (Cp @ q)
             r = Bp @ (Cp @ r)
-    inner = torch.stack(inner[::-1])
+    inner = torch.stack(inner[::-1], dim=-3)
     return fa["nhp"] * (inner @ invWbar.T)
 
 
@@ -78,20 +83,21 @@ def forward_sweep(fa: dict, v: torch.Tensor, uhat: torch.Tensor,
     Returns x (N,ns,nx), u (N,ns,nu), prim_xi (N,ns,2nx), prim_psi (N,ns,nu).
     """
     L, B = fa["L"], fa["B"]
-    N, ns = v.shape[:2]
+    N, ns = v.shape[-3:-1]
+    lead = v.shape[:-3]
     dv = v @ L.T
     BT = B.T
-    du = (prev_u - prev_uhat).expand(ns, L.shape[0])
-    x = x0.expand(ns, B.shape[0])
+    du = (prev_u - prev_uhat)[..., None, :].expand(*lead, ns, L.shape[0])
+    x = x0[..., None, :].expand(*lead, ns, B.shape[0])
     xs, us = [], []
     for s in range(N):
-        du = du + dv[s]
-        u_s = uhat[s] + du
-        x = x + e[s] + u_s @ BT
+        du = du + dv[..., s, :, :]
+        u_s = uhat[..., s, :, :] + du
+        x = x + e[..., s, :, :] + u_s @ BT
         xs.append(x)
         us.append(u_s)
-    x = torch.stack(xs)
-    u = torch.stack(us)
+    x = torch.stack(xs, dim=-3)
+    u = torch.stack(us, dim=-3)
     prim_xi = torch.cat([fa["d1"] * x, fa["d2"] * x], dim=-1)
     prim_psi = fa["g"] * u
     return x, u, prim_xi, prim_psi
@@ -112,8 +118,14 @@ def solve_step(fa: dict, w_xi, w_psi, beta, uhat, e, x0, prev_u, prev_uhat,
 
 
 def _masked_sumsq(x, rep):
-    """Sum of squares counting each tree node once (rep de-duplicates)."""
-    return torch.sum(rep[..., None] * x * x)
+    """Sum of squares counting each tree node once (rep de-duplicates),
+    per instance."""
+    return torch.sum((rep[..., None] * x * x).flatten(-3), dim=-1)
+
+
+def per_instance(v):
+    """A per-instance scalar, broadcast over the (N, ns, d) axes."""
+    return v[..., None, None, None]
 
 
 def _shrink(dist, thresh):
@@ -147,10 +159,10 @@ def prox_g(fa: dict, prim_xi, prim_psi, w_xi, w_psi, *, inv_step: float,
 
     shrink1 = _shrink(torch.sqrt(_masked_sumsq(diff1, rep)),
                       inv_step * penalty_state)
-    out1 = box1 + shrink1 * diff1
+    out1 = box1 + per_instance(shrink1) * diff1
     shrink2 = _shrink(torch.sqrt(_masked_sumsq(diff2, rep)),
                       inv_step * penalty_safety)
-    out2 = box2 + shrink2 * diff2
+    out2 = box2 + per_instance(shrink2) * diff2
 
     dual_xi = torch.cat([out1, out2], dim=-1)
     dual_psi = torch.clamp(dual_psi, fa["umin"], fa["umax"])
@@ -189,11 +201,12 @@ def signed_max_abs(res_xi, res_psi):
     and the max of the xi/psi representatives is taken.  ``torch.argmax``
     returns the first maximal index, as ``jnp.argmax`` does.
     """
-    fx = res_xi.reshape(-1)
-    fp = res_psi.reshape(-1)
-    vx = fx[torch.argmax(torch.abs(fx))]
-    vp = fp[torch.argmax(torch.abs(fp))]
-    return torch.maximum(vx, vp)
+    def champion(res):
+        flat = res.flatten(-3)
+        at = torch.argmax(torch.abs(flat), dim=-1, keepdim=True)
+        return torch.gather(flat, -1, at).squeeze(-1)
+
+    return torch.maximum(champion(res_xi), champion(res_psi))
 
 
 def max_abs_residual(res_xi, res_psi):
@@ -201,5 +214,5 @@ def max_abs_residual(res_xi, res_psi):
     stopping rule.  The signed trace can cancel to ~0 when the two
     blocks' champions have opposite signs, so it is never used to stop.
     """
-    return torch.maximum(torch.max(torch.abs(res_xi)),
-                         torch.max(torch.abs(res_psi)))
+    return torch.maximum(torch.abs(res_xi).flatten(-3).amax(dim=-1),
+                         torch.abs(res_psi).flatten(-3).amax(dim=-1))

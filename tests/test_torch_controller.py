@@ -137,6 +137,10 @@ def test_package_never_imports_jax():
         "u = rapidnet_tpu_torch.SmpcController(cfg, network=net, tree=tree,"
         " forecaster=fc, device='cpu').control_action(0)\n"
         "assert u.shape == (7,)\n"
+        "import numpy as np\n"
+        "bu = rapidnet_tpu_torch.BatchedSmpcController(cfg, net, tree, fc,"
+        " np.tile(cfg.current_x, (2, 1)), device='cpu').control_action(0)\n"
+        "assert bu.shape == (2, 7)\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'rapidnet_tpu.'))]\n"
         "assert not bad, bad\n")

@@ -1,4 +1,4 @@
-"""The whole-solve CUDA kernel against its plain version, on the card.
+"""The whole-solve CUDA kernel, single and batched, on the card.
 
 These tests need a CUDA GPU and skip without one.  They import neither
 jax nor the JAX package, because the card's machine has no JAX; since
@@ -10,6 +10,9 @@ Tolerance: the kernel sums in another order than PyTorch's float32
 products; over 25 iterations that stays within 1e-4 of the largest
 magnitude (chip_smoke.py holds the 500-iteration solve at Barcelona
 scale to 1e-3, the JAX package's bound between two implementations).
+An instance of a batched kernel call runs the same code on the same
+inputs as a single-solve call, with its own reductions in the same
+order, so the two are compared bit for bit.
 """
 
 import numpy as np
@@ -133,3 +136,139 @@ def test_controller_launches_the_kernel(cuda_device):
     for t in range(3):
         _close(torch.tensor(got[f"control{t}"]),
                torch.tensor(ref[f"control{t}"]))
+
+
+def _batch(device, batch=3, step_size=1e-4, max_iterations=ITERS):
+    """The small problem of ``_problem`` with ``batch`` states around the
+    nominal one, assembled on the device from the shared base."""
+    from rapidnet_tpu_torch.convert import (factor_arrays, factor_tensors,
+                                            shared_step_tensors)
+    from rapidnet_tpu_torch.engine.engine import XS_UPPER, Engine
+    from rapidnet_tpu_torch.model.config import synthetic_config
+    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
+    from rapidnet_tpu_torch.model.network import synthetic_network
+    from rapidnet_tpu_torch.model.scenario_tree import generate_tree
+    from rapidnet_tpu_torch.ops import apg_solve as K
+    from rapidnet_tpu_torch.solver.apg import expand_shared_step
+
+    net = synthetic_network(nx=4, nu=7, nd=3, ne=2, seed=11)
+    tree = generate_tree(N=6, branching=[2, 2], nd=3, nu=7, seed=11)
+    fc = synthetic_forecaster(N=6, nd=3, nu=7, sim_horizon=4, seed=11)
+    cfg = synthetic_config(net, tree, max_iterations=max_iterations,
+                           step_size=step_size)
+    eng = Engine(net, tree, cfg)
+    fc.predict_demand(0)
+    fc.predict_prices(0)
+    rng = np.random.default_rng(7)
+    x0s = (cfg.current_x * (1.0 + 0.02 * rng.standard_normal(
+        (batch, cfg.current_x.size)))).astype(np.float32)
+    base, inst = shared_step_tensors(*eng.prepare_step_shared(
+        fc.nominal_demand, fc.nominal_prices, x0s,
+        np.tile(cfg.prev_u, (batch, 1)), np.tile(cfg.prev_demand,
+                                                 (batch, 1))), device)
+    fa = factor_tensors(factor_arrays(eng), device)
+    kc = K.kernel_constants(fa, prefix_stages=eng.factor_step()
+                            .prefix_stages, max_iterations=max_iterations)
+    kw = dict(inv_step=1.0 / cfg.step_size, step_size=cfg.step_size,
+              penalty_state=cfg.penalty_state,
+              penalty_safety=cfg.penalty_safety,
+              xs_upper=float(XS_UPPER), max_iterations=max_iterations)
+    return kc, expand_shared_step(base, **inst), kw
+
+
+def _instance(batched, b):
+    """Instance b of a batched step or output dict (nested dicts too)."""
+    return {k: _instance(v, b) if isinstance(v, dict) else v[b].contiguous()
+            for k, v in batched.items()}
+
+
+def _assert_equal(got, ref):
+    for k in ("control", "u", "x", "primal_infeasibility", "iterations"):
+        assert torch.equal(got[k], ref[k]), k
+    for k in ("xi", "psi"):
+        assert torch.equal(got["y"][k], ref["y"][k]), k
+
+
+@pytest.mark.cuda
+def test_batched_kernel_matches_single_kernel(cuda_device):
+    """Each instance of a batched call (uhat and e shared with batch
+    stride 0) equals the single-solve kernel on that instance's step,
+    bit for bit; and the batch stays within bound of its plain version."""
+    from rapidnet_tpu_torch.ops import apg_solve as K
+
+    kc, steps, kw = _batch(cuda_device)
+    assert steps["uhat"].stride(0) == 0
+    n0 = K.apg_solve_batch.launches
+    got = K.apg_solve_batch(kc, steps, None, **kw)
+    assert K.apg_solve_batch.launches == n0 + 1
+    for b in range(steps["beta"].shape[0]):
+        one = K.apg_solve(kc, _instance(steps, b), None, **kw)
+        _assert_equal(_instance(got, b), one)
+    ref = K.apg_solve_plain(kc, steps, None, **kw)
+    for k in ("control", "u", "x", "primal_infeasibility"):
+        _close(got[k], ref[k])
+
+
+@pytest.mark.cuda
+def test_batch_of_one_matches_single_solve(cuda_device):
+    """The batched entry at B = 1, cold and warm, is the single solve."""
+    from rapidnet_tpu_torch.ops import apg_solve as K
+
+    kc, steps, kw = _batch(cuda_device, batch=1, step_size=1e-3,
+                           max_iterations=ITERS)
+    one = K.apg_solve(kc, _instance(steps, 0), None, **kw)
+    got = K.apg_solve_batch(kc, steps, None, **kw)
+    _assert_equal(_instance(got, 0), one)
+    warm1 = K.apg_solve(kc, _instance(steps, 0), one["y"], **kw)
+    warmb = K.apg_solve_batch(kc, steps, got["y"], **kw)
+    assert torch.equal(warmb["u"][0], warm1["u"])
+
+
+@pytest.mark.cuda
+def test_batched_kernel_tolerance_exits_match_plain(cuda_device):
+    """Under a tolerance each instance stops at its plain version's
+    iteration and its trace is zero past it."""
+    from rapidnet_tpu_torch.ops import apg_solve as K
+
+    kc, steps, kw = _batch(cuda_device, batch=4, step_size=1e-3)
+    for tol in np.geomspace(1e5, 1e-3, 33):
+        ref = K.apg_solve_plain(kc, steps, None,
+                                      tolerance=float(tol), **kw)
+        its = ref["iterations"].tolist()
+        if all(1 < it < ITERS for it in its):
+            break
+    else:
+        pytest.fail("no tolerance gave mid-budget exits")
+    got = K.apg_solve_batch(kc, steps, None, tolerance=float(tol), **kw)
+    assert got["iterations"].tolist() == its
+    for b, it in enumerate(its):
+        assert bool((got["primal_infeasibility"][b, it:] == 0).all())
+    _close(got["control"], ref["control"])
+
+
+@pytest.mark.cuda
+def test_batched_controller_launches_the_kernel(cuda_device):
+    """BatchedSmpcController(device='cuda') with backend 'auto' solves
+    each step's batch through one kernel call and agrees with 'torch'."""
+    from rapidnet_tpu_torch import BatchedSmpcController
+    from rapidnet_tpu_torch.model.config import synthetic_config
+    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
+    from rapidnet_tpu_torch.model.network import synthetic_network
+    from rapidnet_tpu_torch.model.scenario_tree import generate_tree
+    from rapidnet_tpu_torch.ops import apg_solve as K
+
+    def run(backend):
+        net = synthetic_network(nx=4, nu=7, nd=3, ne=2, seed=7)
+        tree = generate_tree(N=8, branching=[2, 2], nd=3, nu=7, seed=7)
+        fc = synthetic_forecaster(N=8, nd=3, nu=7, sim_horizon=3, seed=7)
+        cfg = synthetic_config(net, tree, max_iterations=40,
+                               step_size=1e-3)
+        x0s = cfg.current_x * np.linspace(0.9, 1.1, 3)[:, None]
+        return BatchedSmpcController(cfg, net, tree, fc, x0s,
+                                     backend=backend).closed_loop(3)
+
+    n0 = K.apg_solve_batch.launches
+    got = run("auto")
+    assert K.apg_solve_batch.launches == n0 + 3
+    ref = run("torch")
+    _close(torch.tensor(got["controls"]), torch.tensor(ref["controls"]))
