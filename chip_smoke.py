@@ -47,6 +47,50 @@ x0 * (1 + 0.02 N(0, 1)) (numpy seed 7, as bench.py:133-136):
     one synchronise, median of 3 rounds), the plain batched version
     (median of 3), and the batched solve's peak device memory.
 
+Then the whole-solve FBE/NAMA kernel (``csrc/qn_solve.cu``), for each of
+the two algorithms, at the same problem with an L-BFGS buffer of 5
+(bench.py:179-206):
+
+9a. short-horizon parity: the kernel and its plain version over the
+    first QN_TRACK_MAX iterations.  TRACK, printed, is the largest
+    number of leading iterations over which tau, the FBE value and the
+    infeasibility stay within the JAX package's bounds between two
+    implementations (tests/test_pallas_qn.py:59-70) and after which the
+    control stays within rtol 1e-3 / atol 1e-4 and u within 2e-3 *
+    max(|u|, 1), the JAX package's bounds on its synthetic and its
+    full-size problem (:85-87, :131-138); it must be at least the
+    buffer size plus QN_TRACK_SPARE, so that the kernel's L-BFGS ring
+    has wrapped (col = 1 + col % size, the two-loop's visits to the zero
+    column) within the iterations held to the plain version.  Over TRACK
+    the kernel's counts of line-search trials and of rejected curvature
+    pairs equal the plain version's, and more pairs were accepted than
+    the buffer holds.  Whether u also holds the synthetic problem's rtol
+    1e-3 / atol 1e-3 is printed.
+    (The line search branches on value comparisons, so two float32
+    solves part after a while.)
+9b. 500 iterations: the kernel's median |infeasibility| over the last 20
+    iterations within 10 times the plain version's, the control within
+    the physical bounds, and two calls equal bit for bit; printed beside
+    them, the plain version's residual magnitudes;
+9c. the tolerance exit, from tanks at 10 % of their maximum: of the
+    tolerances that, by the plain version's residual magnitudes, stop it
+    at an iteration past the first over which the traces agree and
+    after which the solutions do (as 9a), the one farthest from the
+    edges of its exit; the kernel stops at the same iteration, its
+    control agrees (as 9a) and its traces are zero past the exit.  (From
+    the nominal state the magnitude first falls below its first value
+    only where the two float32 solves have parted: 9b prints where, and
+    where the two stop under the tolerance the plain version's
+    magnitudes suggest there, without gating on it.);
+10. 4-step closed loops through ``SmpcController(backend="cuda")``, cold
+    and warm-started: one kernel launch per step, finite controls and
+    KPIs, the KPIs beside the APG loop's of phase 4 (recorded, not
+    gated) and the mean ms per step;
+11. timing: the median wall ms of 7 kernel solves (inputs staged,
+    synchronised around each; the plain version's time is 9b's), the
+    host's enqueue ms, the launches per iteration and the bound (its
+    line-search trials as the kernel counted them).
+
 Each phase prints its own line.  The last lines are the card's name and
 power limit, one JSON line describing each kernel (with its bound: the
 larger of its FP32 operations over 67 TFLOP/s and its bytes, each input
@@ -64,6 +108,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPEATS = 7
 MAX_ITER = 500
@@ -82,6 +127,18 @@ BATCH_REPEATS = 5     # bench.py:138-147
 PIPELINE_DEPTH, PIPELINE_ROUNDS = 4, 3     # bench.py:161-171
 FP32_FLOPS = 67e12    # H100 SXM, FP32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+KERNELS = ("apg_solve", "qn_solve")     # the sources under csrc/
+QN_ALGORITHMS = {"fbe": "globalFbeAlgorithm", "nama": "namaAlgorithm"}
+QN_TRACK_MAX = 30     # the short budget of phases 9a and 9c
+LOW_FILL = 0.1        # phase 9c's tanks, as a share of their maximum
+QN_TRACK_SPARE = 3    # TRACK >= buffer size + 3: iterations 1 .. size + 2
+                      # each offer a curvature pair, and the ring wraps at
+                      # the (size + 1)-th accepted one, a rejection to spare
+QN_TRACES = ("tau", "value_fbe", "primal_infeasibility")
+QN_U_FACTOR = 2e-3    # u within 2e-3 * max(|u|, 1): the JAX package's bound
+                      # on its full-size problem (tests/test_pallas_qn.py:131)
+QN_LOOP_STEPS = 4
+KPI_KEYS = ("economicKpi", "smoothKpi", "safetyKpi", "networkKpi")
 
 
 class SmokeFailure(Exception):
@@ -191,6 +248,338 @@ def solve_bound(kc, tensors, outputs, iterations, prefix_stages):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
+def within(got, ref, rtol, atol):
+    """Whether |got - ref| <= atol + rtol |ref| everywhere."""
+    got = got.detach().double().cpu()
+    ref = ref.detach().double().cpu()
+    return bool(((got - ref).abs() <= atol + rtol * ref.abs()).all())
+
+
+def check_allclose(name, got, ref, rtol, atol):
+    """Elementwise |got - ref| <= atol + rtol |ref|; returns max |error|."""
+    import torch
+    got = got.detach().double().cpu()
+    ref = ref.detach().double().cpu()
+    if got.shape != ref.shape:
+        raise SmokeFailure(f"{name}: shape {tuple(got.shape)} != "
+                           f"{tuple(ref.shape)}")
+    if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        raise SmokeFailure(f"{name}: non-finite values")
+    diff = (got - ref).abs()
+    err = float(diff.max()) if got.numel() else 0.0
+    worst = float((diff - rtol * ref.abs()).max()) if got.numel() else 0.0
+    print(f"[compare] {name:22s} max_abs_err {err:.6g}  (rtol {rtol:g}, "
+          f"atol {atol:g}: worst excess {worst - atol:.6g})")
+    if not worst <= atol:
+        raise SmokeFailure(f"{name}: kernel and plain version disagree")
+    return err
+
+
+def qn_horizon(kern, plain, n):
+    """The number of leading iterations over which the kernel's traces
+    stay within the JAX package's bounds of the plain version's (tau
+    rtol 1e-4 / atol 1e-6, value 2e-3 / 2e-4 max(|value|, 1),
+    infeasibility 2e-3 / 1e-4; tests/test_pallas_qn.py:59-70)."""
+    k = {key: kern[key].double().cpu().numpy() for key in QN_TRACES}
+    p = {key: plain[key].double().cpu().numpy() for key in QN_TRACES}
+    vscale = max(float(abs(p["value_fbe"][:n]).max()), 1.0)
+    bounds = {"tau": (1e-4, 1e-6), "value_fbe": (2e-3, 2e-4 * vscale),
+              "primal_infeasibility": (2e-3, 1e-4)}
+    h = 0
+    while h < n and all(abs(k[key][h] - p[key][h]) <= atol +
+                        rtol * abs(p[key][h])
+                        for key, (rtol, atol) in bounds.items()):
+        h += 1
+    return h
+
+
+def solutions_agree(kern, plain):
+    """Whether the kernel's control is within rtol 1e-3 / atol 1e-4 of
+    the plain version's and its u within QN_U_FACTOR * max(|u|, 1).
+    Returns (agree, u's atol)."""
+    u_atol = QN_U_FACTOR * max(float(plain["u"].abs().max()), 1.0)
+    return (within(kern["control"], plain["control"], 1e-3, 1e-4) and
+            within(kern["u"], plain["u"], 0.0, u_atol)), u_atol
+
+
+def qn_solve_bound(kq, step, out, algorithm, prefix_stages):
+    """The least time (ms) the card could take for one FBE/NAMA solve and
+    what sets it.  Operations: the products of the tree sweeps (one at
+    the first iteration, two for FBE; three at every later one) and of
+    the FBE values' smoothing cost du W' (the one before the search and
+    one per line-search trial that ran, as the kernel counts them), over
+    67 TFLOP/s; elementwise work and the L-BFGS dots are left out.
+    Bytes: the inputs read once and the outputs written once, over 3.35
+    TB/s.  Returns (bound_ms, bound_by, flops, bytes, trials)."""
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+    fa = kq["fa"]
+    N, ns, nx = fa["d1"].shape
+    nu = fa["g"].shape[-1]
+    nv = fa["invWbar"].shape[0]
+    per_row = 2 * (nu * nv + nx * nv + nv * nv + nv * nu + nu * nx)
+    n_agg = sum(1 for s in prefix_stages if s > 0)
+    sweep = N * ns * per_row + 2 * n_agg * ns * ns * (nx + nv)
+    value = N * ns * 2 * nu * nu
+    iters = int(out["iterations"])
+    trials = int(out["line_search_trials"])
+    first = 2 if algorithm == QN_ALGORITHMS["fbe"] else 1
+    flops = (first * sweep + (iters - 1) * (3 * sweep + value) +
+             trials * value) if iters else 0
+    tensors = ([fa[k] for k in Q.ROW_KEYS] + [kq[k] for k in Q.MATRIX_KEYS]
+               + [step[k] for k in ("beta", "uhat", "e", "alpha_price",
+                                    "x0", "prev_u", "prev_uhat")])
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + sum(
+        t.numel() * t.element_size() for t in
+        (out["x"], out["u"], out["y"]["xi"], out["y"]["psi"],
+         out["primal_infeasibility"], out["value_fbe"], out["tau"],
+         out["iterations"], out["line_search_trials"], out["control"]))
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes,
+            trials)
+
+
+def qn_phases(cfg, net, tree, fa, make_step, hyper, prefix, apg_kpis):
+    """Phases 9a-11 for FBE and NAMA; returns their JSON entries."""
+    import numpy as np
+    import torch
+    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
+    from rapidnet_tpu_torch.ops import apg_solve as K
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+    from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
+    from rapidnet_tpu_torch.solver.controller import SmpcController
+
+    kq = Q.kernel_constants(fa, prefix_stages=prefix)
+    bs = int(cfg.lbfgs_buffer_size)
+    track_min = bs + QN_TRACK_SPARE
+    step = make_step(cfg.current_x)
+    lo, hi = fa["umin_phys"], fa["umax_phys"]
+    entries = []
+    for short, algorithm in QN_ALGORITHMS.items():
+        qkw = dict(hyper, algorithm=algorithm, lbfgs_buffer_size=bs)
+
+        def kern(n=MAX_ITER, step=step, **kw):
+            return Q.qn_solve(kq, step, None, **dict(qkw, max_iterations=n,
+                                                     **kw))
+
+        def plain(n=MAX_ITER, step=step, **kw):
+            return Q.qn_solve_plain(kq, step, None,
+                                    **dict(qkw, max_iterations=n, **kw))
+
+        # 9a. short-horizon parity.  TRACK: the most leading iterations
+        # over which the traces agree and after which control and u do
+        k_s, p_s = kern(QN_TRACK_MAX), plain(QN_TRACK_MAX)
+        traced = qn_horizon(k_s, p_s, QN_TRACK_MAX)
+        shown = min(traced + 2, QN_TRACK_MAX)     # to where they part
+        for key in QN_TRACES:
+            for name, out in (("kernel", k_s), ("plain ", p_s)):
+                vals = np.array2string(out[key][:shown].cpu().numpy(),
+                                       precision=7, max_line_width=400)
+                print(f"[qn] 9a.{short}.{key:20s} {name} {vals}")
+        track = traced
+        while track >= track_min:
+            k_t, p_t = kern(track), plain(track)
+            agree, u_atol = solutions_agree(k_t, p_t)
+            if agree:
+                break
+            track -= 1
+        print(f"[qn] 9a.{short}: TRACK {track} (the traces agree within the "
+              f"JAX bounds over the first {traced} of {QN_TRACK_MAX} "
+              f"iterations, control and u after the first {track})")
+        if track < track_min:
+            raise SmokeFailure(f"{short}: the kernel tracks the plain "
+                               f"version over {track} iterations, fewer "
+                               f"than {track_min}")
+        trials = (int(k_t["line_search_trials"]),
+                  int(p_t["line_search_trials"]))
+        skips = (int(k_t["lbfgs_skips"]), int(p_t["lbfgs_skips"]))
+        print(f"[qn] 9a.{short}: over the first {track} iterations, "
+              f"line-search trials: kernel {trials[0]}, plain {trials[1]}; "
+              f"rejected curvature pairs: kernel {skips[0]}, plain "
+              f"{skips[1]}")
+        if trials[0] != trials[1] or skips[0] != skips[1]:
+            raise SmokeFailure(f"{short}: the kernel's counts of trials and "
+                               f"rejected pairs differ from the plain "
+                               f"version's")
+        if not track - 1 - skips[1] > bs:
+            raise SmokeFailure(f"{short}: the L-BFGS ring did not wrap "
+                               f"within the {track} iterations held")
+        check_allclose(f"9a.{short}.control", k_t["control"],
+                       p_t["control"], 1e-3, 1e-4)
+        err_u = check_allclose(f"9a.{short}.u", k_t["u"], p_t["u"], 0.0,
+                               u_atol)
+        print(f"[qn] 9a.{short}.u within the synthetic problem's bound "
+              f"(rtol 1e-3, atol 1e-3): "
+              f"{within(k_t['u'], p_t['u'], 1e-3, 1e-3)}")
+
+        # 9b. 500 iterations: quality, bounds, determinism
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_full = qn_mod.make_solver(prefix_stages=prefix,
+                                    trace_magnitude=True, **qkw)(fa, step)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        k_full, again = kern(), kern()
+        same = all(torch.equal(again[k], k_full[k]) for k in
+                   ("x", "u", "iterations", "line_search_trials",
+                    "lbfgs_skips") +
+                   QN_TRACES) and all(
+            torch.equal(again["y"][k], k_full["y"][k]) for k in ("xi", "psi"))
+        tail_k = float(np.median(
+            k_full["primal_infeasibility"].abs().cpu().numpy()[-20:]))
+        tail_p = float(np.median(
+            p_full["primal_infeasibility"].abs().cpu().numpy()[-20:]))
+        u0 = k_full["control"]
+        inside = bool(((u0 >= lo - 1e-5) & (u0 <= hi + 1e-5)).all())
+        print(f"[qn] 9b.{short}: {MAX_ITER} iterations, median "
+              f"|infeasibility| of the last 20: kernel {tail_k:.6g}, plain "
+              f"{tail_p:.6g}; control within the physical bounds: {inside};"
+              f" two calls equal bit for bit: {same}; plain solve "
+              f"{plain_ms:.3f} ms")
+        if not (int(k_full["iterations"]) == MAX_ITER and
+                bool(torch.isfinite(k_full["u"]).all())):
+            raise SmokeFailure(f"{short}: the 500-iteration solve failed")
+        if not tail_k < 10 * max(tail_p, 1e-6):
+            raise SmokeFailure(f"{short}: residual tail {tail_k:.6g} above "
+                               f"10 x the plain version's {tail_p:.6g}")
+        if not inside:
+            raise SmokeFailure(f"{short}: control outside the bounds")
+        if not same:
+            raise SmokeFailure(f"{short}: the kernel does not repeat itself")
+        # where a tolerance could stop a solve from this state (recorded,
+        # not gated: past TRACK the two solves part)
+        mags = p_full["residual_magnitude"].cpu().numpy()
+        below = np.flatnonzero(mags[1:] < mags[0])
+        print(f"[qn] 9b.{short}: residual magnitude of the first 3 "
+              f"iterations {np.array2string(mags[:3], precision=6)}; "
+              f"first below the first at iteration "
+              f"{int(below[0]) + 2 if below.size else None}")
+        nominal = qn_mod.exit_tolerances(mags, MAX_ITER - 1)
+        if nominal:
+            tol_n, it_n, _ = nominal[0]
+            it_kn = int(kern(tolerance=tol_n)["iterations"])
+            print(f"[qn] 9b.{short}: tol {tol_n:.6g} stops the plain version"
+                  f" at {it_n}, the kernel at {it_kn}")
+
+        # 9c. the tolerance exit.  The residual magnitude of these solves
+        # rises after the first iteration and, from the nominal state,
+        # first falls below its first value where the two float32 solves
+        # have parted (9b prints where); from nearly empty tanks it falls
+        # within the iterations over which they track
+        step_low = make_step((LOW_FILL * net.xmax).astype(np.float32))
+        k_low = kern(QN_TRACK_MAX, step=step_low)
+        p_low = qn_mod.make_solver(
+            prefix_stages=prefix, trace_magnitude=True,
+            **dict(qkw, max_iterations=QN_TRACK_MAX))(fa, step_low)
+        traced_low = qn_horizon(k_low, p_low, QN_TRACK_MAX)
+        # the widest-ranged exit within the traces' horizon after which
+        # control and u agree too (as 9a's TRACK)
+        for tol, it_want, ratio in qn_mod.exit_tolerances(
+                p_low["residual_magnitude"].cpu().numpy(), traced_low):
+            if solutions_agree(kern(it_want, step=step_low),
+                               plain(it_want, step=step_low))[0]:
+                break
+        else:
+            raise SmokeFailure(f"{short}: no tolerance stops the plain "
+                               f"version within {traced_low} iterations "
+                               "where the solutions agree")
+        p_tol = plain(step=step_low, tolerance=tol)
+        k_tol = kern(step=step_low, tolerance=tol)
+        it_p, it_k = int(p_tol["iterations"]), int(k_tol["iterations"])
+        print(f"[qn] 9c.{short}: tanks at {LOW_FILL:g} of their maximum: "
+              f"traces agree over {traced_low}; tol {tol:.6g} (exit "
+              f"{it_want}, its "
+              f"range of tolerances spans a factor {ratio:.4g}): plain "
+              f"stops at {it_p}, kernel at {it_k} of {MAX_ITER}")
+        if not it_p == it_k == it_want:
+            raise SmokeFailure(f"{short}: tolerance exits differ")
+        check_allclose(f"9c.{short}.control", k_tol["control"],
+                       p_tol["control"], 1e-3, 1e-4)
+        for key in QN_TRACES:
+            if bool((k_tol[key][it_k:] != 0).any()):
+                raise SmokeFailure(f"{short}: {key} not zero past the exit")
+
+        # 10. the closed loops (the main path), cold and warm-started
+        loop_launches = 0
+        for warm in (False, True):
+            c = copy.deepcopy(cfg)
+            c.algorithm = algorithm
+            fc = synthetic_forecaster(N=24, nd=net.nd, nu=net.nu,
+                                      sim_horizon=4, seed=42)
+            ctrl = SmpcController(c, network=net, tree=tree, forecaster=fc,
+                                  backend="cuda", device="cuda",
+                                  warm_start=warm)
+            ctrl.initialise()
+            K.apg_solve.launches = K.apg_solve_batch.launches = 0
+            Q.qn_solve.launches = 0
+            t0 = time.perf_counter()
+            log = ctrl.closed_loop(QN_LOOP_STEPS)
+            loop_ms = (time.perf_counter() - t0) * 1e3 / QN_LOOP_STEPS
+            n = Q.qn_solve.launches
+            label = "warm" if warm else "cold"
+            ms = [log[f"time{t}"][0] for t in range(QN_LOOP_STEPS)]
+            print(f"[qn] 10.{short}.{label}: {QN_LOOP_STEPS} steps, kernel "
+                  f"launches {n}, solve ms per step "
+                  f"{', '.join(f'{m:.3f}' for m in ms)}; whole step "
+                  f"{loop_ms:.3f} ms")
+            if n != QN_LOOP_STEPS or K.apg_solve.launches or \
+                    K.apg_solve_batch.launches:
+                raise SmokeFailure(f"{short}: {n} kernel launches for "
+                                   f"{QN_LOOP_STEPS} solves")
+            loop_launches += n
+            kpis = {k: log[k] for k in KPI_KEYS}
+            controls = np.array([log[f"control{t}"]
+                                 for t in range(QN_LOOP_STEPS)])
+            if not (np.isfinite(controls).all() and
+                    np.isfinite(list(kpis.values())).all()):
+                raise SmokeFailure(f"{short}: non-finite controls or KPIs")
+            if "memoryLeakWarning" in log:
+                raise SmokeFailure(log["memoryLeakWarning"])
+            print(f"[qn] 10.{short}.{label} kpis {json.dumps(kpis)}")
+            rel = {k: (v - apg_kpis[k]) / max(abs(apg_kpis[k]), 1e-30)
+                   for k, v in kpis.items()}
+            print(f"[qn] 10.{short}.{label} kpis relative to the APG loop "
+                  f"of phase 4 {json.dumps(rel)}")
+
+        # 11. timing, inputs staged on the device
+        rng = np.random.default_rng(7)
+        x0 = cfg.current_x
+        staged = [make_step(x0 * (1.0 + 0.02 * rng.standard_normal(
+            x0.shape)).astype(np.float32)) for _ in range(REPEATS)]
+        times, enqueue = [], []
+        for st in staged:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = kern(step=st)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            enqueue.append((t1 - t0) * 1e3)
+            if not bool(torch.isfinite(out["control"]).all()):
+                raise SmokeFailure(f"{short}: non-finite control")
+        med = float(np.median(times))
+        per_it = Q.launches_per_iteration(algorithm, bs, kq["fp"])
+        bound = qn_solve_bound(kq, step, k_full, algorithm, prefix)
+        print(f"[timing] {short} kernel {MAX_ITER}-iteration solve: median "
+              f"{med:.3f} ms of {REPEATS} "
+              f"({', '.join(f'{t:.3f}' for t in times)}); host enqueue "
+              f"{', '.join(f'{t:.3f}' for t in enqueue)} ms; "
+              f"{per_it} launches per iteration after the first; plain "
+              f"{plain_ms:.3f} ms")
+        print(f"[bound] {short}: {bound[2] / 1e9:.3f} GFLOP, "
+              f"{bound[3] / 1e6:.3f} MB: {bound[0]:.6f} ms, set by "
+              f"{bound[1]}; {bound[4]} line-search trials in "
+              f"{MAX_ITER - 1} searches (the kernel's count)")
+        entries.append(
+            {"name": f"qn_solve_{short}", "route": "cuda",
+             "source": "rapidnet_tpu_torch/csrc/qn_solve.cu",
+             "replaces": "rapidnet_tpu/ops/pallas_qn.py:94",
+             "launches": loop_launches, "max_abs_err": err_u, "ms": med,
+             "plain_ms": plain_ms, "bound_ms": bound[0],
+             "bound_by": bound[1], "library_ms": None})
+    return entries
+
+
 def solve_inputs(kc, step):
     """Every tensor a solve reads: the constants and the step."""
     from rapidnet_tpu_torch.ops import apg_solve as K
@@ -253,58 +642,17 @@ def build_problem(device):
     return cfg, eng, net, tree, fa, make_step, make_batch
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reference-kernel", default=None,
-                    help="an earlier csrc/apg_solve.cu: phase 6c also "
-                         "holds the single solve to its kernel, bit for "
-                         "bit")
-    args = ap.parse_args()
+def apg_phases(args, device, cfg, net, tree, fa, make_step, make_batch,
+               prefix, hyper, kc):
+    """Phases 3-8, the APG kernel single and batched; returns their JSON
+    entries and the KPIs of phase 4's closed loop."""
     import numpy as np
     import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
-        return 1
-    from rapidnet_tpu_torch.engine.engine import XS_UPPER
     from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
     from rapidnet_tpu_torch.ops import apg_solve as K
     from rapidnet_tpu_torch.ops import build
     from rapidnet_tpu_torch.solver.batch import BatchedSmpcController
     from rapidnet_tpu_torch.solver.controller import SmpcController
-
-    # full float32 products everywhere (the JAX package's HIGHEST)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
-    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {kind} count {torch.cuda.device_count()}")
-
-    # 1. build the kernels from the checkout's sources
-    t0 = time.perf_counter()
-    so = build.build("apg_solve")
-    build.load("apg_solve")
-    print(f"[build] {so.name} built and loaded in "
-          f"{time.perf_counter() - t0:.3f} s")
-    for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
-
-    # 2. the Barcelona-scale problem
-    t0 = time.perf_counter()
-    cfg, eng, net, tree, fa, make_step, make_batch = build_problem(device)
-    prefix = eng.factor_step().prefix_stages
-    hyper = dict(inv_step=1.0 / cfg.step_size, step_size=cfg.step_size,
-                 penalty_state=cfg.penalty_state,
-                 penalty_safety=cfg.penalty_safety,
-                 xs_upper=float(XS_UPPER), max_iterations=MAX_ITER)
-    kc = K.kernel_constants(fa, prefix_stages=prefix,
-                            max_iterations=MAX_ITER)
-    print(f"[problem] nx {net.nx} nu {net.nu} nd {net.nd} ne {net.ne} "
-          f"N {tree.N} nodes {tree.n_nodes} scenarios {tree.ns} "
-          f"prefix_stages {prefix} step_size {cfg.step_size:.6g} "
-          f"(tuned in {time.perf_counter() - t0:.3f} s)")
 
     # 3. kernel against its plain version on one step's solve.  Then a
     # state above the tank bounds, which makes the state-box and safety
@@ -381,8 +729,8 @@ def main() -> int:
           f"whole step (host prep + solve + simulator) {loop_ms:.3f} ms")
     if launches != steps:
         raise SmokeFailure(f"{launches} kernel launches for {steps} solves")
-    kpis = {k: log[k] for k in ("economicKpi", "smoothKpi", "safetyKpi",
-                                "networkKpi")}
+    kpis = {k: log[k] for k in KPI_KEYS}
+    apg_kpis = dict(kpis)
     print(f"[closed_loop] kpis {json.dumps(kpis)}")
     controls = np.array([log[f"control{t}"] for t in range(steps)])
     if not (np.isfinite(controls).all() and
@@ -515,8 +863,7 @@ def main() -> int:
         if n != b_steps or K.apg_solve.launches:
             raise SmokeFailure(f"{n} batched kernel calls for {b_steps} "
                                "batched solves")
-        kpis = {k: blog[k] for k in ("economicKpi", "smoothKpi",
-                                     "safetyKpi", "networkKpi")}
+        kpis = {k: blog[k] for k in KPI_KEYS}
         if not (np.isfinite(blog["controls"]).all() and
                 all(np.isfinite(v).all() for v in kpis.values())):
             raise SmokeFailure(f"{label} batched loop: non-finite "
@@ -593,13 +940,8 @@ def main() -> int:
         print(f"[bound] {name}: {flops / 1e9:.3f} GFLOP, "
               f"{nbytes / 1e6:.3f} MB: {b_ms:.6f} ms, set by {by}")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
     source = "rapidnet_tpu_torch/csrc/apg_solve.cu"
-    print(json.dumps({"kernels": [
+    entries = [
         {"name": "apg_solve", "route": "cuda", "source": source,
          "replaces": "rapidnet_tpu/ops/pallas_apg.py:177",
          "launches": launches, "max_abs_err": errs["u"],
@@ -611,7 +953,73 @@ def main() -> int:
          "launches": b_launches, "max_abs_err": errs["batch.u"],
          "ms": batch_med, "plain_ms": plain_batch_ms,
          "bound_ms": batch_bound[0], "bound_by": batch_bound[1],
-         "library_ms": None}]}))
+         "library_ms": None}]
+    return entries, apg_kpis
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reference-kernel", default=None,
+                    help="an earlier csrc/apg_solve.cu: phase 6c also "
+                         "holds the single solve to its kernel, bit for "
+                         "bit")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    from rapidnet_tpu_torch.engine.engine import XS_UPPER
+    from rapidnet_tpu_torch.ops import apg_solve as K
+    from rapidnet_tpu_torch.ops import build
+
+    # full float32 products everywhere (the JAX package's HIGHEST)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {kind} count {torch.cuda.device_count()}")
+
+    # 1. build the kernels from the checkout's sources, one nvcc for each
+    # source, all started together
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    for name, so in libs.items():
+        build.load(name)
+        print(f"[build] {so.name} built and loaded")
+        for line in so.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {line.strip()}")
+    print(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.3f} s")
+
+    # 2. the Barcelona-scale problem
+    t0 = time.perf_counter()
+    cfg, eng, net, tree, fa, make_step, make_batch = build_problem(device)
+    prefix = eng.factor_step().prefix_stages
+    hyper = dict(inv_step=1.0 / cfg.step_size, step_size=cfg.step_size,
+                 penalty_state=cfg.penalty_state,
+                 penalty_safety=cfg.penalty_safety,
+                 xs_upper=float(XS_UPPER), max_iterations=MAX_ITER)
+    kc = K.kernel_constants(fa, prefix_stages=prefix,
+                            max_iterations=MAX_ITER)
+    print(f"[problem] nx {net.nx} nu {net.nu} nd {net.nd} ne {net.ne} "
+          f"N {tree.N} nodes {tree.n_nodes} scenarios {tree.ns} "
+          f"prefix_stages {prefix} step_size {cfg.step_size:.6g} "
+          f"(tuned in {time.perf_counter() - t0:.3f} s)")
+
+    entries, apg_kpis = apg_phases(args, device, cfg, net, tree, fa,
+                                   make_step, make_batch, prefix, hyper, kc)
+    entries += qn_phases(cfg, net, tree, fa, make_step, hyper, prefix,
+                         apg_kpis)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0])
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

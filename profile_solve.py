@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of one whole-solve kernel call goes, on one GPU.
 
-    python3 profile_solve.py [--iterations 500] [--batch B] [--out profile_out]
+    python3 profile_solve.py [--algorithm apg|fbe|nama] [--iterations 500]
+                             [--batch B] [--out profile_out]
 
 Builds the Barcelona-scale problem of ``chip_smoke.py``, warms the
-kernel up, then prints, for one solve or, with ``--batch B``, one
-batched call of B solves (states x0 * (1 + 0.02 N(0, 1)), numpy seed 7,
+algorithm's whole-solve kernel up (APG: ``csrc/apg_solve.cu``; FBE and
+NAMA: ``csrc/qn_solve.cu`` with the config's L-BFGS buffer of 5), then
+prints, for one solve or, with ``--batch B`` (APG only), one batched
+call of B solves (states x0 * (1 + 0.02 N(0, 1)), numpy seed 7,
 assembled on the device from the shared base):
 
 * the CUDA-event time of one call and the host's time to enqueue it;
@@ -30,6 +33,11 @@ import sys
 import time
 
 
+# --algorithm -> the config's algorithm name (None: APG)
+ALGORITHMS = {"apg": None, "fbe": "globalFbeAlgorithm",
+              "nama": "namaAlgorithm"}
+
+
 def busy_span(intervals):
     """(busy, span) in the units of the (start, end) intervals."""
     intervals = sorted(intervals)
@@ -46,12 +54,17 @@ def busy_span(intervals):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--algorithm", default="apg",
+                    choices=sorted(ALGORITHMS))
     ap.add_argument("--iterations", type=int, default=500)
     ap.add_argument("--batch", type=int, default=0,
-                    help="trace one batched call of this many solves "
+                    help="trace one batched APG call of this many solves "
                          "(0: one single solve)")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
+    algorithm = ALGORITHMS[args.algorithm]
+    if args.batch and algorithm is not None:
+        ap.error("--batch is for the APG kernel only")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -62,6 +75,7 @@ def main() -> int:
     from chip_smoke import build_problem
     from rapidnet_tpu_torch.engine.engine import XS_UPPER
     from rapidnet_tpu_torch.ops import apg_solve as K
+    from rapidnet_tpu_torch.ops import qn_solve as Q
 
     n_it = args.iterations
     out_dir = pathlib.Path(args.out)
@@ -72,9 +86,17 @@ def main() -> int:
                  penalty_state=cfg.penalty_state,
                  penalty_safety=cfg.penalty_safety,
                  xs_upper=float(XS_UPPER), max_iterations=n_it)
-    kc = K.kernel_constants(fa, prefix_stages=eng.factor_step().prefix_stages,
-                            max_iterations=n_it)
-    if args.batch:
+    prefix = eng.factor_step().prefix_stages
+    kc = K.kernel_constants(fa, prefix_stages=prefix, max_iterations=n_it)
+    if algorithm is not None:
+        kq = Q.kernel_constants(fa, prefix_stages=prefix)
+        step = make_step(cfg.current_x)
+        qn_kw = dict(hyper, algorithm=algorithm,
+                     lbfgs_buffer_size=int(cfg.lbfgs_buffer_size))
+
+        def call():
+            return Q.qn_solve(kq, step, None, **qn_kw)
+    elif args.batch:
         import numpy as np
         x0 = cfg.current_x
         rng = np.random.default_rng(7)
@@ -92,7 +114,8 @@ def main() -> int:
         call()
     torch.cuda.synchronize()
 
-    summary = {"iterations": n_it, "batch": args.batch, "solves": []}
+    summary = {"algorithm": args.algorithm, "iterations": n_it,
+               "batch": args.batch, "solves": []}
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     for _ in range(3):
@@ -120,14 +143,14 @@ def main() -> int:
         dt = getattr(e, "device_time_total", None)
         if dt is None:
             dt = getattr(e, "cuda_time_total", 0)
-        name = re.search(r"\w+_kernel", e.key)
+        name = re.search(r"\w+_kernel(<\w+>)?", e.key)
         if dt > 0 and name:
             phases.append({"kernel": name.group(), "launches": e.count,
                            "us_per_iteration": dt / n_it})
     phases.sort(key=lambda p: -p["us_per_iteration"])
     summary["phases"] = phases
     for p in phases:
-        print(f"[phase] {p['kernel']:28s} launches {p['launches']:6d}  "
+        print(f"[phase] {p['kernel']:34s} launches {p['launches']:6d}  "
               f"{p['us_per_iteration']:8.3f} us per iteration")
 
     intervals = [(e.time_range.start, e.time_range.end)

@@ -6,7 +6,10 @@ Usage:
       [--external-simulator]
 
 Runs the receding-horizon loop: forecast -> controlAction (timed) ->
-moveForwardInTime, then prints the four KPIs (src/main.cu:34-69).  With
+moveForwardInTime, then prints the four KPIs (src/main.cu:34-69).  The
+config's ``algorithm`` picks the solver (APG, global FBE or NAMA, the
+last two with its ``lbfgsBufferSize``); the per-step lines and the
+output JSON are the same for all three.  With
 ``--external-simulator`` the controller re-reads currentX/prevU/
 prevDemand from the config JSON each step and writes the updated state
 back (the reference's simulatorFlag=0 path).
@@ -37,9 +40,9 @@ def main(argv=None):
                         "raises when no GPU is present)")
     p.add_argument("--backend", default="auto",
                    choices=["auto", "cuda", "torch"],
-                   help="auto/cuda: the whole-solve CUDA kernel (its "
-                        "plain version on the CPU); torch: the plain "
-                        "PyTorch solve")
+                   help="auto/cuda: the algorithm's whole-solve CUDA "
+                        "kernel (its plain version on the CPU); torch: "
+                        "the plain PyTorch solve")
     p.add_argument("--tolerance", type=float, default=None,
                    help="terminate each solve when the residual "
                         "magnitude drops below this (default: fixed "

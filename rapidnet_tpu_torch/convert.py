@@ -18,7 +18,7 @@ import torch
 from rapidnet_tpu_torch.engine.engine import Engine, StepData
 
 PREFIX_KEYS = ("prefix_C", "prefix_Cp", "prefix_Bp")
-SHARED_BASE_KEYS = ("beta", "uhat", "e")
+SHARED_BASE_KEYS = ("beta", "uhat", "e", "alpha_price")
 
 
 def factor_arrays(engine: Engine) -> dict:
@@ -27,12 +27,15 @@ def factor_arrays(engine: Engine) -> dict:
     fa = {
         "L": fd.L, "B": fd.B, "Bb": fd.Bb, "invWbar": fd.invWbar,
         "d1": fd.d1, "d2": fd.d2, "g": fd.g,
-        "nhp": fd.neg_half_over_prob, "rep": fd.rep,
+        "nhp": fd.neg_half_over_prob, "prob": fd.prob, "rep": fd.rep,
         "xmin": fd.xmin, "xmax": fd.xmax, "xs": fd.xs,
         "umin": fd.umin, "umax": fd.umax,
         "prefix_C": dict(fd.prefix_C),
         "prefix_Cp": dict(fd.prefix_Cp),
         "prefix_Bp": dict(fd.prefix_Bp),
+        # the FBE value's smoothing cost and its null-space image
+        "Wv": engine.Wv, "alpha1": engine.network.alpha1,
+        "W": engine.config.cost_w,
         # PHYSICAL control bounds for the final projection (see
         # solver/solve_step.root_control_bounds)
         "umin_phys": engine.network.umin, "umax_phys": engine.network.umax,
@@ -42,6 +45,7 @@ def factor_arrays(engine: Engine) -> dict:
 
 def step_arrays(step: StepData) -> dict:
     return {"beta": step.beta, "uhat": step.uhat, "e": step.e,
+            "alpha_price": step.alpha_price,
             "x0": step.x0, "prev_u": step.prev_u,
             "prev_uhat": step.prev_uhat}
 
@@ -79,9 +83,10 @@ def shared_step_tensors(base_np: dict, inst_np: dict, device
                         ) -> tuple[dict, dict]:
     """``Engine.prepare_step_shared``'s ``(base, inst)`` -> tensors.
 
-    ``base`` keeps the solver's fan arrays (beta, uhat, e: O(tree)
-    bytes); ``inst`` the per-instance (B, ...) vectors x0, prev_u,
-    prev_uhat and delta_beta0 (O(B nu) bytes).
+    ``base`` keeps the solver's fan arrays (beta, uhat, e and the FBE
+    value's alpha_price: O(tree) bytes); ``inst`` the per-instance
+    (B, ...) vectors x0, prev_u, prev_uhat and delta_beta0 (O(B nu)
+    bytes).
     """
     return ({k: _tensor(base_np[k], device) for k in SHARED_BASE_KEYS},
             {k: _tensor(v, device) for k, v in inst_np.items()})

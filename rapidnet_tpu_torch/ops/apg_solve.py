@@ -49,15 +49,11 @@ STATE_KEYS = ("y_xi", "y_psi", "yp_xi", "yp_psi", "w_xi", "w_psi", "t",
               "trace", "status")
 
 
-def kernel_constants(fa: dict, *, prefix_stages: tuple,
-                     max_iterations: int) -> dict:
-    """Per-problem kernel inputs, built once on the factors' device.
-
-    Adds to the factor tensors the transposed shared matrices, the
-    prefix aggregation stack ``Cs`` (fp, ns, ns) — ``Cs[s]`` is applied
-    after prefix stage s, the identity where the tree does not branch —
-    and the Nesterov lambda table.
-    """
+def sweep_constants(fa: dict, *, prefix_stages: tuple) -> dict:
+    """The tree sweep's kernel inputs, built once on the factors' device:
+    the factor tensors, the transposed shared matrices and the prefix
+    aggregation stack ``Cs`` (fp, ns, ns) — ``Cs[s]`` is applied after
+    prefix stage s, the identity where the tree does not branch."""
     dev = fa["d1"].device
     ns = fa["d1"].shape[1]
     fp = prefix_stages[0] + 1 if prefix_stages else 0
@@ -69,9 +65,17 @@ def kernel_constants(fa: dict, *, prefix_stages: tuple,
         "L": fa["L"], "BbT": fa["Bb"].T.contiguous(),
         "iWT": fa["invWbar"].T.contiguous(), "LT": fa["L"].T.contiguous(),
         "BT": fa["B"].T.contiguous(), "Cs": Cs.contiguous(),
-        "lams": torch.as_tensor(apg_mod.nesterov_lambdas(max_iterations),
-                                device=dev),
     }
+
+
+def kernel_constants(fa: dict, *, prefix_stages: tuple,
+                     max_iterations: int) -> dict:
+    """Per-problem kernel inputs, built once on the factors' device:
+    ``sweep_constants`` and the Nesterov lambda table."""
+    kc = sweep_constants(fa, prefix_stages=prefix_stages)
+    kc["lams"] = torch.as_tensor(apg_mod.nesterov_lambdas(max_iterations),
+                                 device=fa["d1"].device)
+    return kc
 
 
 def _check(name, t, shape, device, *, contiguous=True):

@@ -177,15 +177,15 @@ def expand_shared_step(base: dict, x0, prev_u, prev_uhat, delta_beta0):
 
     With a leading batch axis on the vectors, every leaf of the result
     gets one: beta is assembled on the vectors' device, and uhat and e
-    are views of the base with batch stride 0.
+    are views of the base with batch stride 0 (as is alpha_price, where
+    the base has it).
     """
     lead = tuple(delta_beta0.shape[:-1])
     beta = base["beta"].expand(*lead, *base["beta"].shape).clone()
     beta[..., 0, :, :] += delta_beta0[..., None, :]
-    return {"beta": beta,
-            "uhat": base["uhat"].expand(*lead, *base["uhat"].shape),
-            "e": base["e"].expand(*lead, *base["e"].shape),
-            "x0": x0, "prev_u": prev_u, "prev_uhat": prev_uhat}
+    out = {k: v.expand(*lead, *v.shape) for k, v in base.items()
+           if k != "beta"}
+    return dict(out, beta=beta, x0=x0, prev_u=prev_u, prev_uhat=prev_uhat)
 
 
 def make_apg_batch_shared(**kwargs):

@@ -78,8 +78,8 @@ class BatchedSmpcController:
                 "item 12)")
         if config.algorithm != ALGORITHM_APG:
             raise NotImplementedError(
-                f"algorithm '{config.algorithm}': FBE/NAMA are not ported "
-                "yet (ROADMAP queue 1, item 8)")
+                f"algorithm '{config.algorithm}': batched FBE/NAMA is not "
+                "ported yet (ROADMAP queue 1, item 9)")
         self.device = resolve_device(device)
         if backend == "cuda" and self.device.type != "cuda":
             raise ValueError(

@@ -10,13 +10,17 @@ src/main.cu:34-68).  API parity:
   controller.move_forward_in_time()                # built-in simulator
   controller.economic_kpi(T), ...                  # KPI getters
 
-This slice runs the APG algorithm on one device.  ``backend``:
+The three algorithms of the reference run on one device: APG, global
+FBE and NAMA (``config.algorithm``; FBE and NAMA with the config's
+``lbfgs_buffer_size``).  ``backend``:
 
-* ``'auto'`` (default): the whole-solve kernel wrapper
-  (ops/apg_solve.py), which launches the CUDA kernel on a CUDA device
-  and runs its plain version on the CPU;
+* ``'auto'`` (default): the whole-solve kernel wrapper of the algorithm
+  (ops/apg_solve.py for APG, ops/qn_solve.py for FBE and NAMA), which
+  launches the CUDA kernel on a CUDA device and runs its plain version
+  on the CPU;
 * ``'cuda'``: the same, and raises unless ``device`` is a CUDA device;
-* ``'torch'``: the plain PyTorch solve (solver/apg.py) on any device.
+* ``'torch'``: the plain PyTorch solve (solver/apg.py,
+  solver/quasi_newton.py) on any device.
 
 Differences from the reference (intentional, as in the JAX package):
   * the built-in simulator applies the demand disturbance e to the state
@@ -40,14 +44,17 @@ from rapidnet_tpu_torch.convert import (factor_arrays, factor_tensors,
                                         step_arrays, step_tensors)
 from rapidnet_tpu_torch.engine.engine import XS_UPPER, Engine
 from rapidnet_tpu_torch.io import jsonio
-from rapidnet_tpu_torch.model.config import ALGORITHM_APG, SmpcConfig
+from rapidnet_tpu_torch.model.config import (ALGORITHM_APG, ALGORITHM_FBE,
+                                             ALGORITHM_NAMA, SmpcConfig)
 from rapidnet_tpu_torch.model.forecaster import Forecaster, JsonForecaster
 from rapidnet_tpu_torch.model.network import DwnNetwork
 from rapidnet_tpu_torch.model.scenario_tree import ScenarioTree
-from rapidnet_tpu_torch.ops import apg_solve
+from rapidnet_tpu_torch.ops import apg_solve, qn_solve
 from rapidnet_tpu_torch.solver import apg as apg_mod
+from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
 
 BACKENDS = ("auto", "cuda", "torch")
+ALGORITHMS = (ALGORITHM_APG, ALGORITHM_FBE, ALGORITHM_NAMA)
 
 
 def resolve_device(device) -> torch.device:
@@ -88,10 +95,8 @@ class SmpcController:
             raise NotImplementedError(
                 "the streaming kernels are not ported yet (ROADMAP "
                 "queue 1, item 7)")
-        if config.algorithm != ALGORITHM_APG:
-            raise NotImplementedError(
-                f"algorithm '{config.algorithm}': FBE/NAMA are not ported "
-                "yet (ROADMAP queue 1, item 8)")
+        if config.algorithm not in ALGORITHMS:
+            raise ValueError(f"unknown algorithm '{config.algorithm}'")
         self.device = resolve_device(device)
         if backend == "cuda" and self.device.type != "cuda":
             raise ValueError(
@@ -136,12 +141,20 @@ class SmpcController:
                   xs_upper=float(XS_UPPER),
                   max_iterations=int(cfg.max_iterations),
                   tolerance=self.tolerance)
+        if cfg.algorithm == ALGORITHM_APG:
+            make_plain = apg_mod.make_apg
+            make_kernel = apg_solve.make_apg_kernel
+        else:
+            kw.update(algorithm=cfg.algorithm,
+                      lbfgs_buffer_size=int(cfg.lbfgs_buffer_size))
+            make_plain = qn_mod.make_solver
+            make_kernel = qn_solve.make_qn_kernel
         if self.backend == "torch":
-            run = apg_mod.make_apg(**kw)
+            run = make_plain(**kw)
             fa = self._fa
             self._solver = lambda step, y0: run(fa, step, y0)
         else:
-            self._solver = apg_solve.make_apg_kernel(self._fa, **kw)
+            self._solver = make_kernel(self._fa, **kw)
 
     # ------------------------------------------------------------------
     def prepare_step(self, sim_time: int) -> dict:

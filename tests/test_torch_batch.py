@@ -313,7 +313,7 @@ def test_batched_controller_requests_raise():
     for algorithm in (ALGORITHM_FBE, ALGORITHM_NAMA):
         qn = copy.deepcopy(cfg)
         qn.algorithm = algorithm
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="item 9"):
             BatchedSmpcController(qn, net, tree, fc, x0s, **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):

@@ -3,6 +3,15 @@
 Tolerances are the JAX package's between two solve paths in a closed
 loop (tests/test_controller.py:76-77): controls rtol 1e-4 with atol
 1e-4 * max(|u|, 1); the KPIs, sums over the same controls, rtol 1e-4.
+
+FBE and NAMA: the line search branches on value comparisons, so two
+float32 implementations part after a few iterations
+(tests/test_pallas_qn.py:1-15); their closed loops run TRACK = 4
+iterations per solve, over which the JAX package holds two
+implementations to control rtol 1e-3 / atol 1e-4
+(tests/test_pallas_qn.py:85-87); the KPIs, sums over those controls, to
+rtol 1e-3.  The JAX sweeps run as the sequential scan the port mirrors
+(solve_step.SCAN_MIN_NS, as in tests/test_torch_quasi_newton.py).
 """
 
 import copy
@@ -22,7 +31,10 @@ KPIS = ("economicKpi", "smoothKpi", "safetyKpi", "networkKpi")
 STEPS = 4
 
 
-def _problem(pkg):
+QN_TRACK = 4
+
+
+def _problem(pkg, algorithm=None, max_iterations=40):
     """nx=4, nu=7 network, N=8 tree with branching [2, 2], 4 forecast
     steps; the same seeds in either package's generators."""
     import importlib
@@ -33,32 +45,44 @@ def _problem(pkg):
                                             nu=7, seed=7)
     fc = m["forecaster"].synthetic_forecaster(N=8, nd=3, nu=7,
                                               sim_horizon=STEPS, seed=7)
-    cfg = m["config"].synthetic_config(net, tree, max_iterations=40,
+    cfg = m["config"].synthetic_config(net, tree,
+                                       max_iterations=max_iterations,
                                        step_size=1e-3)
+    if algorithm is not None:
+        cfg.algorithm = algorithm
     return cfg, net, tree, fc
 
 
-def _jax_controller(**kw):
+def _jax_controller(algorithm=None, max_iterations=40, **kw):
     from rapidnet_tpu.solver.controller import SmpcController
-    cfg, net, tree, fc = _problem("rapidnet_tpu")
+    cfg, net, tree, fc = _problem("rapidnet_tpu", algorithm, max_iterations)
     return SmpcController(cfg, network=net, tree=tree, forecaster=fc,
                           backend="xla", **kw)
 
 
-def _port_controller(**kw):
+def _port_controller(algorithm=None, max_iterations=40, **kw):
     from rapidnet_tpu_torch import SmpcController
-    cfg, net, tree, fc = _problem("rapidnet_tpu_torch")
+    cfg, net, tree, fc = _problem("rapidnet_tpu_torch", algorithm,
+                                  max_iterations)
     return SmpcController(cfg, network=net, tree=tree, forecaster=fc,
                           device="cpu", **kw)
 
 
-def _assert_logs_close(got, ref, steps=STEPS):
+def _assert_logs_close(got, ref, steps=STEPS, rtol=1e-4):
+    """Controls within rtol, atol rtol * max(|u|, 1) (APG) or the
+    JAX QN bound's atol 1e-4; KPIs within rtol."""
     for t in range(steps):
         a, b = np.asarray(got[f"control{t}"]), np.asarray(ref[f"control{t}"])
-        np.testing.assert_allclose(a, b, rtol=1e-4,
+        np.testing.assert_allclose(a, b, rtol=rtol,
                                    atol=1e-4 * max(np.abs(b).max(), 1.0))
     for k in KPIS:
-        np.testing.assert_allclose(got[k], ref[k], rtol=1e-4, err_msg=k)
+        np.testing.assert_allclose(got[k], ref[k], rtol=rtol, err_msg=k)
+
+
+@pytest.fixture
+def jax_sequential_sweeps(monkeypatch):
+    from rapidnet_tpu.solver import solve_step as jss
+    monkeypatch.setattr(jss, "SCAN_MIN_NS", 1)
 
 
 @pytest.mark.parametrize("warm_start", [False, True],
@@ -70,6 +94,24 @@ def test_closed_loop_matches_jax(warm_start):
     _assert_logs_close(got, ref)
     assert "memoryLeakWarning" not in got
     assert port.primal_infeasibility.shape == (40,)
+
+
+@pytest.mark.parametrize("warm_start", [False, True],
+                         ids=["cold", "warm"])
+@pytest.mark.parametrize("algorithm", ["globalFbeAlgorithm",
+                                       "namaAlgorithm"])
+def test_qn_closed_loop_matches_jax(algorithm, warm_start,
+                                    jax_sequential_sweeps):
+    """A 4-step FBE or NAMA closed loop of the port against the JAX
+    controller: controls and KPIs, cold and warm-started."""
+    kw = dict(algorithm=algorithm, max_iterations=QN_TRACK,
+              warm_start=warm_start)
+    ref = _jax_controller(**kw).closed_loop(STEPS)
+    port = _port_controller(**kw)
+    got = port.closed_loop(STEPS)
+    _assert_logs_close(got, ref, rtol=1e-3)
+    assert "memoryLeakWarning" not in got
+    assert port.primal_infeasibility.shape == (QN_TRACK,)
 
 
 def test_backends_agree_on_cpu():
@@ -98,6 +140,34 @@ def test_cli_matches_jax_controller(tmp_path, capsys):
     got = json.loads(out.read_text())
     ref = SmpcController(paths["config"], backend="xla").closed_loop(3)
     _assert_logs_close(got, ref, steps=3)
+
+
+@pytest.mark.parametrize("algorithm", ["globalFbeAlgorithm",
+                                       "namaAlgorithm"])
+def test_cli_runs_the_config_algorithm(algorithm, tmp_path, capsys,
+                                       jax_sequential_sweeps):
+    """A config that names FBE or NAMA: the port's CLI prints the same
+    lines and writes the same JSON keys as for APG, and its controls
+    agree with the JAX controller's on the same files."""
+    from rapidnet_tpu.io.writers import export_problem
+    from rapidnet_tpu.solver.controller import SmpcController
+    from rapidnet_tpu_torch import cli
+
+    cfg, net, tree, fc = _problem("rapidnet_tpu", algorithm, QN_TRACK)
+    paths = export_problem(net, tree, fc, cfg, tmp_path / "problem")
+    out = tmp_path / "control.json"
+    assert cli.main(["--config", paths["config"], "--steps", "3",
+                     "--device", "cpu", "--output", str(out)]) == 0
+    captured = capsys.readouterr()
+    assert captured.err.count("time lapsed") == 3
+    assert "economic kpi" in captured.out
+    got = json.loads(out.read_text())
+    assert set(got) == ({f"control{t}" for t in range(3)} |
+                        {f"time{t}" for t in range(3)} | set(KPIS))
+    assert json.loads(open(paths["config"]).read())["algorithmName"] == \
+        algorithm
+    ref = SmpcController(paths["config"], backend="xla").closed_loop(3)
+    _assert_logs_close(got, ref, steps=3, rtol=1e-3)
 
 
 def test_cli_external_simulator_writes_state(tmp_path):
@@ -137,6 +207,12 @@ def test_package_never_imports_jax():
         "u = rapidnet_tpu_torch.SmpcController(cfg, network=net, tree=tree,"
         " forecaster=fc, device='cpu').control_action(0)\n"
         "assert u.shape == (7,)\n"
+        "for alg in ('globalFbeAlgorithm', 'namaAlgorithm'):\n"
+        "    cfg.algorithm = alg\n"
+        "    u = rapidnet_tpu_torch.SmpcController(cfg, network=net, "
+        "tree=tree, forecaster=fc, device='cpu').control_action(0)\n"
+        "    assert u.shape == (7,)\n"
+        "cfg.algorithm = 'proximalAlgorithm'\n"
         "import numpy as np\n"
         "bu = rapidnet_tpu_torch.BatchedSmpcController(cfg, net, tree, fc,"
         " np.tile(cfg.current_x, (2, 1)), device='cpu').control_action(0)\n"
@@ -165,14 +241,23 @@ def test_device_and_backend_requests_raise():
 
 
 def test_unported_options_raise():
-    from rapidnet_tpu_torch import SmpcController
+    """Batched FBE/NAMA, multi-GPU solves and streaming raise; a
+    single-device FBE controller builds, and an unknown algorithm
+    raises."""
+    from rapidnet_tpu_torch import BatchedSmpcController, SmpcController
     from rapidnet_tpu_torch.model.config import ALGORITHM_FBE
     cfg, net, tree, fc = _problem("rapidnet_tpu_torch")
     kw = dict(network=net, tree=tree, forecaster=fc, device="cpu")
     fbe = copy.deepcopy(cfg)
     fbe.algorithm = ALGORITHM_FBE
-    with pytest.raises(NotImplementedError, match="item 8"):
-        SmpcController(fbe, **kw)
+    assert SmpcController(fbe, **kw).config.algorithm == ALGORITHM_FBE
+    with pytest.raises(NotImplementedError, match="item 9"):
+        BatchedSmpcController(fbe, net, tree, fc,
+                              np.tile(cfg.current_x, (2, 1)), device="cpu")
+    bad = copy.deepcopy(cfg)
+    bad.algorithm = "newtonAlgorithm"
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        SmpcController(bad, **kw)
     with pytest.raises(NotImplementedError, match="item 12"):
         SmpcController(cfg, mesh=object(), **kw)
     with pytest.raises(NotImplementedError, match="item 7"):

@@ -1,4 +1,5 @@
-"""The whole-solve CUDA kernel, single and batched, on the card.
+"""The whole-solve CUDA kernels, APG single and batched, FBE and NAMA,
+on the card.
 
 These tests need a CUDA GPU and skip without one.  They import neither
 jax nor the JAX package, because the card's machine has no JAX; since
@@ -13,6 +14,26 @@ scale to 1e-3, the JAX package's bound between two implementations).
 An instance of a batched kernel call runs the same code on the same
 inputs as a single-solve call, with its own reductions in the same
 order, so the two are compared bit for bit.
+
+FBE and NAMA: the line search branches on value comparisons, so the
+kernel and the plain version part after a few iterations
+(tests/test_pallas_qn.py:1-15).  Over the first QN_TRACK iterations
+they are held to the JAX package's bounds between two implementations
+of this solve (tests/test_pallas_qn.py:59-89): tau rtol 1e-4 / atol
+1e-6, the FBE value rtol 2e-3 / atol 2e-4 * max(|value|, 1), the
+infeasibility rtol 2e-3 / atol 1e-4, control rtol 1e-3 / atol 1e-4 and
+u rtol 1e-3 / atol 1e-3; with the penalties active (tanks above their
+box) u and the control to atol 2e-3 * max|plain|, the JAX package's
+bound on its reference problem (tests/test_pallas_qn.py:131-138).  The
+same bounds hold over QN_WRAP iterations with a buffer of QN_WRAP_BS,
+across the wrap of the L-BFGS ring, as they do between the plain
+version and the JAX package's (tests/test_torch_quasi_newton.py).  The
+step size is 1e-3, where float32 solves of this problem track each
+other (tests/test_torch_qn_solve.py says why not 1e-4); the tolerance
+exit runs at 3e-4, where the residual magnitude crosses a tolerance
+within the iterations over which the two track.  The kernel's
+reductions run in a fixed order, so two calls are compared bit for
+bit.
 """
 
 import numpy as np
@@ -272,3 +293,162 @@ def test_batched_controller_launches_the_kernel(cuda_device):
     assert K.apg_solve_batch.launches == n0 + 3
     ref = run("torch")
     _close(torch.tensor(got["controls"]), torch.tensor(ref["controls"]))
+
+
+QN_ALGORITHMS = ["globalFbeAlgorithm", "namaAlgorithm"]
+QN_TRACK = 4
+QN_BS = 5           # the config's lbfgs_buffer_size
+# Every iteration past the first offers a curvature pair, and the ring
+# wraps (col = 1 + col % size; the two-loop then visits the zero column
+# and the columns below it) at the (size + 1)-th accepted one.  From
+# tanks at 1.2 times their maximum the two solves track over the first 8
+# iterations at a buffer of 3, which hold 4 iterations past the wrap;
+# from the nominal state they part sooner.
+QN_WRAP_BS, QN_WRAP = 3, 8
+QN_CASES = {"nominal": dict(step_size=1e-3, x0_scale=None),
+            "stressed": dict(step_size=1e-3, x0_scale=1.2)}
+
+
+def _qn_problem(device, step_size, x0_scale, max_iterations=QN_TRACK):
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    kc, step, kw = _problem(device, step_size, x0_scale, max_iterations)
+    return (Q.kernel_constants(kc["fa"], prefix_stages=kc["prefix_stages"]),
+            step, dict(kw, lbfgs_buffer_size=QN_BS))
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _qn_close(got, ref, stressed, n=QN_TRACK):
+    vscale = max(float(np.abs(_np(ref["value_fbe"])).max()), 1.0)
+    for k, rtol, atol in (("tau", 1e-4, 1e-6),
+                          ("value_fbe", 2e-3, 2e-4 * vscale),
+                          ("primal_infeasibility", 2e-3, 1e-4)):
+        np.testing.assert_allclose(_np(got[k])[:n], _np(ref[k])[:n],
+                                   rtol=rtol, atol=atol, err_msg=k)
+    for k, rtol, atol in (("control", 1e-3, 1e-4), ("u", 1e-3, 1e-3)):
+        if stressed:
+            rtol, atol = 0.0, 2e-3 * max(float(np.abs(_np(ref[k])).max()),
+                                         1.0)
+        np.testing.assert_allclose(_np(got[k]), _np(ref[k]), rtol=rtol,
+                                   atol=atol, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(QN_CASES))
+@pytest.mark.parametrize("algorithm", QN_ALGORITHMS)
+def test_qn_kernel_matches_plain_on_gpu(cuda_device, algorithm, case):
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    kc, step, kw = _qn_problem(cuda_device, **QN_CASES[case])
+    n0 = Q.qn_solve.launches
+    got = Q.qn_solve(kc, step, None, algorithm=algorithm, **kw)
+    assert Q.qn_solve.launches == n0 + 1
+    ref = Q.qn_solve_plain(kc, step, None, algorithm=algorithm, **kw)
+    assert int(got["iterations"]) == QN_TRACK
+    _qn_close(got, ref, stressed=case == "stressed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", QN_ALGORITHMS)
+def test_qn_kernel_tracks_plain_across_the_lbfgs_wrap(cuda_device,
+                                                      algorithm):
+    """Over QN_WRAP iterations, in which the ring wraps, the kernel keeps
+    to the plain version's traces, solution, rejected pairs and count of
+    line-search trials."""
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    kc, step, kw = _qn_problem(cuda_device, **QN_CASES["stressed"],
+                               max_iterations=QN_WRAP)
+    kw["lbfgs_buffer_size"] = QN_WRAP_BS
+    got = Q.qn_solve(kc, step, None, algorithm=algorithm, **kw)
+    ref = Q.qn_solve_plain(kc, step, None, algorithm=algorithm, **kw)
+    assert int(got["iterations"]) == QN_WRAP
+    skips = int(ref["lbfgs_skips"])
+    assert QN_WRAP - 1 - skips > QN_WRAP_BS, "the ring did not wrap"
+    assert int(got["lbfgs_skips"]) == skips
+    _qn_close(got, ref, stressed=True, n=QN_WRAP)
+    assert int(got["line_search_trials"]) == int(ref["line_search_trials"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", QN_ALGORITHMS)
+def test_qn_kernel_is_deterministic(cuda_device, algorithm):
+    """Two calls give the same bits."""
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    kc, step, kw = _qn_problem(cuda_device, step_size=1e-3, x0_scale=None,
+                               max_iterations=ITERS)
+    runs = [Q.qn_solve(kc, step, None, algorithm=algorithm, **kw)
+            for _ in range(2)]
+    for k in ("u", "x", "primal_infeasibility", "value_fbe", "tau",
+              "iterations", "line_search_trials", "lbfgs_skips"):
+        assert torch.equal(runs[1][k], runs[0][k]), k
+    for k in ("xi", "psi"):
+        assert torch.equal(runs[1]["y"][k], runs[0]["y"][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", QN_ALGORITHMS)
+def test_qn_kernel_tolerance_exit_matches_plain(cuda_device, algorithm):
+    """The device-side done flag stops at the plain version's iteration
+    and leaves the three traces zero past it.  The tolerance comes from
+    the plain version's residual magnitudes: of those that stop it past
+    the first iteration, the one farthest from the edges of its exit
+    (quasi_newton.exit_tolerances)."""
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+    from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
+
+    n = 20
+    kc, step, kw = _qn_problem(cuda_device, step_size=3e-4, x0_scale=None,
+                               max_iterations=n)
+    mags = qn_mod.make_solver(algorithm=algorithm,
+                              prefix_stages=kc["prefix_stages"],
+                              trace_magnitude=True, **kw)(kc["fa"], step)
+    found = qn_mod.exit_tolerances(_np(mags["residual_magnitude"]), n - 1)
+    assert found, "no tolerance stops the solve mid-budget"
+    tol, it, _ = found[0]
+    ref = Q.qn_solve_plain(kc, step, None, algorithm=algorithm,
+                           tolerance=tol, **kw)
+    got = Q.qn_solve(kc, step, None, algorithm=algorithm, tolerance=tol,
+                     **kw)
+    assert int(ref["iterations"]) == int(got["iterations"]) == it
+    for k in ("primal_infeasibility", "value_fbe", "tau"):
+        assert bool((got[k][it:] == 0).all()), k
+    np.testing.assert_allclose(_np(got["control"]), _np(ref["control"]),
+                               rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", QN_ALGORITHMS)
+def test_qn_controller_launches_the_kernel(cuda_device, algorithm):
+    """SmpcController with backend 'cuda' solves FBE or NAMA through the
+    kernel, once per control step, and agrees with 'torch'."""
+    from rapidnet_tpu_torch import SmpcController
+    from rapidnet_tpu_torch.model.config import synthetic_config
+    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
+    from rapidnet_tpu_torch.model.network import synthetic_network
+    from rapidnet_tpu_torch.model.scenario_tree import generate_tree
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    def run(backend):
+        net = synthetic_network(nx=4, nu=7, nd=3, ne=2, seed=7)
+        tree = generate_tree(N=8, branching=[2, 2], nd=3, nu=7, seed=7)
+        fc = synthetic_forecaster(N=8, nd=3, nu=7, sim_horizon=3, seed=7)
+        cfg = synthetic_config(net, tree, max_iterations=QN_TRACK,
+                               step_size=1e-3)
+        cfg.algorithm = algorithm
+        return SmpcController(cfg, network=net, tree=tree, forecaster=fc,
+                              backend=backend).closed_loop(3)
+
+    n0 = Q.qn_solve.launches
+    got = run("cuda")
+    assert Q.qn_solve.launches == n0 + 3
+    ref = run("torch")
+    for t in range(3):
+        b = np.asarray(ref[f"control{t}"])
+        np.testing.assert_allclose(np.asarray(got[f"control{t}"]), b,
+                                   rtol=1e-3,
+                                   atol=1e-4 * max(np.abs(b).max(), 1.0))
