@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--reference-kernel PATH]
+    python3 chip_smoke.py [--reference-kernel DIR]
 
 Run from the root of the repository on a machine with a CUDA GPU.  It
 imports only ``rapidnet_tpu_torch``, torch and numpy, and in order:
@@ -35,8 +35,8 @@ x0 * (1 + 0.02 N(0, 1)) (numpy seed 7, as bench.py:133-136):
     tolerance every instance of a batched call stops at the plain
     version's iteration for it;
 6c. holds the batched entry at B = 1 to the single solve, bit for bit;
-    with ``--reference-kernel PATH`` (an earlier ``apg_solve.cu``) also
-    the single solve to that source's kernel;
+    with ``--reference-kernel DIR`` (the ``csrc`` directory of an earlier
+    checkout) also the single solve to that source's kernel;
 7.  runs 3-step batched closed loops through
     ``BatchedSmpcController(device="cuda")`` with a shared forecaster,
     cold and warm-started: one kernel call per step, finite controls and
@@ -91,6 +91,40 @@ the two algorithms, at the same problem with an L-BFGS buffer of 5
     host's enqueue ms, the launches per iteration and the bound (its
     line-search trials as the kernel counted them).
 
+Then the batched FBE/NAMA kernel (the batch axis of ``csrc/qn_solve.cu``)
+at B = 32, the states of phase 6, buffer 5, for each algorithm:
+
+12a. one 500-iteration batched call in the shared-forecast form and one
+     in the stacked form: every instance equal to the single-solve
+     kernel on that instance's step bit for bit (control, u, x, y, the
+     three traces, iterations, line-search trials, rejected pairs; the
+     largest difference printed); the batched entry at B = 1 (compiled
+     with the batch axis) equal to the single solve (compiled without
+     it); with ``--reference-kernel DIR`` the single solve
+     equal to the kernel of DIR's ``qn_solve.cu`` at 500 iterations;
+12b. instances 0-3 of a batched call against the plain batched version
+     with 9a's rules: TRACK >= buffer size + QN_TRACK_SPARE, the counts of
+     line-search trials and rejected pairs equal over TRACK, the ring
+     wrapped, control and u within 9a's bounds;
+12c. tolerance exits from tanks at LOW_FILL of their maximum, states
+     scaled by 1 + 0.02 N(0, 1), under 9c's tolerance: every instance
+     stops where its single-kernel solve stops, instances 0-3 where the
+     plain version stops, and the traces are zero past each exit;
+13.  3-step ``BatchedSmpcController(device="cuda")`` loops, shared
+     forecast cold and warm, and stacked (one forecaster per instance):
+     one kernel call per step, finite controls and KPIs; in the stacked
+     form instance 0's controls equal a single-instance
+     ``SmpcController(device="cuda")``'s from the same state bit for bit
+     (the shared form's gap to it is printed, not gated: its root
+     correction rounds differently);
+14.  timing: batch-32 solves/s (median of 5 calls, inputs staged,
+     synchronised around each), the host's enqueue ms, the launches per
+     iteration, the peak device memory above what was held before, the
+     plain batch's time on instances 0-3 of the last call at 500
+     iterations (its JSON entry says how many instances: all 32 would
+     take minutes) and the bound (the instances' operations, each with
+     its own trial count, against the bytes).
+
 Each phase prints its own line.  The last lines are the card's name and
 power limit, one JSON line describing each kernel (with its bound: the
 larger of its FP32 operations over 67 TFLOP/s and its bytes, each input
@@ -109,6 +143,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 REPEATS = 7
 MAX_ITER = 500
@@ -138,6 +173,11 @@ QN_TRACES = ("tau", "value_fbe", "primal_infeasibility")
 QN_U_FACTOR = 2e-3    # u within 2e-3 * max(|u|, 1): the JAX package's bound
                       # on its full-size problem (tests/test_pallas_qn.py:131)
 QN_LOOP_STEPS = 4
+PLAIN_INSTANCES = 4   # phase 12b-c: the instances held to the plain batch
+BATCH_LOOP_STEPS = 3
+APG_KEYS = ("control", "u", "x", "primal_infeasibility", "y.xi", "y.psi")
+QN_KEYS = APG_KEYS + ("value_fbe", "tau")
+QN_INT_KEYS = ("iterations", "line_search_trials", "lbfgs_skips")
 KPI_KEYS = ("economicKpi", "smoothKpi", "safetyKpi", "networkKpi")
 
 
@@ -185,12 +225,19 @@ def witness_check(name, kern, plain, wit):
     return e_k, e_p
 
 
-def compare_instances(name, got, refs):
+def instance(d, b):
+    """Instance b of a batched dict of tensors (nested dicts too)."""
+    return {k: instance(v, b) if isinstance(v, dict) else v[b].contiguous()
+            for k, v in d.items()}
+
+
+def compare_instances(name, got, refs, keys=APG_KEYS,
+                      int_keys=("iterations",)):
     """Instance b of the batched outputs ``got`` against ``refs[b]``, on
-    control, u, x, y and the trace: max |error| within SAME_FACTOR *
-    max(|ref|, 1).  Returns (max error, whether all were bit-equal)."""
+    ``keys`` (control, u, x, y and the trace): max |error| within
+    SAME_FACTOR * max(|ref|, 1), and ``int_keys`` equal.  Returns (max
+    error, whether all were bit-equal)."""
     import torch
-    keys = ("control", "u", "x", "primal_infeasibility", "y.xi", "y.psi")
 
     def leaf(out, k):
         return out["y"][k[2:]] if k.startswith("y.") else out[k]
@@ -212,9 +259,10 @@ def compare_instances(name, got, refs):
             raise SmokeFailure(f"{name}.{k}: batched and single kernel "
                                f"disagree ({err:.6g} > {bound:.6g})")
         worst = max(worst, err)
-    for b, ref in enumerate(refs):
-        if int(got["iterations"][b]) != int(ref["iterations"]):
-            raise SmokeFailure(f"{name}: instance {b} iterations differ")
+    for k in int_keys:
+        for b, ref in enumerate(refs):
+            if int(got[k][b]) != int(ref[k]):
+                raise SmokeFailure(f"{name}: instance {b}'s {k} differ")
     return worst, equal
 
 
@@ -303,14 +351,16 @@ def solutions_agree(kern, plain):
 
 
 def qn_solve_bound(kq, step, out, algorithm, prefix_stages):
-    """The least time (ms) the card could take for one FBE/NAMA solve and
-    what sets it.  Operations: the products of the tree sweeps (one at
-    the first iteration, two for FBE; three at every later one) and of
-    the FBE values' smoothing cost du W' (the one before the search and
-    one per line-search trial that ran, as the kernel counts them), over
-    67 TFLOP/s; elementwise work and the L-BFGS dots are left out.
-    Bytes: the inputs read once and the outputs written once, over 3.35
-    TB/s.  Returns (bound_ms, bound_by, flops, bytes, trials)."""
+    """The least time (ms) the card could take for one FBE/NAMA solve, or
+    a batch of them, and what sets it.  Operations: the products of the
+    tree sweeps (one at the first iteration, two for FBE; three at every
+    later one) and of the FBE values' smoothing cost du W' (the one
+    before the search and one per line-search trial that ran, as the
+    kernel counts them), summed over the instances, over 67 TFLOP/s;
+    elementwise work and the L-BFGS dots are left out.  Bytes: the
+    inputs read once (each distinct buffer once, a batch-stride-0 view
+    once) and the outputs written once, over 3.35 TB/s.  Returns
+    (bound_ms, bound_by, flops, bytes, trials)."""
     from rapidnet_tpu_torch.ops import qn_solve as Q
     fa = kq["fa"]
     N, ns, nx = fa["d1"].shape
@@ -320,15 +370,19 @@ def qn_solve_bound(kq, step, out, algorithm, prefix_stages):
     n_agg = sum(1 for s in prefix_stages if s > 0)
     sweep = N * ns * per_row + 2 * n_agg * ns * ns * (nx + nv)
     value = N * ns * 2 * nu * nu
-    iters = int(out["iterations"])
-    trials = int(out["line_search_trials"])
+    its = out["iterations"].reshape(-1).tolist()
+    trials = out["line_search_trials"].reshape(-1).tolist()
     first = 2 if algorithm == QN_ALGORITHMS["fbe"] else 1
-    flops = (first * sweep + (iters - 1) * (3 * sweep + value) +
-             trials * value) if iters else 0
+    flops = sum(first * sweep + (it - 1) * (3 * sweep + value) + tr * value
+                for it, tr in zip(its, trials) if it)
     tensors = ([fa[k] for k in Q.ROW_KEYS] + [kq[k] for k in Q.MATRIX_KEYS]
                + [step[k] for k in ("beta", "uhat", "e", "alpha_price",
                                     "x0", "prev_u", "prev_uhat")])
-    nbytes = sum(t.numel() * t.element_size() for t in tensors) + sum(
+    storages = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        storages[st.data_ptr()] = st.nbytes()
+    nbytes = sum(storages.values()) + sum(
         t.numel() * t.element_size() for t in
         (out["x"], out["u"], out["y"]["xi"], out["y"]["psi"],
          out["primal_infeasibility"], out["value_fbe"], out["tau"],
@@ -336,15 +390,144 @@ def qn_solve_bound(kq, step, out, algorithm, prefix_stages):
     t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes,
-            trials)
+            sum(trials))
+
+
+def wrappers():
+    """Each kernel wrapper, by the name its launches are counted under."""
+    from rapidnet_tpu_torch.ops import apg_solve as K
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+    return {"apg_solve": K.apg_solve, "apg_solve_batch": K.apg_solve_batch,
+            "qn_solve": Q.qn_solve, "qn_solve_batch": Q.qn_solve_batch}
+
+
+def zero_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def count_launches(tag, name, expected):
+    """The launches counted since ``zero_counts()``: wrapper ``name``'s
+    must be ``expected`` and every other wrapper's none.  Returns
+    ``name``'s count."""
+    counts = {k: fn.launches for k, fn in wrappers().items()}
+    n = counts.pop(name)
+    if n != expected or any(counts.values()):
+        raise SmokeFailure(f"{tag}: {n} {name} launches for {expected} "
+                           f"solves; the other kernels' {counts}")
+    return n
+
+
+def forecaster(net):
+    """The Barcelona-scale problem's forecaster, new."""
+    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
+    return synthetic_forecaster(N=24, nd=net.nd, nu=net.nu, sim_horizon=4,
+                                seed=42)
+
+
+def perturbed(x0, rng, n=BATCH):
+    """n states x0 * (1 + 0.02 N(0, 1)) (bench.py:133-136)."""
+    import numpy as np
+    return (x0 * (1.0 + 0.02 * rng.standard_normal((n, x0.size)))
+            ).astype(np.float32)
+
+
+def timed(fn):
+    """fn() with the device synchronised before and after: (wall ms, the
+    host's enqueue ms, fn's result)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3, res
+
+
+def batched_loops(tag, cfg, net, tree, x0s, runs, name):
+    """Phases 7 and 13: 3-step ``BatchedSmpcController(device="cuda")``
+    loops from states ``x0s``, one for each (label, forecaster or one per
+    instance, warm start) of ``runs``, every launch count zeroed just
+    before each.  Each step calls the batched kernel ``name`` once and no
+    other kernel, and controls and KPIs are finite.  Returns the logs by
+    label, the batched calls of all the loops, and the controls of a
+    single-instance ``SmpcController(device="cuda")`` from x0s[0]."""
+    import numpy as np
+    from rapidnet_tpu_torch.solver.batch import BatchedSmpcController
+    from rapidnet_tpu_torch.solver.controller import SmpcController
+
+    logs, calls = {}, 0
+    for label, fcs, warm in runs:
+        ctrl = BatchedSmpcController(copy.deepcopy(cfg), net, tree, fcs, x0s,
+                                     warm_start=warm, device="cuda")
+        ctrl.initialise()
+        zero_counts()
+        t0 = time.perf_counter()
+        log = ctrl.closed_loop(BATCH_LOOP_STEPS)
+        loop_ms = (time.perf_counter() - t0) * 1e3 / BATCH_LOOP_STEPS
+        calls += count_launches(f"{tag}.{label}", name, BATCH_LOOP_STEPS)
+        print(f"[batched_loop] {tag}.{label}: {BATCH_LOOP_STEPS} steps of B "
+              f"{BATCH}, one {name} call each and no other kernel; solve ms "
+              f"per step "
+              f"{', '.join(f'{m:.3f}' for m in log['solve_times_ms'])}; "
+              f"whole step {loop_ms:.3f} ms")
+        kpis = {k: log[k] for k in KPI_KEYS}
+        if not (np.isfinite(log["controls"]).all() and
+                all(np.isfinite(v).all() for v in kpis.values())):
+            raise SmokeFailure(f"{tag}.{label}: non-finite controls or KPIs")
+        print(f"[batched_loop] {tag}.{label} kpis of instance 0: " +
+              json.dumps({k: float(v[0]) for k, v in kpis.items()}))
+        logs[label] = log
+    c0 = copy.deepcopy(cfg)
+    c0.set_current_state(x0s[0])
+    slog = SmpcController(c0, network=net, tree=tree,
+                          forecaster=forecaster(net), backend="cuda",
+                          device="cuda").closed_loop(BATCH_LOOP_STEPS)
+    single = np.array([slog[f"control{t}"] for t in range(BATCH_LOOP_STEPS)],
+                      np.float32)
+    return logs, calls, single
+
+
+def batch_timing(tag, run, make_steps):
+    """Phases 8 and 14: the median wall ms of BATCH_REPEATS batched
+    solves ``run(steps)``, each on inputs ``make_steps()`` staged on the
+    device before it, and the peak device memory of one more call above
+    what was held before it.  Returns (median ms, the last steps, their
+    outputs)."""
+    import numpy as np
+    import torch
+    times, enqueue = [], []
+    for _ in range(BATCH_REPEATS):
+        steps = make_steps()
+        ms, enq, out = timed(lambda: run(steps))
+        times.append(ms)
+        enqueue.append(enq)
+        if not bool(torch.isfinite(out["control"]).all()):
+            raise SmokeFailure(f"{tag}: non-finite batched control")
+    med = float(np.median(times))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    run(steps)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[timing] {tag} batched kernel, B {BATCH}, {MAX_ITER} "
+          f"iterations: median {med:.3f} ms of {BATCH_REPEATS} ("
+          f"{', '.join(f'{t:.3f}' for t in times)}): "
+          f"{BATCH * 1e3 / med:.3f} solves/s; host enqueue "
+          f"{', '.join(f'{t:.3f}' for t in enqueue)} ms")
+    print(f"[memory] {tag} batched solve: peak {peak / 2**20:.3f} MiB "
+          f"allocated, {(peak - held) / 2**20:.3f} MiB above the "
+          f"{held / 2**20:.3f} MiB held before it")
+    return med, steps, out
 
 
 def qn_phases(cfg, net, tree, fa, make_step, hyper, prefix, apg_kpis):
-    """Phases 9a-11 for FBE and NAMA; returns their JSON entries."""
+    """Phases 9a-11 for FBE and NAMA; returns their JSON entries and, per
+    algorithm, 9c's tolerance (the batch's phase 12c reuses it)."""
     import numpy as np
     import torch
-    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
-    from rapidnet_tpu_torch.ops import apg_solve as K
     from rapidnet_tpu_torch.ops import qn_solve as Q
     from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
     from rapidnet_tpu_torch.solver.controller import SmpcController
@@ -354,7 +537,7 @@ def qn_phases(cfg, net, tree, fa, make_step, hyper, prefix, apg_kpis):
     track_min = bs + QN_TRACK_SPARE
     step = make_step(cfg.current_x)
     lo, hi = fa["umin_phys"], fa["umax_phys"]
-    entries = []
+    entries, tols = [], {}
     for short, algorithm in QN_ALGORITHMS.items():
         qkw = dict(hyper, algorithm=algorithm, lbfgs_buffer_size=bs)
 
@@ -504,28 +687,22 @@ def qn_phases(cfg, net, tree, fa, make_step, hyper, prefix, apg_kpis):
         for warm in (False, True):
             c = copy.deepcopy(cfg)
             c.algorithm = algorithm
-            fc = synthetic_forecaster(N=24, nd=net.nd, nu=net.nu,
-                                      sim_horizon=4, seed=42)
-            ctrl = SmpcController(c, network=net, tree=tree, forecaster=fc,
-                                  backend="cuda", device="cuda",
-                                  warm_start=warm)
+            ctrl = SmpcController(c, network=net, tree=tree,
+                                  forecaster=forecaster(net), backend="cuda",
+                                  device="cuda", warm_start=warm)
             ctrl.initialise()
-            K.apg_solve.launches = K.apg_solve_batch.launches = 0
-            Q.qn_solve.launches = 0
+            zero_counts()
             t0 = time.perf_counter()
             log = ctrl.closed_loop(QN_LOOP_STEPS)
             loop_ms = (time.perf_counter() - t0) * 1e3 / QN_LOOP_STEPS
-            n = Q.qn_solve.launches
             label = "warm" if warm else "cold"
+            n = count_launches(f"10.{short}.{label}", "qn_solve",
+                               QN_LOOP_STEPS)
             ms = [log[f"time{t}"][0] for t in range(QN_LOOP_STEPS)]
             print(f"[qn] 10.{short}.{label}: {QN_LOOP_STEPS} steps, kernel "
                   f"launches {n}, solve ms per step "
                   f"{', '.join(f'{m:.3f}' for m in ms)}; whole step "
                   f"{loop_ms:.3f} ms")
-            if n != QN_LOOP_STEPS or K.apg_solve.launches or \
-                    K.apg_solve_batch.launches:
-                raise SmokeFailure(f"{short}: {n} kernel launches for "
-                                   f"{QN_LOOP_STEPS} solves")
             loop_launches += n
             kpis = {k: log[k] for k in KPI_KEYS}
             controls = np.array([log[f"control{t}"]
@@ -542,19 +719,13 @@ def qn_phases(cfg, net, tree, fa, make_step, hyper, prefix, apg_kpis):
                   f"of phase 4 {json.dumps(rel)}")
 
         # 11. timing, inputs staged on the device
-        rng = np.random.default_rng(7)
-        x0 = cfg.current_x
-        staged = [make_step(x0 * (1.0 + 0.02 * rng.standard_normal(
-            x0.shape)).astype(np.float32)) for _ in range(REPEATS)]
+        staged = [make_step(x) for x in perturbed(
+            cfg.current_x, np.random.default_rng(7), REPEATS)]
         times, enqueue = [], []
         for st in staged:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = kern(step=st)
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            enqueue.append((t1 - t0) * 1e3)
+            ms, enq, out = timed(lambda: kern(step=st))
+            times.append(ms)
+            enqueue.append(enq)
             if not bool(torch.isfinite(out["control"]).all()):
                 raise SmokeFailure(f"{short}: non-finite control")
         med = float(np.median(times))
@@ -577,6 +748,203 @@ def qn_phases(cfg, net, tree, fa, make_step, hyper, prefix, apg_kpis):
              "launches": loop_launches, "max_abs_err": err_u, "ms": med,
              "plain_ms": plain_ms, "bound_ms": bound[0],
              "bound_by": bound[1], "library_ms": None})
+        tols[short] = tol
+    return entries, tols
+
+
+def outputs_equal(got, ref, keys):
+    """Whether two solves' outputs ``keys`` and dual y are equal bit for
+    bit."""
+    import torch
+    return all(torch.equal(got[k], ref[k]) for k in keys) and all(
+        torch.equal(got["y"][k], ref["y"][k]) for k in ("xi", "psi"))
+
+
+def qn_batch_phases(ref_libs, cfg, net, tree, fa, make_batch, hyper, prefix,
+                    tols):
+    """Phases 12a-14, the batched FBE/NAMA kernel at B = 32; ``tols``:
+    9c's tolerance per algorithm.  Returns their JSON entries."""
+    import numpy as np
+    import torch
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    kq = Q.kernel_constants(fa, prefix_stages=prefix)
+    bs = int(cfg.lbfgs_buffer_size)
+    track_min = bs + QN_TRACK_SPARE
+    P = PLAIN_INSTANCES
+    x0 = cfg.current_x
+    rng = np.random.default_rng(7)
+    x0s = perturbed(x0, rng)
+    steps_sh = make_batch(x0s)
+    steps_st = make_batch(x0s, shared=False)
+    steps_low = make_batch(perturbed((LOW_FILL * net.xmax).astype(np.float32),
+                                     np.random.default_rng(7)))
+
+    entries = []
+    for short, algorithm in QN_ALGORITHMS.items():
+        qkw = dict(hyper, algorithm=algorithm, lbfgs_buffer_size=bs)
+
+        def kern_b(steps, n=MAX_ITER, **kw):
+            return Q.qn_solve_batch(kq, steps, None,
+                                    **dict(qkw, max_iterations=n, **kw))
+
+        def kern_1(step, n=MAX_ITER, **kw):
+            return Q.qn_solve(kq, step, None,
+                              **dict(qkw, max_iterations=n, **kw))
+
+        def plain_b(steps, n=MAX_ITER, **kw):
+            """The plain batch on instances 0 .. P-1."""
+            return Q.qn_solve_batch_plain(
+                kq, {k: v[:P] for k, v in steps.items()}, None,
+                **dict(qkw, max_iterations=n, **kw))
+
+        # 12a. every instance against the single-solve kernel, bit for bit
+        for form, steps in (("shared", steps_sh), ("stacked", steps_st)):
+            kb = kern_b(steps)
+            singles = [kern_1(instance(steps, b)) for b in range(BATCH)]
+            err, equal = compare_instances(f"12a.{short}.{form}", kb,
+                                           singles, QN_KEYS, QN_INT_KEYS)
+            print(f"[qn_batch] 12a.{short}.{form}: all {BATCH} instances "
+                  f"equal to the single-solve kernel bit for bit: {equal} "
+                  f"(largest difference {err:.6g}); iterations "
+                  f"{sorted(set(kb['iterations'].tolist()))}, line-search "
+                  f"trials {kb['line_search_trials'].tolist()}")
+            if not equal:
+                raise SmokeFailure(f"{short}.{form}: a batched instance "
+                                   "differs from its single solve")
+            del singles
+        one = {k: v[:1] for k, v in steps_sh.items()}
+        b1, s1 = kern_b(one), kern_1(instance(steps_sh, 0))
+        _, eq1 = compare_instances(f"12a.{short}.B=1", b1, [s1], QN_KEYS,
+                                   QN_INT_KEYS)
+        print(f"[qn_batch] 12a.{short}: B = 1 equals the single solve bit "
+              f"for bit: {eq1}")
+        if not eq1:
+            raise SmokeFailure(f"{short}: B = 1 differs from the single "
+                               "solve")
+        if ref_libs:
+            with torch.cuda.device(fa["d1"].device):
+                r1 = Q._launch(ref_libs["qn_solve"],
+                               torch.cuda.current_stream().cuda_stream, kq,
+                               instance(steps_sh, 0), None, batch=None,
+                               **dict(qkw, max_iterations=MAX_ITER,
+                                      tolerance=None))
+            same = outputs_equal(r1, s1, ("x", "u") + QN_TRACES +
+                                 QN_INT_KEYS)
+            print(f"[qn_batch] 12a.{short}: single solve equals the "
+                  f"reference kernel (qn_solve.cu of --reference-kernel) "
+                  f"bit for bit: {same}")
+            if not same:
+                raise SmokeFailure(f"{short}: the single solve changed")
+
+        # 12b. instances 0 .. P-1 against the plain batch, 9a's rules
+        k_s, p_s = kern_b(steps_sh, QN_TRACK_MAX), plain_b(steps_sh,
+                                                           QN_TRACK_MAX)
+        traced = min(qn_horizon(instance(k_s, b), instance(p_s, b),
+                                QN_TRACK_MAX) for b in range(P))
+        track = traced
+        while track >= track_min:
+            k_t, p_t = kern_b(steps_sh, track), plain_b(steps_sh, track)
+            agree = [solutions_agree(instance(k_t, b), instance(p_t, b))
+                     for b in range(P)]
+            if all(a for a, _ in agree):
+                break
+            track -= 1
+        print(f"[qn_batch] 12b.{short}: TRACK {track} (instances 0-{P - 1}: "
+              f"the traces agree within the JAX bounds over the first "
+              f"{traced} of {QN_TRACK_MAX} iterations, control and u after "
+              f"the first {track})")
+        if track < track_min:
+            raise SmokeFailure(f"{short}: the batched kernel tracks the "
+                               f"plain batch over {track} iterations, fewer "
+                               f"than {track_min}")
+        counts = {k: (k_t[k][:P].tolist(), p_t[k].tolist())
+                  for k in ("line_search_trials", "lbfgs_skips")}
+        print(f"[qn_batch] 12b.{short}: over the first {track} iterations, "
+              f"line-search trials: kernel {counts['line_search_trials'][0]}"
+              f", plain {counts['line_search_trials'][1]}; rejected pairs: "
+              f"kernel {counts['lbfgs_skips'][0]}, plain "
+              f"{counts['lbfgs_skips'][1]}")
+        if any(kc_ != pc for kc_, pc in counts.values()):
+            raise SmokeFailure(f"{short}: the batched kernel's counts of "
+                               "trials and rejected pairs differ from the "
+                               "plain batch's")
+        if not all(track - 1 - sk > bs for sk in counts["lbfgs_skips"][1]):
+            raise SmokeFailure(f"{short}: the L-BFGS ring did not wrap "
+                               f"within the {track} iterations held")
+        err_u = 0.0
+        for b, (_, u_atol) in enumerate(agree):
+            kb_i, pb_i = instance(k_t, b), instance(p_t, b)
+            check_allclose(f"12b.{short}.control[{b}]", kb_i["control"],
+                           pb_i["control"], 1e-3, 1e-4)
+            err_u = max(err_u, check_allclose(f"12b.{short}.u[{b}]",
+                                              kb_i["u"], pb_i["u"], 0.0,
+                                              u_atol))
+
+        # 12c. tolerance exits from nearly empty tanks, 9c's tolerance
+        tol = tols[short]
+        kt = kern_b(steps_low, tolerance=tol)
+        its_k = kt["iterations"].tolist()
+        its_1 = [int(kern_1(instance(steps_low, b), tolerance=tol)
+                     ["iterations"]) for b in range(BATCH)]
+        its_p = plain_b(steps_low, tolerance=tol)["iterations"].tolist()
+        print(f"[qn_batch] 12c.{short}: tanks at {LOW_FILL:g} of their "
+              f"maximum, tol {tol:.6g}: batched kernel exits {its_k}; "
+              f"single kernel {'the same' if its_1 == its_k else its_1}; "
+              f"plain version (instances 0-{P - 1}) {its_p}")
+        if its_k != its_1 or its_k[:P] != its_p:
+            raise SmokeFailure(f"{short}: batched tolerance exits differ")
+        for b, it in enumerate(its_k):
+            for key in QN_TRACES:
+                if bool((kt[key][b, it:] != 0).any()):
+                    raise SmokeFailure(f"{short}: instance {b}'s {key} not "
+                                       "zero past its exit")
+
+        # 13. batched closed loops (the main path): shared forecast cold
+        # and warm, and stacked (one forecaster per instance)
+        c = copy.deepcopy(cfg)
+        c.algorithm = algorithm
+        logs, loop_launches, single = batched_loops(
+            f"13.{short}", c, net, tree, x0s,
+            (("shared.cold", forecaster(net), False),
+             ("shared.warm", forecaster(net), True),
+             ("stacked.cold", [forecaster(net) for _ in range(BATCH)],
+              False)), "qn_solve_batch")
+        gaps = {label: float(np.abs(logs[label]["controls"][:, 0] -
+                                    single).max())
+                for label in ("stacked.cold", "shared.cold")}
+        same = np.array_equal(logs["stacked.cold"]["controls"][:, 0], single)
+        print(f"[qn_batch] 13.{short}: instance 0 against a single-instance "
+              f"SmpcController from its state: stacked equal bit for bit: "
+              f"{same} (gap {gaps['stacked.cold']:.6g}); shared gap "
+              f"{gaps['shared.cold']:.6g} (recorded, not gated)")
+        if not same:
+            raise SmokeFailure(f"{short}: the stacked batch's instance 0 "
+                               "differs from the single closed loop")
+
+        # 14. timing, inputs staged on the device; the plain batch on the
+        # first P instances of the last call (all 32 would take minutes)
+        med, steps_r, out = batch_timing(
+            short, kern_b, lambda: make_batch(perturbed(x0, rng)))
+        per_it = Q.launches_per_iteration(algorithm, bs, kq["fp"])
+        plain_ms = timed(lambda: plain_b(steps_r))[0]
+        print(f"[timing] {short}: {per_it} launches per iteration after the "
+              f"first, whatever B; plain batch of instances 0-{P - 1}, "
+              f"{MAX_ITER} iterations: {plain_ms:.3f} ms "
+              f"({plain_ms / P:.3f} ms per instance)")
+        bound = qn_solve_bound(kq, steps_r, out, algorithm, prefix)
+        print(f"[bound] {short} batched: {bound[2] / 1e9:.3f} GFLOP, "
+              f"{bound[3] / 1e6:.3f} MB: {bound[0]:.6f} ms, set by "
+              f"{bound[1]}; {bound[4]} line-search trials in {BATCH} x "
+              f"{MAX_ITER - 1} searches (the kernel's count)")
+        entries.append(
+            {"name": f"qn_solve_batch_{short}", "route": "cuda",
+             "source": "rapidnet_tpu_torch/csrc/qn_solve.cu",
+             "replaces": "rapidnet_tpu/ops/pallas_qn.py:686",
+             "launches": loop_launches, "max_abs_err": err_u, "ms": med,
+             "plain_ms": plain_ms, "plain_instances": P,
+             "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": None})
     return entries
 
 
@@ -642,16 +1010,14 @@ def build_problem(device):
     return cfg, eng, net, tree, fa, make_step, make_batch
 
 
-def apg_phases(args, device, cfg, net, tree, fa, make_step, make_batch,
+def apg_phases(ref_libs, device, cfg, net, tree, fa, make_step, make_batch,
                prefix, hyper, kc):
     """Phases 3-8, the APG kernel single and batched; returns their JSON
-    entries and the KPIs of phase 4's closed loop."""
+    entries and the KPIs of phase 4's closed loop.  ``ref_libs``: the
+    kernels of an earlier checkout's sources, or None."""
     import numpy as np
     import torch
-    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
     from rapidnet_tpu_torch.ops import apg_solve as K
-    from rapidnet_tpu_torch.ops import build
-    from rapidnet_tpu_torch.solver.batch import BatchedSmpcController
     from rapidnet_tpu_torch.solver.controller import SmpcController
 
     # 3. kernel against its plain version on one step's solve.  Then a
@@ -708,27 +1074,23 @@ def apg_phases(args, device, cfg, net, tree, fa, make_step, make_batch,
 
     # 4. the closed loop through the controller (the main path)
     def controller(backend):
-        fc = synthetic_forecaster(N=24, nd=net.nd, nu=net.nu,
-                                  sim_horizon=4, seed=42)
         ctrl = SmpcController(copy.deepcopy(cfg), network=net, tree=tree,
-                              forecaster=fc, backend=backend,
+                              forecaster=forecaster(net), backend=backend,
                               device="cuda")
         ctrl.initialise()
         return ctrl
 
     steps = 4
     ctrl = controller("auto")
-    K.apg_solve.launches = K.apg_solve_batch.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     log = ctrl.closed_loop(steps)
     loop_ms = (time.perf_counter() - t0) * 1e3 / steps
-    launches = K.apg_solve.launches
+    launches = count_launches("4", "apg_solve", steps)
     ms = [log[f"time{t}"][0] for t in range(steps)]
     print(f"[closed_loop] {steps} steps, kernel launches {launches}, "
           f"solve ms per step {', '.join(f'{m:.3f}' for m in ms)}; "
           f"whole step (host prep + solve + simulator) {loop_ms:.3f} ms")
-    if launches != steps:
-        raise SmokeFailure(f"{launches} kernel launches for {steps} solves")
     kpis = {k: log[k] for k in KPI_KEYS}
     apg_kpis = dict(kpis)
     print(f"[closed_loop] kpis {json.dumps(kpis)}")
@@ -772,16 +1134,12 @@ def apg_phases(args, device, cfg, net, tree, fa, make_step, make_batch,
 
     # 6. the batched kernel at B = 32
     rng = np.random.default_rng(7)
-    x0s = (x0 * (1.0 + 0.02 * rng.standard_normal((BATCH, x0.size)))
-           ).astype(np.float32)
+    x0s = perturbed(x0, rng)
     steps_sh = make_batch(x0s)
     steps_st = make_batch(x0s, shared=False)
     print(f"[batch] B {BATCH}: uhat batch stride "
           f"{steps_sh['uhat'].stride(0)} (shared), "
           f"{steps_st['uhat'].stride(0)} (stacked)")
-
-    def instance(steps, b):
-        return {k: v[b].contiguous() for k, v in steps.items()}
 
     # 6a. every instance against the single-solve kernel
     bitwise = {}
@@ -822,106 +1180,43 @@ def apg_phases(args, device, cfg, net, tree, fa, make_step, make_batch,
     if not eq1:
         raise SmokeFailure("B = 1 differs from the single solve")
     print("[batch] 6c: B = 1 equals the single solve bit for bit: True")
-    if args.reference_kernel:
-        ref_lib = ctypes.CDLL(str(build.build("apg_solve",
-                                              args.reference_kernel)))
+    if ref_libs:
         with torch.cuda.device(device):
-            r1 = K._launch(ref_lib, torch.cuda.current_stream().cuda_stream,
+            r1 = K._launch(ref_libs["apg_solve"],
+                           torch.cuda.current_stream().cuda_stream,
                            kc, instance(steps_sh, 0), None, batch=None,
                            tolerance=None, **hyper)
-        same = all(torch.equal(r1[k], s1[k]) for k in ("x", "u",
-                   "primal_infeasibility", "iterations")) and all(
-            torch.equal(r1["y"][k], s1["y"][k]) for k in ("xi", "psi"))
-        print(f"[batch] 6c: single solve equals the kernel of "
-              f"{args.reference_kernel} bit for bit: {same}")
+        same = outputs_equal(r1, s1, ("x", "u", "primal_infeasibility",
+                                      "iterations"))
+        print(f"[batch] 6c: single solve equals the reference kernel "
+              f"(apg_solve.cu of --reference-kernel) bit for bit: {same}")
         if not same:
             raise SmokeFailure("the single solve changed")
 
     # 7. batched closed loops through the controller (the batch's main
     # path), cold and warm-started
-    def batched(warm):
-        fc = synthetic_forecaster(N=24, nd=net.nd, nu=net.nu,
-                                  sim_horizon=4, seed=42)
-        return BatchedSmpcController(copy.deepcopy(cfg), net, tree, fc,
-                                     x0s, warm_start=warm, device="cuda")
-
-    b_steps, b_launches, blogs = 3, 0, {}
-    for warm in (False, True):
-        bctrl = batched(warm)
-        K.apg_solve.launches = K.apg_solve_batch.launches = 0
-        t0 = time.perf_counter()
-        blog = bctrl.closed_loop(b_steps)
-        loop_ms = (time.perf_counter() - t0) * 1e3 / b_steps
-        n = K.apg_solve_batch.launches
-        b_launches += n
-        label = "warm" if warm else "cold"
-        print(f"[batched_loop] {label}: {b_steps} steps of B {BATCH}, "
-              f"batched kernel calls {n}, single-solve calls "
-              f"{K.apg_solve.launches}, solve ms per step "
-              f"{', '.join(f'{m:.3f}' for m in blog['solve_times_ms'])}; "
-              f"whole step {loop_ms:.3f} ms")
-        if n != b_steps or K.apg_solve.launches:
-            raise SmokeFailure(f"{n} batched kernel calls for {b_steps} "
-                               "batched solves")
-        kpis = {k: blog[k] for k in KPI_KEYS}
-        if not (np.isfinite(blog["controls"]).all() and
-                all(np.isfinite(v).all() for v in kpis.values())):
-            raise SmokeFailure(f"{label} batched loop: non-finite "
-                               "controls or KPIs")
-        print(f"[batched_loop] {label} kpis of instance 0: " + json.dumps(
-            {k: float(v[0]) for k, v in kpis.items()}))
-        blogs[label] = blog
-    cfg0 = copy.deepcopy(cfg)
-    cfg0.set_current_state(x0s[0])
-    fc0 = synthetic_forecaster(N=24, nd=net.nd, nu=net.nu, sim_horizon=4,
-                               seed=42)
-    slog = SmpcController(cfg0, network=net, tree=tree, forecaster=fc0,
-                          device="cuda").closed_loop(b_steps)
+    blogs, b_launches, single = batched_loops(
+        "7", cfg, net, tree, x0s, (("cold", forecaster(net), False),
+                                   ("warm", forecaster(net), True)),
+        "apg_solve_batch")
     check_close("7.instance0.controls",
                 torch.as_tensor(blogs["cold"]["controls"][:, 0]),
-                torch.as_tensor(np.array([slog[f"control{t}"]
-                                          for t in range(b_steps)])))
+                torch.as_tensor(single))
 
     # 8. timing: batched solves, inputs staged on the device
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, res
+    def run_b(steps):
+        return K.apg_solve_batch(kc, steps, None, **hyper)
 
-    batch_ms = []
-    for r in range(BATCH_REPEATS):
-        steps_r = make_batch((x0 * (1.0 + 0.02 * rng.standard_normal(
-            (BATCH, x0.size)))).astype(np.float32))
-        ms_r, out_b = timed(lambda: K.apg_solve_batch(kc, steps_r, None,
-                                                      **hyper))
-        batch_ms.append(ms_r)
-        if not bool(torch.isfinite(out_b["control"]).all()):
-            raise SmokeFailure("batched solve gave non-finite controls")
-    batch_med = float(np.median(batch_ms))
-    per = []
-    for _ in range(PIPELINE_ROUNDS):
-        ms_r, _ = timed(lambda: [K.apg_solve_batch(kc, steps_r, None,
-                                                   **hyper)
-                                 for _ in range(PIPELINE_DEPTH)])
-        per.append(ms_r / PIPELINE_DEPTH)
+    batch_med, steps_r, out_b = batch_timing(
+        "apg", run_b, lambda: make_batch(perturbed(x0, rng)))
+    per = [timed(lambda: [run_b(steps_r) for _ in range(PIPELINE_DEPTH)])[0]
+           / PIPELINE_DEPTH for _ in range(PIPELINE_ROUNDS)]
     pipe_med = float(np.median(per))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    held = torch.cuda.memory_allocated(device)
-    K.apg_solve_batch(kc, steps_r, None, **hyper)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(device)
     plain_batch = [timed(lambda: K.apg_solve_plain(
         kc, steps_r, None, **hyper))[0] for _ in range(3)]
     plain_batch_ms = float(np.median(plain_batch))
     batch_bound = solve_bound(kc, solve_inputs(kc, steps_r), out_b,
                               MAX_ITER, prefix)
-    print(f"[timing] batched kernel, B {BATCH}, {MAX_ITER} iterations: "
-          f"median {batch_med:.3f} ms of {BATCH_REPEATS} ("
-          f"{', '.join(f'{t:.3f}' for t in batch_ms)}): "
-          f"{BATCH * 1e3 / batch_med:.3f} solves/s")
     print(f"[timing] pipelined, {PIPELINE_DEPTH} batched calls per "
           f"synchronise: median {pipe_med:.3f} ms per call of "
           f"{PIPELINE_ROUNDS} rounds ({', '.join(f'{t:.3f}' for t in per)})"
@@ -932,9 +1227,6 @@ def apg_phases(args, device, cfg, net, tree, fa, make_step, make_batch,
     print(f"[timing] plain batched version, B {BATCH}: median "
           f"{plain_batch_ms:.3f} ms of 3 ("
           f"{', '.join(f'{t:.3f}' for t in plain_batch)})")
-    print(f"[memory] batched solve: peak {peak / 2**20:.3f} MiB allocated, "
-          f"{(peak - held) / 2**20:.3f} MiB above the "
-          f"{held / 2**20:.3f} MiB held before it")
     for name, (b_ms, by, flops, nbytes) in (("single", single_bound),
                                             ("batched", batch_bound)):
         print(f"[bound] {name}: {flops / 1e9:.3f} GFLOP, "
@@ -959,10 +1251,10 @@ def apg_phases(args, device, cfg, net, tree, fa, make_step, make_batch,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reference-kernel", default=None,
-                    help="an earlier csrc/apg_solve.cu: phase 6c also "
-                         "holds the single solve to its kernel, bit for "
-                         "bit")
+    ap.add_argument("--reference-kernel", default=None, metavar="DIR",
+                    help="the csrc directory of an earlier checkout: "
+                         "phases 6c and 12a also hold the single APG, FBE "
+                         "and NAMA solves to its kernels, bit for bit")
     args = ap.parse_args()
     import torch
 
@@ -981,18 +1273,29 @@ def main() -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {kind} count {torch.cuda.device_count()}")
 
-    # 1. build the kernels from the checkout's sources, one nvcc for each
-    # source, all started together
+    # 1. build the kernels from the checkout's sources (and the reference
+    # sources), one nvcc for each distinct source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    jobs = {build.library_path(name): (name, None) for name in KERNELS}
+    if args.reference_kernel:
+        for name in KERNELS:
+            src = Path(args.reference_kernel) / f"{name}.cu"
+            jobs.setdefault(build.library_path(name, src), (name, src))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: build.build(*job), jobs.values()))
+    libs = {name: build.build(name) for name in KERNELS}
+    ref_libs = None
+    if args.reference_kernel:
+        ref_libs = {name: ctypes.CDLL(str(build.build(
+            name, Path(args.reference_kernel) / f"{name}.cu")))
+            for name in KERNELS}
     for name, so in libs.items():
         build.load(name)
         print(f"[build] {so.name} built and loaded")
         for line in so.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
-    print(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.3f} s")
+    print(f"[build] {len(jobs)} sources in {time.perf_counter() - t0:.3f} s")
 
     # 2. the Barcelona-scale problem
     t0 = time.perf_counter()
@@ -1009,10 +1312,13 @@ def main() -> int:
           f"prefix_stages {prefix} step_size {cfg.step_size:.6g} "
           f"(tuned in {time.perf_counter() - t0:.3f} s)")
 
-    entries, apg_kpis = apg_phases(args, device, cfg, net, tree, fa,
+    entries, apg_kpis = apg_phases(ref_libs, device, cfg, net, tree, fa,
                                    make_step, make_batch, prefix, hyper, kc)
-    entries += qn_phases(cfg, net, tree, fa, make_step, hyper, prefix,
-                         apg_kpis)
+    qn_entries, tols = qn_phases(cfg, net, tree, fa, make_step, hyper,
+                                  prefix, apg_kpis)
+    entries += qn_entries
+    entries += qn_batch_phases(ref_libs, cfg, net, tree, fa, make_batch,
+                               hyper, prefix, tols)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,9 +7,9 @@
 Builds the Barcelona-scale problem of ``chip_smoke.py``, warms the
 algorithm's whole-solve kernel up (APG: ``csrc/apg_solve.cu``; FBE and
 NAMA: ``csrc/qn_solve.cu`` with the config's L-BFGS buffer of 5), then
-prints, for one solve or, with ``--batch B`` (APG only), one batched
-call of B solves (states x0 * (1 + 0.02 N(0, 1)), numpy seed 7,
-assembled on the device from the shared base):
+prints, for one solve or, with ``--batch B``, one batched call of B
+solves (states x0 * (1 + 0.02 N(0, 1)), numpy seed 7, assembled on the
+device from the shared base):
 
 * the CUDA-event time of one call and the host's time to enqueue it;
 * per phase kernel, its launches and its device µs per iteration
@@ -58,13 +58,11 @@ def main() -> int:
                     choices=sorted(ALGORITHMS))
     ap.add_argument("--iterations", type=int, default=500)
     ap.add_argument("--batch", type=int, default=0,
-                    help="trace one batched APG call of this many solves "
+                    help="trace one batched call of this many solves "
                          "(0: one single solve)")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
     algorithm = ALGORITHMS[args.algorithm]
-    if args.batch and algorithm is not None:
-        ap.error("--batch is for the APG kernel only")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -87,29 +85,28 @@ def main() -> int:
                  penalty_safety=cfg.penalty_safety,
                  xs_upper=float(XS_UPPER), max_iterations=n_it)
     prefix = eng.factor_step().prefix_stages
-    kc = K.kernel_constants(fa, prefix_stages=prefix, max_iterations=n_it)
-    if algorithm is not None:
-        kq = Q.kernel_constants(fa, prefix_stages=prefix)
-        step = make_step(cfg.current_x)
-        qn_kw = dict(hyper, algorithm=algorithm,
-                     lbfgs_buffer_size=int(cfg.lbfgs_buffer_size))
-
-        def call():
-            return Q.qn_solve(kq, step, None, **qn_kw)
-    elif args.batch:
+    if args.batch:
         import numpy as np
         x0 = cfg.current_x
         rng = np.random.default_rng(7)
-        steps = make_batch((x0 * (1.0 + 0.02 * rng.standard_normal(
+        step = make_batch((x0 * (1.0 + 0.02 * rng.standard_normal(
             (args.batch, x0.size)))).astype(np.float32))
-
-        def call():
-            return K.apg_solve_batch(kc, steps, None, **hyper)
     else:
         step = make_step(cfg.current_x)
+    if algorithm is None:
+        kc = K.kernel_constants(fa, prefix_stages=prefix,
+                                max_iterations=n_it)
+        run = K.apg_solve_batch if args.batch else K.apg_solve
+        kw = hyper
+    else:
+        kc = Q.kernel_constants(fa, prefix_stages=prefix)
+        run = Q.qn_solve_batch if args.batch else Q.qn_solve
+        kw = dict(hyper, algorithm=algorithm,
+                  lbfgs_buffer_size=int(cfg.lbfgs_buffer_size))
 
-        def call():
-            return K.apg_solve(kc, step, None, **hyper)
+    def call():
+        return run(kc, step, None, **kw)
+
     for _ in range(3):
         call()
     torch.cuda.synchronize()
@@ -143,7 +140,7 @@ def main() -> int:
         dt = getattr(e, "device_time_total", None)
         if dt is None:
             dt = getattr(e, "cuda_time_total", 0)
-        name = re.search(r"\w+_kernel(<\w+>)?", e.key)
+        name = re.search(r"\w+_kernel(<[\w, ]+>)?", e.key)
         if dt > 0 and name:
             phases.append({"kernel": name.group(), "launches": e.count,
                            "us_per_iteration": dt / n_it})

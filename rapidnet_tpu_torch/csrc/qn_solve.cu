@@ -56,6 +56,35 @@
 // both, the residual-and-value phase fell from 319 to 145 us an
 // iteration).
 //
+// The batch axis.  B independent solves over one factor step run in one
+// call: what the TPU kernel's batch wrappers compute by a lax.map of the
+// whole-solve pallas_call (rapidnet_tpu/ops/pallas_qn.py:686-739,
+// make_qn_pallas_batch and make_qn_pallas_batch_shared), as the
+// batch axis of apg_solve.cu does it (apg_solve.cu:45-78).  Every phase
+// takes its instance from the grid (blockIdx.y for the slot and
+// elementwise phases, blockIdx.x for the prefix, one thread per instance
+// for the scalar phases), and `instance()` moves each per-instance
+// pointer to its slice; the row constants, the matrices, Cs and W' are
+// read by every instance from one buffer, and uhat, e and alpha_price
+// may be too (batch stride 0, the shared-forecast batch).  The single
+// solve is B = 1 of the same source, compiled without the per-instance
+// offsets (BATCHED = false); the batched entry keeps them at every B, B = 1
+// included, so a batch of one is held to the single solve.  Flags live in each instance's st: a search
+// or a solve that has ended turns only its own instance's later blocks
+// into early returns, so a finished instance keeps its state and zero
+// traces past its exit.  Launches per iteration stay the same whatever
+// B, and the iterations after the first still replay one captured graph.
+// Per instance the state is ~13.3 MB at Barcelona scale (21 dual-sized
+// buffers with the history, the primal and sweep scratch): ~0.43 GB at
+// B = 32, which streams from device memory where the single solve's
+// stayed in L2; the slot phases launch B * ns blocks (800 at B = 32).
+// The reductions keep their fixed order per instance, so an instance of
+// a batch equals its single solve bit for bit.  On an H100 80GB HBM3
+// (700 W) a B = 32 call of 500 iterations took 1812 ms (FBE) and 1895 ms
+// (NAMA), 3.6-3.8 ms an iteration, 6 times the rate of single solves:
+// the residual-and-value, two-loop and trial-apply phases take two
+// thirds of it and the sweeps a quarter (PERF.md section 5).
+//
 // Reductions.  Every dot, norm and champion is reduced in two passes:
 // per-block partials, then a fixed-order pass (by the scalar kernel, or
 // by every block of the next phase alike).  No atomics, so a run repeats
@@ -93,9 +122,12 @@ enum { I_DONE, I_ITERS, I_COL, I_MEM, I_SKIPS, I_ACCEPT, I_LS_DONE, I_SKIP,
        I_POSITIVE, I_TRIALS, I_COUNT };
 
 struct Args {
-  int N, ns, nx, nu, nv, fp, RS, bs, tol_mode;
+  int B, N, ns, nx, nu, nv, fp, RS, bs, tol_mode, max_it;
   size_t XI, D;   // xi part (R * 2nx) and whole dual buffer (+ R * nu)
   float c, step, t1c, t2c, pstate, psafety, xs_upper, tol;
+  // batch strides (elements) of uhat, e and alpha_price: one instance's
+  // size, or 0 where every instance reads the same array
+  long long uhat_bs, e_bs, alpha_bs;
   // constants, per row r = s*ns + i
   const float *d1, *d2, *g, *nhp, *rep, *prob, *xmin, *xmax, *xs, *umin,
       *umax;
@@ -112,6 +144,60 @@ struct Args {
   float *sc, *tr_inf, *tr_val, *tr_tau;
   int* st;
 };
+
+// The arguments as instance b sees them: every per-instance pointer
+// moved to its slice (a leading batch axis on each array), the shared
+// constants untouched.  BATCHED = false (B = 1, the single solve) moves
+// nothing, so the single solve runs the code it ran before the batch
+// axis existed (apg_solve.cu:118-145).
+template <bool BATCHED>
+__device__ __forceinline__ Args instance(Args p, int b) {
+  if constexpr (BATCHED) {
+    const size_t R = (size_t)p.N * p.ns, D = p.D;
+    p.beta += b * R * p.nv;
+    p.uhat += b * p.uhat_bs;
+    p.e += b * p.e_bs;
+    p.alpha += b * p.alpha_bs;
+    p.x0 += (size_t)b * p.nx;
+    p.pdu += (size_t)b * p.nu;
+    p.pu += (size_t)b * p.nu;
+    p.y += b * D; p.yp += b * D; p.yvp += b * D; p.w += b * D;
+    p.rs += b * D; p.yv += b * D; p.dd += b * D; p.wd += b * D;
+    p.df += b * D;
+    p.x += b * R * p.nx; p.hx += b * R * p.nx; p.t += b * R * p.nx;
+    p.u += b * R * p.nu; p.hu += b * R * p.nu;
+    p.a += b * R * p.nv;
+    p.ms += b * (p.bs + 1) * D;
+    p.my += b * (p.bs + 1) * D;
+    p.norm_part += (size_t)b * p.ns * 2;
+    p.val_part += (size_t)b * p.ns * 4;
+    p.dot_part += (size_t)b * p.ns * 4;
+    p.pp += (size_t)b * p.ns * 2;
+    p.champ_part += (size_t)b * p.ns * 6;
+    p.sc += (size_t)b * (S_RHO + 2 * (p.bs + 1));
+    p.tr_inf += (size_t)b * p.max_it;
+    p.tr_val += (size_t)b * p.max_it;
+    p.tr_tau += (size_t)b * p.max_it;
+    p.st += (size_t)b * I_COUNT;
+  }
+  return p;
+}
+
+// A per-instance buffer passed to a phase beside its arguments (the
+// sweep's direction and outputs, the dual a residual is taken at), moved
+// to instance b's slice of `per` elements.
+template <bool BATCHED, class T>
+__device__ __forceinline__ T* slice(T* ptr, int b, size_t per) {
+  if constexpr (BATCHED)
+    if (ptr != nullptr) return ptr + (size_t)b * per;
+  return ptr;
+}
+
+// The instance of a one-thread-per-instance phase, or -1 past the batch.
+__device__ __forceinline__ int scalar_instance(int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  return b < B ? b : -1;
+}
 
 __device__ __forceinline__ float clip(float v, float lo, float hi) {
   // jnp.clip semantics: max with lo, then min with hi; NaN propagates
@@ -206,14 +292,17 @@ __device__ __forceinline__ void slot_product(const float* X, int RS, int N,
 
 // ---- the sweep: solve step (AFFINE) or Hessian oracle ----
 
-// Sweep phase 1, one block per slot i: the dual-only terms of the dual
-// direction `in` and the tail recursions (apg_solve.cu:195 without the
-// extrapolation).  The tail stages (s >= fp) of t and a hold the finished
-// t and inner; the prefix stages hold tb and a0 for phase 2.
-template <bool AFFINE>
+// Sweep phase 1, one block per slot i (blockIdx.x) of instance blockIdx.y:
+// the dual-only terms of the dual direction `in` and the tail recursions
+// (apg_solve.cu:195 without the extrapolation).  The tail stages
+// (s >= fp) of t and a hold the finished t and inner; the prefix stages
+// hold tb and a0 for phase 2.
+template <bool AFFINE, bool BATCHED>
 __global__ void __launch_bounds__(SLOT_THREADS)
-sweep_tail_kernel(Args p, const float* __restrict__ in) {
+sweep_tail_kernel(Args pb, const float* __restrict__ in_b) {
+  const Args p = instance<BATCHED>(pb, blockIdx.y);
   if (p.st[I_DONE]) return;
+  const float* in = slice<BATCHED>(in_b, blockIdx.y, p.D);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int N = p.N, ns = p.ns, nx = p.nx, nu = p.nu, nv = p.nv;
@@ -277,12 +366,14 @@ sweep_tail_kernel(Args p, const float* __restrict__ in) {
   }
 }
 
-// Sweep phase 2, one block: the branching prefix, stages fp-1..0, which
-// couples the slots through the child->parent sums Cs[s] (identity where
-// the tree does not branch).  Overwrites a at the prefix stages with
-// inner (apg_solve.cu:270).
+// Sweep phase 2, one block per instance (blockIdx.x): the branching
+// prefix, stages fp-1..0, which couples the slots through the
+// child->parent sums Cs[s] (identity where the tree does not branch).
+// Overwrites a at the prefix stages with inner (apg_solve.cu:270).
+template <bool BATCHED>
 __global__ void __launch_bounds__(PREFIX_THREADS)
-sweep_prefix_kernel(Args p) {
+sweep_prefix_kernel(Args pb) {
+  const Args p = instance<BATCHED>(pb, blockIdx.x);
   if (p.st[I_DONE]) return;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -372,15 +463,21 @@ __device__ void prox_diff(const Args& p, int i, const float* __restrict__ w,
   }
 }
 
-// Sweep phase 3, one block per slot: v, the forward cumsums, and x and u
-// into out_x / out_u (apg_solve.cu:354).  The solve step (w not null)
-// also takes the prox differences at the dual w; then out_x, out_u must
-// be p.x, p.u.
-template <bool AFFINE>
+// Sweep phase 3, one block per slot and instance: v, the forward
+// cumsums, and x and u into out_x / out_u (apg_solve.cu:354).  The solve
+// step (w not null) also takes the prox differences at the dual w; then
+// out_x, out_u must be p.x, p.u.
+template <bool AFFINE, bool BATCHED>
 __global__ void __launch_bounds__(SLOT_THREADS)
-sweep_forward_kernel(Args p, float* __restrict__ out_x,
-                     float* __restrict__ out_u, const float* __restrict__ w) {
+sweep_forward_kernel(Args pb, float* __restrict__ out_x_b,
+                     float* __restrict__ out_u_b,
+                     const float* __restrict__ w_b) {
+  const Args p = instance<BATCHED>(pb, blockIdx.y);
   if (p.st[I_DONE]) return;
+  const size_t R = (size_t)p.N * p.ns;
+  float* out_x = slice<BATCHED>(out_x_b, blockIdx.y, R * p.nx);
+  float* out_u = slice<BATCHED>(out_u_b, blockIdx.y, R * p.nu);
+  const float* w = slice<BATCHED>(w_b, blockIdx.y, p.D);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ float red[SLOT_THREADS];
@@ -453,17 +550,21 @@ sweep_forward_kernel(Args p, float* __restrict__ out_x,
 
 // ---- residual, FBE value, L-BFGS, line search, dual update ----
 
-// One block per slot: the shrink factors (every block sums the slot
-// partials in the same order), the residual r = (1 - k) df - c w into rs
-// and, with_value, this slot's partials of the FBE value: <w, r>, <r, r>,
-// the smoothing cost sum p du' W du (du = u - u of the parent, the root's
-// from prev_u) and the economic cost sum p u' alpha.  copy_w: also w ->
-// p.w (the solve step, at w = y).  ls: a line-search trial, which returns
-// once the search is done.
+// One block per slot and instance: the shrink factors (every block sums
+// its instance's slot partials in the same order), the residual
+// r = (1 - k) df - c w into rs and, with_value, this slot's partials of
+// the FBE value: <w, r>, <r, r>, the smoothing cost sum p du' W du
+// (du = u - u of the parent, the root's from prev_u) and the economic
+// cost sum p u' alpha.  copy_w: also w -> p.w (the solve step, at
+// w = y).  ls: a line-search trial, which returns once the search is
+// done.
+template <bool BATCHED>
 __global__ void __launch_bounds__(EW_THREADS)
-residual_value_kernel(Args p, const float* __restrict__ w, int copy_w,
+residual_value_kernel(Args pb, const float* __restrict__ w_b, int copy_w,
                       int with_value, int ls) {
+  const Args p = instance<BATCHED>(pb, blockIdx.y);
   if (p.st[I_DONE] || (ls && p.st[I_LS_DONE])) return;
+  const float* w = slice<BATCHED>(w_b, blockIdx.y, p.D);
   extern __shared__ float4 smem4[];
   float* duT = reinterpret_cast<float*>(smem4);   // (nu, RS)  du
   __shared__ float red[EW_THREADS];
@@ -549,9 +650,12 @@ __device__ float fbe_value(const Args& p) {
 // One block per slot: yvec (FBE: -(r + step H(r)), from H(r) in hx, hu;
 // NAMA: -r), the two-loop's start dd = -yvec, and this slot's partials of
 // <yvec, yvec>, <s, yd>, <yd, yd> and <s, s> for the curvature pair
-// s = y - y_prev, yd = yvec - yvec_prev.
+// s = y - y_prev, yd = yvec - yvec_prev.  Instance blockIdx.y, as in
+// every slot phase below.
+template <bool BATCHED>
 __global__ void __launch_bounds__(EW_THREADS)
-lbfgs_dots_kernel(Args p, int is_fbe) {
+lbfgs_dots_kernel(Args pb, int is_fbe) {
+  const Args p = instance<BATCHED>(pb, blockIdx.y);
   if (p.st[I_DONE]) return;
   __shared__ float red[EW_THREADS];
   const int i = blockIdx.x;
@@ -586,10 +690,14 @@ lbfgs_dots_kernel(Args p, int is_fbe) {
   }
 }
 
-// One thread: the FBE value before the search, the L-BFGS accept test and
-// buffer bookkeeping (updateLbfgsBuffer, src/SmpcController.cu:1103-1177)
-// and the Hessian scale.
-__global__ void lbfgs_update_kernel(Args p) {
+// One thread per instance: the FBE value before the search, the L-BFGS
+// accept test and buffer bookkeeping (updateLbfgsBuffer,
+// src/SmpcController.cu:1103-1177) and the Hessian scale.
+template <bool BATCHED>
+__global__ void lbfgs_update_kernel(Args pb) {
+  const int inst = scalar_instance(pb.B);
+  if (inst < 0) return;
+  const Args p = instance<BATCHED>(pb, inst);
   if (p.st[I_DONE]) return;
   float gg = 0.f, sy = 0.f, yy = 0.f, ss = 0.f;
   for (int b = 0; b < p.ns; ++b) {
@@ -636,8 +744,10 @@ __device__ __forceinline__ int loop_column(int q, int bs, int col, int mem,
 
 // One block per slot: the accepted pair into its column, and the partial
 // of the first two-loop step's dot <s_col, dd>.
+template <bool BATCHED>
 __global__ void __launch_bounds__(EW_THREADS)
-lbfgs_store_kernel(Args p) {
+lbfgs_store_kernel(Args pb) {
+  const Args p = instance<BATCHED>(pb, blockIdx.y);
   if (p.st[I_DONE]) return;
   __shared__ float red[EW_THREADS];
   const int i = blockIdx.x, col = p.st[I_COL], mem = p.st[I_MEM];
@@ -664,8 +774,10 @@ lbfgs_store_kernel(Args p) {
 // next step's dot into pp[(q + 1) & 1] or, after the last step, of the
 // line search's direction value (FBE: <yvec, dd>; NAMA: <r, dd>, whose
 // search direction wd = dd - step r is formed here).
+template <bool BATCHED>
 __global__ void __launch_bounds__(EW_THREADS)
-two_loop_kernel(Args p, int q, int is_fbe) {
+two_loop_kernel(Args pb, int q, int is_fbe) {
+  const Args p = instance<BATCHED>(pb, blockIdx.y);
   if (p.st[I_DONE]) return;
   __shared__ float red[EW_THREADS];
   __shared__ float coef_s;
@@ -726,8 +838,10 @@ two_loop_kernel(Args p, int q, int is_fbe) {
 
 // One block per slot, NAMA only: the unconditional residual step
 // w += step r, x += step H(r), u += step H(r) (pallas_qn.py:436-441).
+template <bool BATCHED>
 __global__ void __launch_bounds__(EW_THREADS)
-nama_step_kernel(Args p) {
+nama_step_kernel(Args pb) {
+  const Args p = instance<BATCHED>(pb, blockIdx.y);
   if (p.st[I_DONE]) return;
   const int N = p.N, ns = p.ns, nx = p.nx, nu = p.nu, i = blockIdx.x;
   const float step = p.step;
@@ -746,9 +860,14 @@ nama_step_kernel(Args p) {
   }
 }
 
-// One thread: the line search's direction value and whether it runs
-// (computeLineSearchLbfgsUpdate :1250-1320; the AME variant :1326-1414).
-__global__ void ls_init_kernel(Args p, int is_fbe) {
+// One thread per instance: the line search's direction value and whether
+// it runs (computeLineSearchLbfgsUpdate :1250-1320; the AME variant
+// :1326-1414).
+template <bool BATCHED>
+__global__ void ls_init_kernel(Args pb, int is_fbe) {
+  const int inst = scalar_instance(pb.B);
+  if (inst < 0) return;
+  const Args p = instance<BATCHED>(pb, inst);
   if (p.st[I_DONE]) return;
   float sum = 0.f;
   for (int b = 0; b < p.ns; ++b) sum += p.pp[b];
@@ -764,8 +883,10 @@ __global__ void ls_init_kernel(Args p, int is_fbe) {
 
 // One block per slot, trial k's apply: x += tau hx, u += tau hu,
 // w += tau wd (cumulative), then the prox differences and norm partials.
+template <bool BATCHED>
 __global__ void __launch_bounds__(EW_THREADS)
-trial_apply_kernel(Args p) {
+trial_apply_kernel(Args pb) {
+  const Args p = instance<BATCHED>(pb, blockIdx.y);
   if (p.st[I_DONE] || p.st[I_LS_DONE]) return;
   __shared__ float red[EW_THREADS];
   const int N = p.N, ns = p.ns, nx = p.nx, nu = p.nu, i = blockIdx.x;
@@ -787,10 +908,15 @@ trial_apply_kernel(Args p) {
   prox_diff<EW_THREADS>(p, i, p.w, red);
 }
 
-// One thread, trial k's end: the trial count, the FBE value against the
-// reference; the next cumulative tau increment (1, then -1/2, +1/4 - 1/2, ...:
-// solver/quasi_newton.py:190-229), or the search's end.
-__global__ void trial_finish_kernel(Args p, int k) {
+// One thread per instance, trial k's end: the trial count, the FBE value
+// against the reference; the next cumulative tau increment (1, then
+// -1/2, +1/4 - 1/2, ...: solver/quasi_newton.py:190-229), or the
+// search's end.
+template <bool BATCHED>
+__global__ void trial_finish_kernel(Args pb, int k) {
+  const int inst = scalar_instance(pb.B);
+  if (inst < 0) return;
+  const Args p = instance<BATCHED>(pb, inst);
   if (p.st[I_DONE] || p.st[I_LS_DONE]) return;
   const float val = fbe_value(p);
   p.st[I_TRIALS] += 1;
@@ -806,8 +932,10 @@ __global__ void trial_finish_kernel(Args p, int k) {
 
 // One block per slot: y_prev <- y, y <- w + step r, yvec_prev <- yvec,
 // and this slot's max / min of the three residual blocks.
+template <bool BATCHED>
 __global__ void __launch_bounds__(EW_THREADS)
-dual_update_kernel(Args p) {
+dual_update_kernel(Args pb) {
+  const Args p = instance<BATCHED>(pb, blockIdx.y);
   if (p.st[I_DONE]) return;
   __shared__ float red[EW_THREADS];
   const int i = blockIdx.x;
@@ -842,10 +970,15 @@ __device__ __forceinline__ void champion(float& babs, float& bval,
   babs = fmaxf(babs, cabs);
 }
 
-// One thread: the traces at this iteration (the value and tau are zero at
-// the first, qn = 0), the iteration count and, with a tolerance, the done
-// flag (the JAX while_loop's test: continue while magnitude > tol).
-__global__ void finish_kernel(Args p, int qn) {
+// One thread per instance: the traces at this iteration (the value and
+// tau are zero at the first, qn = 0), the iteration count and, with a
+// tolerance, the done flag (the JAX while_loop's test: continue while
+// magnitude > tol).
+template <bool BATCHED>
+__global__ void finish_kernel(Args pb, int qn) {
+  const int inst = scalar_instance(pb.B);
+  if (inst < 0) return;
+  const Args p = instance<BATCHED>(pb, inst);
   if (p.st[I_DONE]) return;
   float m[6] = {p.champ_part[0], p.champ_part[1], p.champ_part[2],
                 p.champ_part[3], p.champ_part[4], p.champ_part[5]};
@@ -871,8 +1004,13 @@ __global__ void finish_kernel(Args p, int qn) {
   if (p.tol_mode && !(fmaxf(xabs, pabs) > p.tol)) p.st[I_DONE] = 1;
 }
 
-// One thread: the scalars of a fresh solve (L-BFGS empty, Hessian scale 1).
-__global__ void init_kernel(Args p) {
+// One thread per instance: the scalars of a fresh solve (L-BFGS empty,
+// Hessian scale 1).
+template <bool BATCHED>
+__global__ void init_kernel(Args pb) {
+  const int inst = scalar_instance(pb.B);
+  if (inst < 0) return;
+  const Args p = instance<BATCHED>(pb, inst);
   for (int j = 0; j < I_COUNT; ++j) p.st[j] = 0;
   for (int j = 0; j < S_RHO + 2 * (p.bs + 1); ++j) p.sc[j] = 0.f;
   p.sc[S_HESS] = 1.f;
@@ -889,7 +1027,7 @@ cudaError_t set_smem(const void* kernel, size_t bytes, int max_optin) {
 
 // Every launch of this file: enqueue on `st` and report a refused launch.
 template <class... KArgs, class... Actual>
-cudaError_t launch(void (*kernel)(KArgs...), int blocks, int threads,
+cudaError_t launch(void (*kernel)(KArgs...), dim3 blocks, int threads,
                    size_t smem, cudaStream_t st, Actual... args) {
   kernel<<<blocks, threads, smem, st>>>(args...);
   return cudaGetLastError();
@@ -897,6 +1035,8 @@ cudaError_t launch(void (*kernel)(KArgs...), int blocks, int threads,
 
 struct Plan {
   size_t smem_tail, smem_prefix, smem_fwd, smem_res;
+  dim3 slots;               // (ns, B): one block per slot and instance
+  int scalar_blocks, scalar_threads;   // one thread per instance
 };
 
 #define QN_TRY(call)                             \
@@ -907,59 +1047,70 @@ struct Plan {
 
 // One tree sweep of the dual direction `in`: the solve step (affine, with
 // the prox differences at w = in) or the Hessian oracle into (ox, ou).
+template <bool BATCHED>
 cudaError_t enqueue_sweep(const Args& p, const Plan& pl, cudaStream_t st,
                           bool affine, const float* in, float* ox, float* ou,
                           const float* w) {
-  QN_TRY(affine ? launch(sweep_tail_kernel<true>, p.ns, SLOT_THREADS,
-                         pl.smem_tail, st, p, in)
-                : launch(sweep_tail_kernel<false>, p.ns, SLOT_THREADS,
-                         pl.smem_tail, st, p, in));
+  QN_TRY(affine ? launch(sweep_tail_kernel<true, BATCHED>, pl.slots,
+                         SLOT_THREADS, pl.smem_tail, st, p, in)
+                : launch(sweep_tail_kernel<false, BATCHED>, pl.slots,
+                         SLOT_THREADS, pl.smem_tail, st, p, in));
   if (p.fp > 0)
-    QN_TRY(launch(sweep_prefix_kernel, 1, PREFIX_THREADS, pl.smem_prefix, st,
-                  p));
-  return affine ? launch(sweep_forward_kernel<true>, p.ns, SLOT_THREADS,
-                         pl.smem_fwd, st, p, ox, ou, w)
-                : launch(sweep_forward_kernel<false>, p.ns, SLOT_THREADS,
-                         pl.smem_fwd, st, p, ox, ou, w);
+    QN_TRY(launch(sweep_prefix_kernel<BATCHED>, p.B, PREFIX_THREADS,
+                  pl.smem_prefix, st, p));
+  return affine ? launch(sweep_forward_kernel<true, BATCHED>, pl.slots,
+                         SLOT_THREADS, pl.smem_fwd, st, p, ox, ou, w)
+                : launch(sweep_forward_kernel<false, BATCHED>, pl.slots,
+                         SLOT_THREADS, pl.smem_fwd, st, p, ox, ou, w);
 }
 
 // One iteration's launches on `st`; qn = false for the first iteration,
 // which has no curvature pair and no line search (pallas_qn.py:302).
+// The direction and output pointers are instance 0's; each phase moves
+// them to its own instance.
+template <bool BATCHED>
 cudaError_t enqueue_iteration(const Args& p, const Plan& pl, cudaStream_t st,
                               bool qn, bool is_fbe) {
-  const int ns = p.ns, T = EW_THREADS;
-  QN_TRY(enqueue_sweep(p, pl, st, true, p.y, p.x, p.u, p.y));
-  QN_TRY(launch(residual_value_kernel, ns, T, pl.smem_res, st, p,
+  const dim3 S = pl.slots;
+  const int T = EW_THREADS, SB = pl.scalar_blocks, ST = pl.scalar_threads;
+  QN_TRY(enqueue_sweep<BATCHED>(p, pl, st, true, p.y, p.x, p.u, p.y));
+  QN_TRY(launch(residual_value_kernel<BATCHED>, S, T, pl.smem_res, st, p,
                 (const float*)p.y, 1, (int)qn, 0));
   if (is_fbe)
-    QN_TRY(enqueue_sweep(p, pl, st, false, p.rs, p.hx, p.hu, nullptr));
-  QN_TRY(launch(lbfgs_dots_kernel, ns, T, 0, st, p, (int)is_fbe));
+    QN_TRY(enqueue_sweep<BATCHED>(p, pl, st, false, p.rs, p.hx, p.hu,
+                                  nullptr));
+  QN_TRY(launch(lbfgs_dots_kernel<BATCHED>, S, T, 0, st, p, (int)is_fbe));
   if (qn) {
-    QN_TRY(launch(lbfgs_update_kernel, 1, 1, 0, st, p));
-    QN_TRY(launch(lbfgs_store_kernel, ns, T, 0, st, p));
+    QN_TRY(launch(lbfgs_update_kernel<BATCHED>, SB, ST, 0, st, p));
+    QN_TRY(launch(lbfgs_store_kernel<BATCHED>, S, T, 0, st, p));
     for (int q = 0; q < 2 * p.bs; ++q)
-      QN_TRY(launch(two_loop_kernel, ns, T, 0, st, p, q, (int)is_fbe));
+      QN_TRY(launch(two_loop_kernel<BATCHED>, S, T, 0, st, p, q,
+                    (int)is_fbe));
     if (is_fbe) {
-      QN_TRY(enqueue_sweep(p, pl, st, false, p.dd, p.hx, p.hu, nullptr));
+      QN_TRY(enqueue_sweep<BATCHED>(p, pl, st, false, p.dd, p.hx, p.hu,
+                                    nullptr));
     } else {
-      QN_TRY(enqueue_sweep(p, pl, st, false, p.rs, p.hx, p.hu, nullptr));
-      QN_TRY(launch(nama_step_kernel, ns, T, 0, st, p));
-      QN_TRY(enqueue_sweep(p, pl, st, false, p.wd, p.hx, p.hu, nullptr));
+      QN_TRY(enqueue_sweep<BATCHED>(p, pl, st, false, p.rs, p.hx, p.hu,
+                                    nullptr));
+      QN_TRY(launch(nama_step_kernel<BATCHED>, S, T, 0, st, p));
+      QN_TRY(enqueue_sweep<BATCHED>(p, pl, st, false, p.wd, p.hx, p.hu,
+                                    nullptr));
     }
-    QN_TRY(launch(ls_init_kernel, 1, 1, 0, st, p, (int)is_fbe));
+    QN_TRY(launch(ls_init_kernel<BATCHED>, SB, ST, 0, st, p, (int)is_fbe));
     for (int k = 0; k <= LS_MAX_STEPS; ++k) {
-      QN_TRY(launch(trial_apply_kernel, ns, T, 0, st, p));
-      QN_TRY(launch(residual_value_kernel, ns, T, pl.smem_res, st, p,
-                    (const float*)p.w, 0, 1, 1));
-      QN_TRY(launch(trial_finish_kernel, 1, 1, 0, st, p, k));
+      QN_TRY(launch(trial_apply_kernel<BATCHED>, S, T, 0, st, p));
+      QN_TRY(launch(residual_value_kernel<BATCHED>, S, T, pl.smem_res, st,
+                    p, (const float*)p.w, 0, 1, 1));
+      QN_TRY(launch(trial_finish_kernel<BATCHED>, SB, ST, 0, st, p, k));
     }
   }
-  QN_TRY(launch(dual_update_kernel, ns, T, 0, st, p));
-  return launch(finish_kernel, 1, 1, 0, st, p, (int)qn);
+  QN_TRY(launch(dual_update_kernel<BATCHED>, S, T, 0, st, p));
+  return launch(finish_kernel<BATCHED>, SB, ST, 0, st, p, (int)qn);
 }
 
 // Iterations 1 .. max_it - 1 as one captured graph of one iteration,
 // launched once per iteration on `st`.
+template <bool BATCHED>
 cudaError_t run_graph(const Args& p, const Plan& pl, cudaStream_t st,
                       int max_it, bool is_fbe) {
   cudaStream_t cs;
@@ -967,7 +1118,8 @@ cudaError_t run_graph(const Args& p, const Plan& pl, cudaStream_t st,
   cudaError_t err =
       cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
   if (err == cudaSuccess) {
-    const cudaError_t enq = enqueue_iteration(p, pl, cs, true, is_fbe);
+    const cudaError_t enq =
+        enqueue_iteration<BATCHED>(p, pl, cs, true, is_fbe);
     cudaGraph_t graph = nullptr;
     err = cudaStreamEndCapture(cs, &graph);
     if (enq != cudaSuccess) err = enq;
@@ -985,15 +1137,56 @@ cudaError_t run_graph(const Args& p, const Plan& pl, cudaStream_t st,
   return err != cudaSuccess ? err : err2;
 }
 
-}  // namespace
+// The whole call: shared-memory limits, the history's zero columns, the
+// scalars, the first iteration and the graph of the rest.
+template <bool BATCHED>
+cudaError_t run_solve(const Args& p, cudaStream_t st, int max_it,
+                      bool is_fbe) {
+  const int ns = p.ns, nx = p.nx, nu = p.nu, nv = p.nv;
+  Plan pl;
+  pl.smem_tail = sizeof(float) * (size_t)(nu + nx + nv) * p.RS;
+  pl.smem_prefix = sizeof(float) * 2 * (size_t)(nx + nv) * ns;
+  pl.smem_fwd = sizeof(float) * (size_t)(2 * nv + nu + nx) * p.RS;
+  pl.smem_res = sizeof(float) * (size_t)nu * p.RS;
+  pl.slots = dim3(ns, p.B);
+  pl.scalar_threads = p.B < 32 ? p.B : 32;
+  pl.scalar_blocks = (p.B + pl.scalar_threads - 1) / pl.scalar_threads;
+  int dev = 0, max_optin = 0;
+  QN_TRY(cudaGetDevice(&dev));
+  QN_TRY(cudaDeviceGetAttribute(&max_optin,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  QN_TRY(set_smem((const void*)sweep_tail_kernel<true, BATCHED>,
+                  pl.smem_tail, max_optin));
+  QN_TRY(set_smem((const void*)sweep_tail_kernel<false, BATCHED>,
+                  pl.smem_tail, max_optin));
+  QN_TRY(set_smem((const void*)sweep_prefix_kernel<BATCHED>, pl.smem_prefix,
+                  max_optin));
+  QN_TRY(set_smem((const void*)sweep_forward_kernel<true, BATCHED>,
+                  pl.smem_fwd, max_optin));
+  QN_TRY(set_smem((const void*)sweep_forward_kernel<false, BATCHED>,
+                  pl.smem_fwd, max_optin));
+  QN_TRY(set_smem((const void*)residual_value_kernel<BATCHED>, pl.smem_res,
+                  max_optin));
 
-// Runs max_it iterations of one FBE (is_fbe = 1) or NAMA solve on
-// `stream` without synchronising.  The caller fills y and yp with the
-// warm start (the flat dual buffer [xi | psi]), zeroes x, u, yvp and the
-// three traces, and reads x, u, y, the traces and st[1] (the iteration
-// count) and st[9] (the line-search trials that ran) after the stream
-// has run.  Returns a cudaError_t (0 on success).
-extern "C" int qn_solve(
+  // column 0 of each instance's history stays zero (rho[0] = 0): the
+  // two-loop's visit to it after the wrap is a no-op
+  // (solver/quasi_newton.py)
+  for (int b = 0; b < p.B; ++b) {
+    const size_t col0 = (size_t)b * (p.bs + 1) * p.D;
+    QN_TRY(cudaMemsetAsync(p.ms + col0, 0, sizeof(float) * p.D, st));
+    QN_TRY(cudaMemsetAsync(p.my + col0, 0, sizeof(float) * p.D, st));
+  }
+  QN_TRY(launch(init_kernel<BATCHED>, pl.scalar_blocks, pl.scalar_threads,
+                0, st, p));
+  if (max_it < 1) return cudaSuccess;
+  QN_TRY(enqueue_iteration<BATCHED>(p, pl, st, false, is_fbe));
+  return run_graph<BATCHED>(p, pl, st, max_it, is_fbe);
+}
+
+// The solve of qn_solve_batch below, compiled with the per-instance
+// offsets (BATCHED = true) or without them (the single solve, B = 1).
+template <bool BATCHED>
+int solve(
     const float* d1, const float* d2, const float* g, const float* nhp,
     const float* rep, const float* prob, const float* xmin,
     const float* xmax, const float* xs, const float* umin, const float* umax,
@@ -1005,20 +1198,24 @@ extern "C" int qn_solve(
     float* x, float* u, float* hx, float* hu, float* t, float* a, float* ms,
     float* my, float* norm_part, float* val_part, float* dot_part,
     float* pp, float* champ_part, float* sc, float* tr_inf, float* tr_val,
-    float* tr_tau, int* st, int N, int ns, int nx, int nu, int nv, int fp,
+    float* tr_tau, int* st, int B, long long uhat_bs, long long e_bs,
+    long long alpha_bs, int N, int ns, int nx, int nu, int nv, int fp,
     int max_it, int bs, int is_fbe, float c, float step,
     float t1c, float t2c, float pstate, float psafety, float xs_upper,
     int tol_mode, float tol, void* stream) {
   if (bs < 1 || max_it < 0) return cudaErrorInvalidValue;
+  if (B < 1 || B > 65535) return cudaErrorInvalidValue;   // grid.y limit
   Args p;
-  p.N = N; p.ns = ns; p.nx = nx; p.nu = nu; p.nv = nv; p.fp = fp;
+  p.B = B; p.N = N; p.ns = ns; p.nx = nx; p.nu = nu; p.nv = nv; p.fp = fp;
   p.RS = (N + ROW_GROUP - 1) / ROW_GROUP * ROW_GROUP;
   p.bs = bs;
   p.tol_mode = tol_mode;
+  p.max_it = max_it;
   p.XI = (size_t)N * ns * 2 * nx;
   p.D = p.XI + (size_t)N * ns * nu;
   p.c = c; p.step = step; p.t1c = t1c; p.t2c = t2c; p.pstate = pstate;
   p.psafety = psafety; p.xs_upper = xs_upper; p.tol = tol;
+  p.uhat_bs = uhat_bs; p.e_bs = e_bs; p.alpha_bs = alpha_bs;
   p.d1 = d1; p.d2 = d2; p.g = g; p.nhp = nhp; p.rep = rep; p.prob = prob;
   p.xmin = xmin; p.xmax = xmax; p.xs = xs; p.umin = umin; p.umax = umax;
   p.L = L; p.BbT = BbT; p.iWT = iWT; p.LT = LT; p.BT = BT; p.Cs = Cs;
@@ -1036,40 +1233,79 @@ extern "C" int qn_solve(
   p.pp = pp; p.champ_part = champ_part; p.sc = sc; p.tr_inf = tr_inf;
   p.tr_val = tr_val; p.tr_tau = tr_tau; p.st = st;
 
-  Plan pl;
-  pl.smem_tail = sizeof(float) * (size_t)(nu + nx + nv) * p.RS;
-  pl.smem_prefix = sizeof(float) * 2 * (size_t)(nx + nv) * ns;
-  pl.smem_fwd = sizeof(float) * (size_t)(2 * nv + nu + nx) * p.RS;
-  pl.smem_res = sizeof(float) * (size_t)nu * p.RS;
-  int dev = 0, max_optin = 0;
-  QN_TRY(cudaGetDevice(&dev));
-  QN_TRY(cudaDeviceGetAttribute(&max_optin,
-                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
-  QN_TRY(set_smem((const void*)sweep_tail_kernel<true>, pl.smem_tail,
-                  max_optin));
-  QN_TRY(set_smem((const void*)sweep_tail_kernel<false>, pl.smem_tail,
-                  max_optin));
-  QN_TRY(set_smem((const void*)sweep_prefix_kernel, pl.smem_prefix,
-                  max_optin));
-  QN_TRY(set_smem((const void*)sweep_forward_kernel<true>, pl.smem_fwd,
-                  max_optin));
-  QN_TRY(set_smem((const void*)sweep_forward_kernel<false>, pl.smem_fwd,
-                  max_optin));
-  QN_TRY(set_smem((const void*)residual_value_kernel, pl.smem_res,
-                  max_optin));
-
   cudaStream_t cst = static_cast<cudaStream_t>(stream);
-  // column 0 of the history stays zero (rho[0] = 0): the two-loop's visit
-  // to it after the wrap is a no-op (solver/quasi_newton.py)
-  QN_TRY(cudaMemsetAsync(ms, 0, sizeof(float) * p.D, cst));
-  QN_TRY(cudaMemsetAsync(my, 0, sizeof(float) * p.D, cst));
-  QN_TRY(launch(init_kernel, 1, 1, 0, cst, p));
-  if (max_it < 1) return cudaSuccess;
-  QN_TRY(enqueue_iteration(p, pl, cst, false, is_fbe));
-  return run_graph(p, pl, cst, max_it, is_fbe);
+  return run_solve<BATCHED>(p, cst, max_it, is_fbe != 0);
 }
 
-// Kernel launches of one iteration after the first (the graph's nodes).
+}  // namespace
+
+// Runs max_it iterations of B independent FBE (is_fbe = 1) or NAMA solves
+// on `stream` without synchronising.  Every per-instance array carries a
+// leading batch axis (contiguous instances); uhat, e and alpha may
+// instead be one array read by every instance (batch stride 0).  The
+// caller fills y and yp (B, D) with the warm start (the flat dual buffer
+// [xi | psi] of each instance), zeroes x, u, yvp and the three traces
+// (B, max_it), and reads x, u, y, the traces and, per instance, st[1]
+// (the iteration count), st[4] (the rejected curvature pairs) and st[9]
+// (the line-search trials that ran) of st (B, 10) after the stream has
+// run.  Returns a cudaError_t (0 on success).
+extern "C" int qn_solve_batch(
+    const float* d1, const float* d2, const float* g, const float* nhp,
+    const float* rep, const float* prob, const float* xmin,
+    const float* xmax, const float* xs, const float* umin, const float* umax,
+    const float* L, const float* BbT, const float* iWT, const float* LT,
+    const float* BT, const float* Cs, const float* WT, const float* beta,
+    const float* uhat, const float* e, const float* alpha, const float* x0,
+    const float* pdu, const float* pu, float* y, float* yp, float* yvp,
+    float* w, float* rs, float* yv, float* dd, float* wd, float* df,
+    float* x, float* u, float* hx, float* hu, float* t, float* a, float* ms,
+    float* my, float* norm_part, float* val_part, float* dot_part,
+    float* pp, float* champ_part, float* sc, float* tr_inf, float* tr_val,
+    float* tr_tau, int* st, int B, long long uhat_bs, long long e_bs,
+    long long alpha_bs, int N, int ns, int nx, int nu, int nv, int fp,
+    int max_it, int bs, int is_fbe, float c, float step,
+    float t1c, float t2c, float pstate, float psafety, float xs_upper,
+    int tol_mode, float tol, void* stream) {
+  return solve<true>(
+      d1, d2, g, nhp, rep, prob, xmin, xmax, xs, umin, umax, L, BbT, iWT,
+      LT, BT, Cs, WT, beta, uhat, e, alpha, x0, pdu, pu, y, yp, yvp, w, rs,
+      yv, dd, wd, df, x, u, hx, hu, t, a, ms, my, norm_part, val_part,
+      dot_part, pp, champ_part, sc, tr_inf, tr_val, tr_tau, st, B, uhat_bs,
+      e_bs, alpha_bs, N, ns, nx, nu, nv, fp, max_it, bs, is_fbe, c, step,
+      t1c, t2c, pstate, psafety, xs_upper, tol_mode, tol, stream);
+}
+
+// The single solve: B = 1 of the batched solve compiled without the
+// per-instance offsets, with the argument list the single-solve wrapper
+// has always called.  The batched entry keeps them at B = 1 too, so a
+// batch of one holds the batched compilation to this one.
+extern "C" int qn_solve(
+    const float* d1, const float* d2, const float* g, const float* nhp,
+    const float* rep, const float* prob, const float* xmin,
+    const float* xmax, const float* xs, const float* umin, const float* umax,
+    const float* L, const float* BbT, const float* iWT, const float* LT,
+    const float* BT, const float* Cs, const float* WT, const float* beta,
+    const float* uhat, const float* e, const float* alpha, const float* x0,
+    const float* pdu, const float* pu, float* y, float* yp, float* yvp,
+    float* w, float* rs, float* yv, float* dd, float* wd, float* df,
+    float* x, float* u, float* hx, float* hu, float* t, float* a, float* ms,
+    float* my, float* norm_part, float* val_part, float* dot_part,
+    float* pp, float* champ_part, float* sc, float* tr_inf, float* tr_val,
+    float* tr_tau, int* st, int N, int ns, int nx, int nu, int nv, int fp,
+    int max_it, int bs, int is_fbe, float c, float step,
+    float t1c, float t2c, float pstate, float psafety, float xs_upper,
+    int tol_mode, float tol, void* stream) {
+  return solve<false>(
+      d1, d2, g, nhp, rep, prob, xmin, xmax, xs, umin, umax, L, BbT, iWT,
+      LT, BT, Cs, WT, beta, uhat, e, alpha, x0, pdu, pu, y, yp, yvp, w, rs,
+      yv, dd, wd, df, x, u, hx, hu, t, a, ms, my, norm_part, val_part,
+      dot_part, pp, champ_part, sc, tr_inf, tr_val, tr_tau, st, 1, 0, 0, 0,
+      N, ns, nx, nu, nv, fp, max_it, bs, is_fbe, c, step, t1c, t2c, pstate,
+      psafety, xs_upper, tol_mode, tol, stream);
+}
+
+// Kernel launches of one iteration after the first (the graph's nodes),
+// whatever the batch.
 extern "C" int qn_solve_launches_per_iteration(int is_fbe, int bs, int fp) {
   const int sweep = fp > 0 ? 3 : 2;
   return sweep + 1 + (is_fbe ? sweep : 0) + 1 + 1 + 1 + 2 * bs +

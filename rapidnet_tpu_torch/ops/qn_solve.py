@@ -1,10 +1,11 @@
-"""The whole-solve FBE/NAMA kernel: its wrapper, its plain version, its
-count.
+"""The whole-solve FBE/NAMA kernel: its wrappers, its plain version, its
+counts.
 
-Counterpart of ``rapidnet_tpu/ops/pallas_qn.py`` (``make_pallas_qn_solve``
-and the single-solve wrapper ``make_qn_pallas``).  The kernel is
-``csrc/qn_solve.cu``, CUDA C++ for sm_90a, built on first use by
-``ops/build.py``.
+Counterpart of ``rapidnet_tpu/ops/pallas_qn.py`` (``make_pallas_qn_solve``,
+the single-solve wrapper ``make_qn_pallas`` and the batch wrappers
+``make_qn_pallas_batch`` and ``make_qn_pallas_batch_shared``).  The
+kernel is ``csrc/qn_solve.cu``, CUDA C++ for sm_90a, built on first use
+by ``ops/build.py``.
 
 ``qn_solve`` is the wrapper.  It checks its inputs, then:
 
@@ -12,10 +13,24 @@ and the single-solve wrapper ``make_qn_pallas``).  The kernel is
   (the same solve in plain PyTorch: ``solver/quasi_newton.py``);
 * for tensors on a CUDA device it launches the kernel, or raises.
 
-``qn_solve.launches`` counts kernel calls (one per solve) and nothing
-else.  The dual pair keeps the XLA path's unpadded layout ``{"xi": (N,
-ns, 2nx), "psi": (N, ns, nu)}``, for the warm start and the output; the
-TPU kernel's padded ``{"xi1", "xi2", "psi"}`` is not ported.
+``qn_solve_batch`` is the batched wrapper: B independent solves over one
+factor step in one call of the same kernel (its batch axis, where the
+TPU kernel ran a ``lax.map``), with a leading batch axis on every
+per-instance array; ``uhat``, ``e`` and ``alpha_price`` may be
+``expand``-ed views of one array (batch stride 0, the shared forecast).
+Its plain version solves the instances one after another
+(``quasi_newton.make_solver_batch``).  On an H100 80GB HBM3 (700 W) a
+call of 32 500-iteration solves at Barcelona scale took 1811.651 ms
+(FBE, 17.7 solves/s) and 1894.852 ms (NAMA, 16.9 solves/s), 6.1 and 5.9
+times the rate of single solves, with 408 MiB of device memory above
+what was held before it (chip_smoke.py phase 14; PERF.md sections 5
+and 6).
+
+``qn_solve.launches`` and ``qn_solve_batch.launches`` count kernel calls
+(one per solve, one per batched solve) and nothing else.  The dual pair
+keeps the XLA path's unpadded layout ``{"xi": (N, ns, 2nx), "psi": (N,
+ns, nu)}``, with a leading B in a batch, for the warm start and the
+output; the TPU kernel's padded ``{"xi1", "xi2", "psi"}`` is not ported.
 
 The kernel's sweeps are those of ``csrc/apg_solve.cu``, with the same
 shared-memory limits on the tree (N <= 152 stages, ns <= 181 scenarios
@@ -33,6 +48,7 @@ import torch
 from rapidnet_tpu_torch.model.config import ALGORITHM_FBE, ALGORITHM_NAMA
 from rapidnet_tpu_torch.ops import apg_solve as apg_k
 from rapidnet_tpu_torch.ops import build
+from rapidnet_tpu_torch.solver import apg as apg_mod
 from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
 from rapidnet_tpu_torch.solver import solve_step as ss
 
@@ -61,7 +77,8 @@ def _check_algorithm(algorithm):
         raise ValueError(f"unknown quasi-Newton algorithm {algorithm}")
 
 
-def _check_inputs(kc, step, y0):
+def _check_constants(kc):
+    """Returns the problem's sizes N, ns, nx, nu, nv and the device."""
     fa = kc["fa"]
     N, ns, nx = fa["d1"].shape
     nu = fa["g"].shape[-1]
@@ -77,6 +94,11 @@ def _check_inputs(kc, step, y0):
     }
     for k, shp in shapes.items():
         apg_k._check(k, fa[k] if k in ROW_KEYS else kc[k], shp, dev)
+    return N, ns, nx, nu, nv, dev
+
+
+def _check_inputs(kc, step, y0):
+    N, ns, nx, nu, nv, dev = _check_constants(kc)
     for k, shp in {"beta": (N, ns, nv), "uhat": (N, ns, nu),
                    "e": (N, ns, nx), "alpha_price": (N, ns, nu),
                    "x0": (nx,), "prev_u": (nu,),
@@ -90,20 +112,61 @@ def _check_inputs(kc, step, y0):
     return dev
 
 
-def qn_solve_plain(kc, step, y0=None, *, algorithm, inv_step, step_size,
-                   penalty_state, penalty_safety, xs_upper, max_iterations,
-                   lbfgs_buffer_size, tolerance=None):
+def _check_batch_inputs(kc, steps, y0):
+    """Returns B, the batch strides of uhat, e and alpha_price, and the
+    device (``apg_solve._check_batch_inputs``'s rules)."""
+    N, ns, nx, nu, nv, dev = _check_constants(kc)
+    beta = steps["beta"]
+    if not isinstance(beta, torch.Tensor) or beta.dim() != 4:
+        raise ValueError("steps['beta'] must be a (B, N, ns, nv) tensor")
+    B = beta.shape[0]
+    if B < 1:
+        raise ValueError("an empty batch")
+    for k, shp in {"beta": (N, ns, nv), "x0": (nx,), "prev_u": (nu,),
+                   "prev_uhat": (nu,)}.items():
+        apg_k._check(k, steps[k], (B, *shp), dev)
+    strides = tuple(apg_k._check_shareable(k, steps[k], (B, N, ns, d), dev)
+                    for k, d in (("uhat", nu), ("e", nx),
+                                 ("alpha_price", nu)))
+    if y0 is not None:
+        apg_k._check("y0.xi", y0["xi"], (B, N, ns, 2 * nx), dev,
+                     contiguous=False)
+        apg_k._check("y0.psi", y0["psi"], (B, N, ns, nu), dev,
+                     contiguous=False)
+    return B, strides, dev
+
+
+def qn_solve_plain(kc, step, y0=None, **hyper):
     """The plain PyTorch version: ``solver/quasi_newton.py``'s solve, on
-    any device."""
-    run = qn_mod.make_solver(
-        algorithm=algorithm, prefix_stages=kc["prefix_stages"],
-        inv_step=inv_step, step_size=step_size,
-        penalty_state=penalty_state, penalty_safety=penalty_safety,
-        xs_upper=xs_upper, max_iterations=max_iterations,
-        lbfgs_buffer_size=lbfgs_buffer_size, tolerance=tolerance)
+    any device (``hyper``: ``make_solver``'s settings but the prefix
+    stages)."""
+    run = qn_mod.make_solver(prefix_stages=kc["prefix_stages"], **hyper)
     out = run(kc["fa"], step, y0)
     del out["v"]
     return out
+
+
+def qn_solve_batch_plain(kc, steps, y0=None, **hyper):
+    """The plain batched version: ``quasi_newton.make_solver_batch``, the
+    instances solved one after another, on any device."""
+    run = qn_mod.make_solver_batch(prefix_stages=kc["prefix_stages"],
+                                   **hyper)
+    out = run(kc["fa"], steps, y0)
+    del out["v"]
+    return out
+
+
+def _hyper(algorithm, inv_step, step_size, penalty_state, penalty_safety,
+           xs_upper, max_iterations, lbfgs_buffer_size, tolerance):
+    """The solve's settings as keyword arguments, checked."""
+    _check_algorithm(algorithm)
+    if int(lbfgs_buffer_size) < 1:
+        raise ValueError("lbfgs_buffer_size must be at least 1")
+    return dict(algorithm=algorithm, inv_step=inv_step,
+                step_size=step_size, penalty_state=penalty_state,
+                penalty_safety=penalty_safety, xs_upper=xs_upper,
+                max_iterations=max_iterations,
+                lbfgs_buffer_size=lbfgs_buffer_size, tolerance=tolerance)
 
 
 def qn_solve(kc, step, y0=None, *, algorithm, inv_step, step_size,
@@ -117,14 +180,9 @@ def qn_solve(kc, step, y0=None, *, algorithm, inv_step, step_size,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
-    _check_algorithm(algorithm)
-    if int(lbfgs_buffer_size) < 1:
-        raise ValueError("lbfgs_buffer_size must be at least 1")
-    hyper = dict(algorithm=algorithm, inv_step=inv_step,
-                 step_size=step_size, penalty_state=penalty_state,
-                 penalty_safety=penalty_safety, xs_upper=xs_upper,
-                 max_iterations=max_iterations,
-                 lbfgs_buffer_size=lbfgs_buffer_size, tolerance=tolerance)
+    hyper = _hyper(algorithm, inv_step, step_size, penalty_state,
+                   penalty_safety, xs_upper, max_iterations,
+                   lbfgs_buffer_size, tolerance)
     dev = _check_inputs(kc, step, y0)
     if dev.type == "cpu":
         return qn_solve_plain(kc, step, y0, **hyper)
@@ -135,7 +193,7 @@ def qn_solve(kc, step, y0=None, *, algorithm, inv_step, step_size,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         qn_solve.launches += 1
-        out = _launch(lib, stream, kc, step, y0, **hyper)
+        out = _launch(lib, stream, kc, step, y0, batch=None, **hyper)
     lo, hi = ss.root_control_bounds(kc["fa"])
     out["control"] = torch.clamp(out["u"][0, 0], lo, hi)
     return out
@@ -144,36 +202,79 @@ def qn_solve(kc, step, y0=None, *, algorithm, inv_step, step_size,
 qn_solve.launches = 0
 
 
-def _entry(lib):
-    """The C entry ``qn_solve``, declared."""
-    fn = lib.qn_solve
+def qn_solve_batch(kc, steps, y0=None, *, algorithm, inv_step, step_size,
+                   penalty_state, penalty_safety, xs_upper, max_iterations,
+                   lbfgs_buffer_size, tolerance=None):
+    """B independent whole FBE or NAMA solves in one call.
+
+    Every leaf of ``steps`` (and of ``y0``) carries a leading batch axis,
+    as do the outputs; ``uhat``, ``e`` and ``alpha_price`` may be
+    ``expand``-ed views of one array (batch stride 0).  Returns control
+    (B, nu), x, u, y, the three traces (B, max_iterations), and
+    ``iterations``, ``line_search_trials`` and ``lbfgs_skips`` (B,).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    hyper = _hyper(algorithm, inv_step, step_size, penalty_state,
+                   penalty_safety, xs_upper, max_iterations,
+                   lbfgs_buffer_size, tolerance)
+    B, strides, dev = _check_batch_inputs(kc, steps, y0)
+    if dev.type == "cpu":
+        return qn_solve_batch_plain(kc, steps, y0, **hyper)
+    if dev.type != "cuda":
+        raise ValueError(f"qn_solve_batch runs on cpu or cuda, not "
+                         f"{dev.type}")
+    lib = build.load("qn_solve")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        qn_solve_batch.launches += 1
+        out = _launch(lib, stream, kc, steps, y0, batch=B, strides=strides,
+                      **hyper)
+    lo, hi = ss.root_control_bounds(kc["fa"])
+    out["control"] = torch.clamp(out["u"][:, 0, 0], lo, hi)
+    return out
+
+
+qn_solve_batch.launches = 0
+
+
+def _entry(lib, batched: bool):
+    """The C entry ``qn_solve_batch`` or ``qn_solve``, declared."""
+    fn = lib.qn_solve_batch if batched else lib.qn_solve
     if fn.argtypes is None:
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_longlong, ctypes.c_float)
         fn.argtypes = ([ptr] * (len(ROW_KEYS) + len(MATRIX_KEYS) +
                                 len(STEP_KEYS) + len(STATE_KEYS)) +
+                       ([i32, i64, i64, i64] if batched else []) +
                        [i32] * 9 + [f32] * 7 + [i32, f32, ptr])
         fn.restype = i32
         lib.qn_solve_error_string.argtypes = [i32]
         lib.qn_solve_error_string.restype = ctypes.c_char_p
-        lib.qn_solve_launches_per_iteration.argtypes = [i32, i32, i32]
-        lib.qn_solve_launches_per_iteration.restype = i32
     return fn
 
 
 def launches_per_iteration(algorithm, lbfgs_buffer_size, fp) -> int:
-    """Kernel launches of one iteration after the first, as the kernel's
-    source counts them (builds the kernel)."""
-    lib = build.load("qn_solve")
-    _entry(lib)
-    return lib.qn_solve_launches_per_iteration(
-        int(algorithm == ALGORITHM_FBE), int(lbfgs_buffer_size), int(fp))
+    """Kernel launches of one iteration after the first, whatever the
+    batch, as the kernel's source counts them (builds the kernel)."""
+    fn = build.load("qn_solve").qn_solve_launches_per_iteration
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(int(algorithm == ALGORITHM_FBE), int(lbfgs_buffer_size),
+              int(fp))
 
 
-def _launch(lib, stream, kc, step, y0, *, algorithm, inv_step, step_size,
-            penalty_state, penalty_safety, xs_upper, max_iterations,
-            lbfgs_buffer_size, tolerance):
+def _launch(lib, stream, kc, step, y0, *, batch, strides=(0, 0, 0),
+            algorithm, inv_step, step_size, penalty_state, penalty_safety,
+            xs_upper, max_iterations, lbfgs_buffer_size, tolerance):
     """Allocate the outputs and scratch, then run the kernel on
-    ``stream`` (the argument order of ``qn_solve`` in the source)."""
+    ``stream`` (the argument order of ``qn_solve`` in the source).
+
+    ``batch=None`` is the single solve (C entry ``qn_solve``); an int B
+    the batched one (``qn_solve_batch``), with a leading B on every
+    per-instance array and ``strides`` the batch strides of uhat, e and
+    alpha_price.
+    """
     fa = kc["fa"]
     N, ns, nx = fa["d1"].shape
     nu = fa["g"].shape[-1]
@@ -183,18 +284,20 @@ def _launch(lib, stream, kc, step, y0, *, algorithm, inv_step, step_size,
     R = N * ns
     XI = R * 2 * nx
     D = XI + R * nu
+    lead = () if batch is None else (batch,)
 
     def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+        return torch.empty(lead + shape, dtype=torch.float32, device=dev)
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
+        return torch.zeros(lead + shape, dtype=torch.float32, device=dev)
 
-    # the dual-space buffers are flat, [xi (R, 2nx) | psi (R, nu)]
+    # the dual-space buffers are flat, [xi (R, 2nx) | psi (R, nu)] per
+    # instance
     y = zeros(D)
     if y0 is not None:
-        y[:XI] = y0["xi"].reshape(-1)
-        y[XI:] = y0["psi"].reshape(-1)
+        y[..., :XI] = y0["xi"].reshape(*lead, -1)
+        y[..., XI:] = y0["psi"].reshape(*lead, -1)
     state = {
         "y": y, "yp": y.clone(), "yvp": zeros(D),
         **{k: empty(D) for k in ("w", "rs", "yv", "dd", "wd", "df")},
@@ -211,7 +314,8 @@ def _launch(lib, stream, kc, step, y0, *, algorithm, inv_step, step_size,
         "sc": empty(N_FLOAT_SCALARS + 2 * (bs + 1)),
         "tr_inf": zeros(max_iterations), "tr_val": zeros(max_iterations),
         "tr_tau": zeros(max_iterations),
-        "st": torch.empty(N_INT_SCALARS, dtype=torch.int32, device=dev),
+        "st": torch.empty(lead + (N_INT_SCALARS,), dtype=torch.int32,
+                          device=dev),
     }
     stepd = dict(step, pdu=step["prev_u"] - step["prev_uhat"])
     ptrs = ([fa[k].data_ptr() for k in ROW_KEYS] +
@@ -226,18 +330,22 @@ def _launch(lib, stream, kc, step, y0, *, algorithm, inv_step, step_size,
              float(penalty_safety), float(xs_upper),
              int(tolerance is not None),
              float(tolerance) if tolerance is not None else 0.0, stream)
-    err = _entry(lib)(*ptrs, *hyper)
+    if batch is None:
+        err = _entry(lib, False)(*ptrs, *hyper)
+    else:
+        err = _entry(lib, True)(*ptrs, batch, *strides, *hyper)
     if err != 0:
         msg = lib.qn_solve_error_string(err).decode()
         raise RuntimeError(f"qn_solve kernel failed: error {err} ({msg})")
+    st = state["st"]
     return {"x": state["x"], "u": state["u"],
-            "y": {"xi": y[:XI].view(N, ns, 2 * nx),
-                  "psi": y[XI:].view(N, ns, nu)},
+            "y": {"xi": y[..., :XI].view(*lead, N, ns, 2 * nx),
+                  "psi": y[..., XI:].view(*lead, N, ns, nu)},
             "primal_infeasibility": state["tr_inf"],
             "value_fbe": state["tr_val"], "tau": state["tr_tau"],
-            "iterations": state["st"][1],
-            "lbfgs_skips": state["st"][4],
-            "line_search_trials": state["st"][9]}
+            "iterations": st[..., 1],
+            "lbfgs_skips": st[..., 4],
+            "line_search_trials": st[..., 9]}
 
 
 def make_qn_kernel(fa: dict, *, algorithm, prefix_stages: tuple,
@@ -249,15 +357,49 @@ def make_qn_kernel(fa: dict, *, algorithm, prefix_stages: tuple,
     Builds the kernel constants once and returns run(step, y0=None),
     with ``y0`` the previous solve's unpadded ``out["y"]``.
     """
-    _check_algorithm(algorithm)
+    hyper = _hyper(algorithm, inv_step, step_size, penalty_state,
+                   penalty_safety, xs_upper, max_iterations,
+                   lbfgs_buffer_size, tolerance)
     kc = kernel_constants(fa, prefix_stages=prefix_stages)
-    hyper = dict(algorithm=algorithm, inv_step=inv_step,
-                 step_size=step_size, penalty_state=penalty_state,
-                 penalty_safety=penalty_safety, xs_upper=xs_upper,
-                 max_iterations=max_iterations,
-                 lbfgs_buffer_size=lbfgs_buffer_size, tolerance=tolerance)
 
     def run(step, y0=None):
         return qn_solve(kc, step, y0, **hyper)
+
+    return run
+
+
+def make_qn_kernel_batch(fa: dict, *, algorithm, prefix_stages: tuple,
+                         lbfgs_buffer_size, inv_step, step_size,
+                         penalty_state, penalty_safety, xs_upper,
+                         max_iterations, tolerance=None):
+    """The batched wrapper (``make_qn_pallas_batch``'s counterpart, the
+    contract of ``apg_solve.make_apg_kernel_batch``).
+
+    Builds the kernel constants once and returns run(steps, y0=None),
+    every leaf of ``steps`` and ``y0`` with a leading batch axis.
+    """
+    hyper = _hyper(algorithm, inv_step, step_size, penalty_state,
+                   penalty_safety, xs_upper, max_iterations,
+                   lbfgs_buffer_size, tolerance)
+    kc = kernel_constants(fa, prefix_stages=prefix_stages)
+
+    def run(steps, y0=None):
+        return qn_solve_batch(kc, steps, y0, **hyper)
+
+    return run
+
+
+def make_qn_kernel_batch_shared(fa: dict, **kwargs):
+    """The shared-forecast batched wrapper
+    (``make_qn_pallas_batch_shared``'s counterpart): run(base, inst,
+    y0=None), with ``(base, inst)`` from ``Engine.prepare_step_shared``
+    as tensors.  Each instance's beta is assembled on the device; uhat, e
+    and alpha_price go to the kernel as one array read by every
+    instance.
+    """
+    run_batch = make_qn_kernel_batch(fa, **kwargs)
+
+    def run(base, inst, y0=None):
+        return run_batch(apg_mod.expand_shared_step(base, **inst), y0)
 
     return run

@@ -10,16 +10,22 @@ Typical uses: Monte-Carlo evaluation of a controller over initial
 conditions or demand realisations, tuning sweeps, and throughput
 benchmarking.
 
-This slice runs the APG algorithm on one device.  ``backend`` as in
-``solver/controller.py``:
+The three algorithms of the reference run on one device: APG, global
+FBE and NAMA (``config.algorithm``; FBE and NAMA with the config's
+``lbfgs_buffer_size``).  ``backend`` as in ``solver/controller.py``:
 
-* ``'auto'`` (default): the batched whole-solve kernel wrapper
-  (``ops/apg_solve.apg_solve_batch``), which launches the CUDA kernel
-  on a CUDA device, with or without a tolerance, and runs its plain
-  version on the CPU;
+* ``'auto'`` (default): the algorithm's batched whole-solve kernel
+  wrapper (``ops/apg_solve.apg_solve_batch`` for APG,
+  ``ops/qn_solve.qn_solve_batch`` for FBE and NAMA), which launches the
+  CUDA kernel on a CUDA device, with or without a tolerance, and runs
+  its plain version on the CPU;
 * ``'cuda'``: the same, and raises unless ``device`` is a CUDA device;
-* ``'torch'``: the plain batched PyTorch solve (``solver/apg.py``) on
-  any device.
+* ``'torch'``: the plain batched PyTorch solve (``solver/apg.py``,
+  ``solver/quasi_newton.py``) on any device.
+
+The built-in simulator advances each instance as ``SmpcController``
+does, so an instance of a batch with its own forecaster runs the single
+closed loop.
 
 With one forecaster shared by every instance, the disturbance
 elimination runs once per step (``Engine.prepare_step_shared``) and the
@@ -43,9 +49,11 @@ from rapidnet_tpu_torch.model.config import ALGORITHM_APG, SmpcConfig
 from rapidnet_tpu_torch.model.forecaster import Forecaster
 from rapidnet_tpu_torch.model.network import DwnNetwork
 from rapidnet_tpu_torch.model.scenario_tree import ScenarioTree
-from rapidnet_tpu_torch.ops import apg_solve
+from rapidnet_tpu_torch.ops import apg_solve, qn_solve
 from rapidnet_tpu_torch.solver import apg as apg_mod
-from rapidnet_tpu_torch.solver.controller import BACKENDS, resolve_device
+from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
+from rapidnet_tpu_torch.solver.controller import (ALGORITHMS, BACKENDS,
+                                                  resolve_device)
 
 
 class BatchedSmpcController:
@@ -76,10 +84,8 @@ class BatchedSmpcController:
             raise NotImplementedError(
                 "multi-GPU solves are not ported yet (ROADMAP queue 1, "
                 "item 12)")
-        if config.algorithm != ALGORITHM_APG:
-            raise NotImplementedError(
-                f"algorithm '{config.algorithm}': batched FBE/NAMA is not "
-                "ported yet (ROADMAP queue 1, item 9)")
+        if config.algorithm not in ALGORITHMS:
+            raise ValueError(f"unknown algorithm '{config.algorithm}'")
         self.device = resolve_device(device)
         if backend == "cuda" and self.device.type != "cuda":
             raise ValueError(
@@ -136,20 +142,23 @@ class BatchedSmpcController:
                   max_iterations=int(cfg.max_iterations),
                   tolerance=self.tolerance)
         shared = self._shared_forecast
-        if self.backend == "torch":
-            fa = self._fa
-            if shared:
-                run_s = apg_mod.make_apg_batch_shared(**kw)
-                self._solver = lambda base, inst, y0: run_s(fa, base, inst,
-                                                            y0)
-            else:
-                run_b = apg_mod.make_apg_batch(**kw)
-                self._solver = lambda steps, y0: run_b(fa, steps, y0)
-        elif shared:
-            self._solver = apg_solve.make_apg_kernel_batch_shared(self._fa,
-                                                                  **kw)
+        if cfg.algorithm == ALGORITHM_APG:
+            plain = (apg_mod.make_apg_batch_shared if shared
+                     else apg_mod.make_apg_batch)
+            kernel = (apg_solve.make_apg_kernel_batch_shared if shared
+                      else apg_solve.make_apg_kernel_batch)
         else:
-            self._solver = apg_solve.make_apg_kernel_batch(self._fa, **kw)
+            kw.update(algorithm=cfg.algorithm,
+                      lbfgs_buffer_size=int(cfg.lbfgs_buffer_size))
+            plain = (qn_mod.make_solver_batch_shared if shared
+                     else qn_mod.make_solver_batch)
+            kernel = (qn_solve.make_qn_kernel_batch_shared if shared
+                      else qn_solve.make_qn_kernel_batch)
+        if self.backend == "torch":
+            run, fa = plain(**kw), self._fa
+            self._solver = lambda *args: run(fa, *args)
+        else:
+            self._solver = kernel(self._fa, **kw)
 
     # ------------------------------------------------------------------
     def _forecast(self, fc: Forecaster, sim_time: int) -> None:
@@ -191,9 +200,12 @@ class BatchedSmpcController:
         u = self._last_control
         if u is None:
             raise RuntimeError("call control_action first")
+        net = self.network
         d = np.stack([fc.nominal_demand[0] for fc in self.forecasters])
-        x = (self.current_x + u @ self.network.matB.T +
-             d @ self.network.matGd.T).astype(np.float32)
+        # each instance as SmpcController.move_forward_in_time computes it
+        x = np.stack([(self.current_x[b] + net.matB @ u[b] +
+                       net.matGd @ d[b]).astype(np.float32)
+                      for b in range(self.batch)])
         self._update_kpi(x, u)
         self.current_x = x
         self.prev_u = u.copy()

@@ -17,7 +17,8 @@ Counterpart of ``rapidnet_tpu/solver/quasi_newton.py`` (reference:
 This is the plain version that the whole-solve QN kernel
 (ops/qn_solve.py) is held to: a Python loop over the iterations whose
 branches (the accept test, the line search) read their scalars on the
-host.  One instance, no batch axis.
+host.  ``make_solver`` solves one instance; ``make_solver_batch`` and
+``make_solver_batch_shared`` solve B of them, one after another.
 
 As in the JAX package: the buffers have buffer_size + 1 columns, with
 column 0 always zero and rho[0] = 0, so the reference's
@@ -34,6 +35,7 @@ import torch
 
 from rapidnet_tpu_torch.model.config import ALGORITHM_FBE, ALGORITHM_NAMA
 from rapidnet_tpu_torch.solver import solve_step as ss
+from rapidnet_tpu_torch.solver.apg import expand_shared_step
 
 LS_TOLERANCE = 1e-4
 LS_MAX_STEPS = 10
@@ -364,6 +366,51 @@ def make_solver(*, algorithm: str, prefix_stages: tuple, inv_step: float,
         if trace_magnitude:
             out["residual_magnitude"] = mags
         return out
+
+    return run
+
+
+def _stack(outs):
+    """The per-instance output dicts (nested dicts too) stacked on a
+    leading batch axis."""
+    return {k: _stack([o[k] for o in outs]) if isinstance(outs[0][k], dict)
+            else torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def make_solver_batch(**kwargs):
+    """Batched FBE/NAMA: B independent instances sharing the factor
+    tensors.
+
+    Returns fn(fa, steps, y0=None): every leaf of ``steps`` (and of the
+    warm start ``y0``, when given) carries a leading batch axis, as do
+    the outputs (``iterations``, ``line_search_trials`` and
+    ``lbfgs_skips`` are (B,)).  It runs ``make_solver``'s solve on each
+    instance in turn, as the TPU kernel's batch does (a ``lax.map``,
+    rapidnet_tpu/ops/pallas_qn.py:700-706), so each instance equals its
+    single solve exactly; the JAX package's ``make_solver_batch`` (a
+    vmap, whose line searches run in masked lockstep) parts from single
+    solves at the f32 rounding level.
+    """
+    run = make_solver(**kwargs)
+
+    def run_batch(fa, steps, y0=None):
+        outs = [run(fa, {k: v[b] for k, v in steps.items()},
+                    None if y0 is None else {k: v[b] for k, v in y0.items()})
+                for b in range(steps["beta"].shape[0])]
+        return _stack(outs)
+
+    return run_batch
+
+
+def make_solver_batch_shared(**kwargs):
+    """Batched FBE/NAMA over a shared forecast: fn(fa, base, inst,
+    y0=None), with ``(base, inst)`` from ``Engine.prepare_step_shared``;
+    the batched steps are assembled on the device
+    (``apg.expand_shared_step``)."""
+    run_batch = make_solver_batch(**kwargs)
+
+    def run(fa, base, inst, y0=None):
+        return run_batch(fa, expand_shared_step(base, **inst), y0)
 
     return run
 

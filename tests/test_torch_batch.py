@@ -313,8 +313,13 @@ def test_batched_controller_requests_raise():
     for algorithm in (ALGORITHM_FBE, ALGORITHM_NAMA):
         qn = copy.deepcopy(cfg)
         qn.algorithm = algorithm
-        with pytest.raises(NotImplementedError, match="item 9"):
-            BatchedSmpcController(qn, net, tree, fc, x0s, **kw)
+        # FBE and NAMA are ported (tests/test_torch_qn_batch.py)
+        ctrl = BatchedSmpcController(qn, net, tree, fc, x0s, **kw)
+        assert ctrl.config.algorithm == algorithm
+    bad = copy.deepcopy(cfg)
+    bad.algorithm = "noSuchAlgorithm"
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        BatchedSmpcController(bad, net, tree, fc, x0s, **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             BatchedSmpcController(cfg, net, tree, fc, x0s)

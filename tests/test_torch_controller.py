@@ -241,9 +241,9 @@ def test_device_and_backend_requests_raise():
 
 
 def test_unported_options_raise():
-    """Batched FBE/NAMA, multi-GPU solves and streaming raise; a
-    single-device FBE controller builds, and an unknown algorithm
-    raises."""
+    """Multi-GPU solves and streaming raise; single-device FBE
+    controllers, one instance or a batch, build, and an unknown
+    algorithm raises."""
     from rapidnet_tpu_torch import BatchedSmpcController, SmpcController
     from rapidnet_tpu_torch.model.config import ALGORITHM_FBE
     cfg, net, tree, fc = _problem("rapidnet_tpu_torch")
@@ -251,9 +251,9 @@ def test_unported_options_raise():
     fbe = copy.deepcopy(cfg)
     fbe.algorithm = ALGORITHM_FBE
     assert SmpcController(fbe, **kw).config.algorithm == ALGORITHM_FBE
-    with pytest.raises(NotImplementedError, match="item 9"):
-        BatchedSmpcController(fbe, net, tree, fc,
-                              np.tile(cfg.current_x, (2, 1)), device="cpu")
+    assert BatchedSmpcController(
+        fbe, net, tree, fc, np.tile(cfg.current_x, (2, 1)),
+        device="cpu").config.algorithm == ALGORITHM_FBE
     bad = copy.deepcopy(cfg)
     bad.algorithm = "newtonAlgorithm"
     with pytest.raises(ValueError, match="unknown algorithm"):

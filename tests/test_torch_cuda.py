@@ -1,5 +1,5 @@
-"""The whole-solve CUDA kernels, APG single and batched, FBE and NAMA,
-on the card.
+"""The whole-solve CUDA kernels, APG single and batched, FBE and NAMA
+single and batched, on the card.
 
 These tests need a CUDA GPU and skip without one.  They import neither
 jax nor the JAX package, because the card's machine has no JAX; since
@@ -452,3 +452,133 @@ def test_qn_controller_launches_the_kernel(cuda_device, algorithm):
         np.testing.assert_allclose(np.asarray(got[f"control{t}"]), b,
                                    rtol=1e-3,
                                    atol=1e-4 * max(np.abs(b).max(), 1.0))
+
+
+def _qn_batch(device, batch=3, step_size=1e-3, max_iterations=QN_TRACK):
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    kc, steps, kw = _batch(device, batch=batch, step_size=step_size,
+                           max_iterations=max_iterations)
+    return (Q.kernel_constants(kc["fa"], prefix_stages=kc["prefix_stages"]),
+            steps, dict(kw, lbfgs_buffer_size=QN_BS))
+
+
+def _qn_assert_equal(got, ref):
+    for k in ("control", "u", "x", "primal_infeasibility", "value_fbe",
+              "tau", "iterations", "line_search_trials", "lbfgs_skips"):
+        assert torch.equal(got[k], ref[k]), k
+    for k in ("xi", "psi"):
+        assert torch.equal(got["y"][k], ref["y"][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["shared", "stacked"])
+@pytest.mark.parametrize("algorithm", QN_ALGORITHMS)
+def test_qn_batched_kernel_matches_single_kernel(cuda_device, algorithm,
+                                                 form):
+    """Each instance of a batched FBE or NAMA call (uhat, e and
+    alpha_price shared with batch stride 0, or one instance after
+    another) equals the single-solve kernel on that instance's step, bit
+    for bit, over ITERS iterations, in which the L-BFGS ring wraps."""
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    kc, steps, kw = _qn_batch(cuda_device, max_iterations=ITERS)
+    if form == "stacked":
+        steps = {k: v.contiguous() for k, v in steps.items()}
+    assert (steps["alpha_price"].stride(0) == 0) == (form == "shared")
+    n0 = Q.qn_solve_batch.launches
+    got = Q.qn_solve_batch(kc, steps, None, algorithm=algorithm, **kw)
+    assert Q.qn_solve_batch.launches == n0 + 1
+    assert got["iterations"].tolist() == [ITERS] * 3
+    for b in range(3):
+        one = Q.qn_solve(kc, _instance(steps, b), None, algorithm=algorithm,
+                         **kw)
+        _qn_assert_equal(_instance(got, b), one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", QN_ALGORITHMS)
+def test_qn_batch_of_one_matches_single_solve(cuda_device, algorithm):
+    """The batched entry at B = 1 (compiled with the batch axis), cold and
+    warm, equals the single solve (compiled without it) bit for bit; and
+    over QN_TRACK iterations the batch keeps to its plain version."""
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    kc, steps, kw = _qn_batch(cuda_device, batch=1)
+    kw["algorithm"] = algorithm
+    one = Q.qn_solve(kc, _instance(steps, 0), None, **kw)
+    got = Q.qn_solve_batch(kc, steps, None, **kw)
+    _qn_assert_equal(_instance(got, 0), one)
+    warm1 = Q.qn_solve(kc, _instance(steps, 0), one["y"], **kw)
+    warmb = Q.qn_solve_batch(kc, steps, got["y"], **kw)
+    _qn_assert_equal(_instance(warmb, 0), warm1)
+    ref = Q.qn_solve_batch_plain(kc, steps, None, **kw)
+    _qn_close(_instance(got, 0), _instance(ref, 0), stressed=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", QN_ALGORITHMS)
+def test_qn_batched_kernel_tolerance_exits_match_plain(cuda_device,
+                                                       algorithm):
+    """Under a tolerance each instance stops at its plain version's
+    iteration and its three traces are zero past it.  The tolerance:
+    of those that stop instance 0 of the plain version past its first
+    iteration (quasi_newton.exit_tolerances), the first that stops every
+    instance mid-budget."""
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+    from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
+
+    n = 20
+    kc, steps, kw = _qn_batch(cuda_device, step_size=3e-4, max_iterations=n)
+    kw["algorithm"] = algorithm
+    mags = qn_mod.make_solver_batch(
+        prefix_stages=kc["prefix_stages"], trace_magnitude=True,
+        **kw)(kc["fa"], steps)["residual_magnitude"]
+    for tol, _, _ in qn_mod.exit_tolerances(_np(mags[0]), n - 1):
+        ref = Q.qn_solve_batch_plain(kc, steps, None, tolerance=tol, **kw)
+        its = ref["iterations"].tolist()
+        if all(1 < it < n for it in its):
+            break
+    else:
+        pytest.fail("no tolerance gave mid-budget exits")
+    got = Q.qn_solve_batch(kc, steps, None, tolerance=tol, **kw)
+    assert got["iterations"].tolist() == its
+    for b, it in enumerate(its):
+        for k in ("primal_infeasibility", "value_fbe", "tau"):
+            assert bool((got[k][b, it:] == 0).all()), k
+    np.testing.assert_allclose(_np(got["control"]), _np(ref["control"]),
+                               rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", QN_ALGORITHMS)
+def test_qn_batched_controller_launches_the_kernel(cuda_device, algorithm):
+    """BatchedSmpcController(device='cuda') with backend 'auto' solves
+    each step's FBE or NAMA batch through one kernel call and agrees
+    with 'torch'."""
+    from rapidnet_tpu_torch import BatchedSmpcController
+    from rapidnet_tpu_torch.model.config import synthetic_config
+    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
+    from rapidnet_tpu_torch.model.network import synthetic_network
+    from rapidnet_tpu_torch.model.scenario_tree import generate_tree
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    def run(backend):
+        net = synthetic_network(nx=4, nu=7, nd=3, ne=2, seed=7)
+        tree = generate_tree(N=8, branching=[2, 2], nd=3, nu=7, seed=7)
+        fc = synthetic_forecaster(N=8, nd=3, nu=7, sim_horizon=3, seed=7)
+        cfg = synthetic_config(net, tree, max_iterations=QN_TRACK,
+                               step_size=1e-3)
+        cfg.algorithm = algorithm
+        x0s = cfg.current_x * np.linspace(0.9, 1.1, 3)[:, None]
+        return BatchedSmpcController(cfg, net, tree, fc, x0s,
+                                     backend=backend).closed_loop(3)
+
+    n0, s0 = Q.qn_solve_batch.launches, Q.qn_solve.launches
+    got = run("auto")
+    assert Q.qn_solve_batch.launches == n0 + 3
+    assert Q.qn_solve.launches == s0
+    ref = run("torch")
+    b = ref["controls"]
+    np.testing.assert_allclose(got["controls"], b, rtol=1e-3,
+                               atol=1e-4 * max(np.abs(b).max(), 1.0))
