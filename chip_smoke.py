@@ -34,7 +34,8 @@ x0 * (1 + 0.02 N(0, 1)) (numpy seed 7, as bench.py:133-136):
     iterations (1e-3 bound, as phase 3), and checks that under a
     tolerance every instance of a batched call stops at the plain
     version's iteration for it;
-6c. holds the batched entry at B = 1 to the single solve, bit for bit;
+6c. holds the batched entry at B = 1 (compiled with the per-instance
+    offsets) to the single solve (compiled without them), bit for bit;
     with ``--reference-kernel DIR`` (the ``csrc`` directory of an earlier
     checkout) also the single solve to that source's kernel;
 7.  runs 3-step batched closed loops through
@@ -125,6 +126,32 @@ at B = 32, the states of phase 6, buffer 5, for each algorithm:
      take minutes) and the bound (the instances' operations, each with
      its own trial count, against the bytes).
 
+Then the streaming APG kernels (``csrc/apg_stream.cu``) at BASELINE
+config 5 (bench_ladder.py:47: the same widths and horizon over branching
+[8, 8, 4, 4], 20,809 nodes, 1024 scenarios; seeds 42, auto-tuned, 500
+iterations), a tree past the whole-solve kernels' limits:
+
+15. one K1 pass and one K2 pass, from the state after PASS_ITER plain
+    iterations from tanks at 1.2 times their maximum (nonzero duals),
+    with shrinks PASS_SHRINKS, each output within PASS_FACTOR *
+    max(|plain|, 1) of the plain halves (``k1_plain``, ``k2_plain``);
+16. the 500-iteration solve against the plain APG solve
+    (``apg.make_apg``): control, u, x, v, y and the trace within 1e-3 *
+    max(|plain|, 1), or, where that fails, the float64 witness rule of
+    phase 3; a warm start likewise; two calls equal bit for bit; and on
+    the Barcelona problem the streaming kernels against the whole-solve
+    kernel within 1e-3 * max(|kernel|, 1), two independent kernels;
+17. 4-step closed loops through ``SmpcController(device="cuda")`` with
+    backends ``auto``, ``stream`` and ``torch``: ``auto`` routes to the
+    streaming kernels, each of the first two launches them once per
+    step and no other kernel, their controls are equal bit for bit and
+    within 1e-3 * max(|plain|, 1) of the plain loop's;
+18. timing: the median wall ms of 7 solves (inputs staged, synchronised
+    around each) and µs per iteration, the device µs per iteration of
+    K1, K2, the scalar phase and the tail (``torch.profiler``), the
+    plain version's time (``apg_stream_plain``), the peak device memory
+    above what was held, and the bound (``stream_bound``).
+
 Each phase prints its own line.  The last lines are the card's name and
 power limit, one JSON line describing each kernel (with its bound: the
 larger of its FP32 operations over 67 TFLOP/s and its bytes, each input
@@ -162,7 +189,19 @@ BATCH_REPEATS = 5     # bench.py:138-147
 PIPELINE_DEPTH, PIPELINE_ROUNDS = 4, 3     # bench.py:161-171
 FP32_FLOPS = 67e12    # H100 SXM, FP32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-KERNELS = ("apg_solve", "qn_solve")     # the sources under csrc/
+KERNELS = ("apg_solve", "qn_solve", "apg_stream")   # sources under csrc/
+REFERENCE_KERNELS = ("apg_solve", "qn_solve")   # the single solves that
+                                                # --reference-kernel holds
+BARCELONA_BRANCHING = (5, 5)        # bench.py:42-65: 556 nodes, ns 25
+CONFIG5_BRANCHING = (8, 8, 4, 4)    # BASELINE config 5 (bench_ladder.py:47):
+                                    # 20,809 nodes, ns 1024
+PASS_FACTOR = 1e-4    # one K1 or K2 pass against its plain half: the same
+                      # arithmetic in another order, one pass deep
+PASS_ITER = 20        # phase 15's state: this many plain iterations
+PASS_SHRINKS = (0.25, 0.5)   # phase 15's k1f, k2f: at these penalties
+                             # (thresholds ~2.9e8 and ~2.9e6) the solves
+                             # never shrink, so the pass is given shrinks
+STREAM_LOOP_STEPS = 4
 QN_ALGORITHMS = {"fbe": "globalFbeAlgorithm", "nama": "namaAlgorithm"}
 QN_TRACK_MAX = 30     # the short budget of phases 9a and 9c
 LOW_FILL = 0.1        # phase 9c's tanks, as a share of their maximum
@@ -185,8 +224,9 @@ class SmokeFailure(Exception):
     pass
 
 
-def check_close(name, got, ref):
-    """|got - ref|_max <= 1e-3 * max(|ref|_max, 1); returns the error."""
+def check_close(name, got, ref, factor=TOL_FACTOR):
+    """|got - ref|_max <= factor * max(|ref|_max, 1) (factor 1e-3 by
+    default); returns the error."""
     import torch
     got = got.detach().double().cpu()
     ref = ref.detach().double().cpu()
@@ -196,8 +236,8 @@ def check_close(name, got, ref):
     if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
         raise SmokeFailure(f"{name}: non-finite values")
     err = float((got - ref).abs().max()) if got.numel() else 0.0
-    bound = TOL_FACTOR * max(float(ref.abs().max()) if ref.numel() else 0.0,
-                             1.0)
+    bound = factor * max(float(ref.abs().max()) if ref.numel() else 0.0,
+                         1.0)
     print(f"[compare] {name:22s} max_abs_err {err:.6g}  bound {bound:.6g}")
     if not err <= bound:
         raise SmokeFailure(f"{name}: kernel and plain version disagree "
@@ -396,9 +436,12 @@ def qn_solve_bound(kq, step, out, algorithm, prefix_stages):
 def wrappers():
     """Each kernel wrapper, by the name its launches are counted under."""
     from rapidnet_tpu_torch.ops import apg_solve as K
+    from rapidnet_tpu_torch.ops import apg_stream as S
     from rapidnet_tpu_torch.ops import qn_solve as Q
     return {"apg_solve": K.apg_solve, "apg_solve_batch": K.apg_solve_batch,
-            "qn_solve": Q.qn_solve, "qn_solve_batch": Q.qn_solve_batch}
+            "qn_solve": Q.qn_solve, "qn_solve_batch": Q.qn_solve_batch,
+            "apg_stream": S.apg_stream, "apg_stream.k1": S.k1_call,
+            "apg_stream.k2": S.k2_call}
 
 
 def zero_counts():
@@ -963,8 +1006,10 @@ def as_f64(d):
             for k, v in d.items()}
 
 
-def build_problem(device):
-    """The port's copy of bench.py:42-65 (Barcelona-scale synthetic)."""
+def build_problem(device, branching=BARCELONA_BRANCHING):
+    """The port's copy of bench.py:42-65 (Barcelona-scale synthetic);
+    with ``branching=CONFIG5_BRANCHING`` the same network and horizon
+    over BASELINE config 5's tree (bench_ladder.py:47)."""
     import numpy as np
     from rapidnet_tpu_torch.convert import (factor_arrays, factor_tensors,
                                             shared_step_tensors,
@@ -979,7 +1024,8 @@ def build_problem(device):
 
     nx, nu, nd, ne = 63, 114, 88, 17
     net = synthetic_network(nx=nx, nu=nu, nd=nd, ne=ne, seed=42)
-    tree = generate_tree(N=24, branching=[5, 5], nd=nd, nu=nu, seed=42)
+    tree = generate_tree(N=24, branching=list(branching), nd=nd, nu=nu,
+                         seed=42)
     fc = synthetic_forecaster(N=24, nd=nd, nu=nu, sim_horizon=4, seed=42)
     cfg0 = synthetic_config(net, tree, max_iterations=MAX_ITER)
     cfg, eng = auto_tune(net, tree, cfg0, device=device)
@@ -1249,6 +1295,297 @@ def apg_phases(ref_libs, device, cfg, net, tree, fa, make_step, make_batch,
     return entries, apg_kpis
 
 
+def stream_bound(kc, step, out, iterations):
+    """The least time (ms) the card could take for one streaming solve
+    and what sets it.  Operations: per iteration the products of K1
+    (Bb t, L'(g wp), iW inner) and K2 (L v, B u) on every tree node (a
+    prefix node once, not once per slot of its subtree: the rep mask
+    counts the nodes), and the factored prefix aggregation (one add per
+    child node and feature, not a dense ns x ns product), over 67
+    TFLOP/s; elementwise work is left out.  Bytes: the inputs read once
+    (the rank-1 constants, the matrices, the index lists, the step) and
+    the outputs written once, over 3.35 TB/s.  Also the time to stream
+    the state of every node once per iteration as K1 and K2 must when it
+    does not fit on chip (K1 reads the pre-images, y, z and beta and
+    writes y', z' and v; K2 reads v, uhat, e, y' and z' and writes x, u
+    and the pre-images).  Returns (bound_ms, bound_by, flops, bytes,
+    streamed_ms, streamed_bytes)."""
+    from rapidnet_tpu_torch.ops import apg_stream as S
+    N, ns, nx, nu, nv = S._dims(kc)
+    nodes = int((kc["rep"] > 0).sum())
+    per_node = 2 * (nv * nx + nv * nu + nv * nv + nu * nv + nx * nu)
+    children = int(kc["agg_ptr"][-1]) if kc["agg_stages"] else 0
+    flops = iterations * (nodes * per_node + children * (nx + nv))
+    tensors = ([kc[k] for k in S.ROW_KEYS + S.MATRIX_KEYS + S.INDEX_KEYS]
+               + [step[k] for k in ("beta", "uhat", "e", "x0", "prev_u",
+                                    "prev_uhat")])
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + sum(
+        t.numel() * t.element_size() for t in
+        (out["x"], out["u"], out["v"], out["y"]["xi"], out["y"]["psi"],
+         out["primal_infeasibility"], out["control"]))
+    dual = 2 * nx + nu
+    streamed = iterations * nodes * 4 * ((3 * dual + nv) + (2 * dual + nv) +
+                                         (nv + nu + nx + 2 * dual) +
+                                         (nx + nu + dual))
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes,
+            streamed / HBM_BYTES_PER_S * 1e3, streamed)
+
+
+def close_or_witness(name, kern, plain, witness):
+    """``check_close`` at TOL_FACTOR; where that fails, the float64
+    witness rule of phase 3 decides (``witness()`` gives the float64
+    value).  Returns the error against the plain version."""
+    try:
+        return check_close(name, kern, plain)
+    except SmokeFailure as exc:
+        print(f"[stream] {name}: {exc}; the float64 witness decides")
+        witness_check(name, kern, plain, witness())
+        return float((kern.double() - plain.double()).abs().max())
+
+
+def kernel_times(run, n_it, names):
+    """Device µs per iteration of each kernel in ``names`` over one
+    ``run()``, by ``torch.profiler``; None where the trace holds no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    totals = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        dt = getattr(e, "device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "cuda_time_total", 0)
+        for n in names:
+            if f"{n}(" in e.key or e.key == n:
+                totals[n] += dt
+    if not any(totals.values()):
+        return None
+    return {n: t / n_it for n, t in totals.items()}
+
+
+def stream_phases(device, kc_b, step_b, hyper_b):
+    """Phases 15-18, the streaming APG kernels at BASELINE config 5 (and,
+    in 16, on the Barcelona problem's ``step_b`` against the whole-solve
+    kernel's constants ``kc_b``); returns their JSON entry."""
+    import numpy as np
+    import torch
+    from rapidnet_tpu_torch.engine.engine import XS_UPPER
+    from rapidnet_tpu_torch.ops import apg_solve as K
+    from rapidnet_tpu_torch.ops import apg_stream as S
+    from rapidnet_tpu_torch.solver import apg as apg_mod
+    from rapidnet_tpu_torch.solver.controller import SmpcController
+
+    # 15. config 5; one K1 and one K2 pass against their plain halves,
+    # from tanks above their box after PASS_ITER plain iterations
+    t0 = time.perf_counter()
+    cfg, eng, net, tree, fa, make_step, _ = build_problem(
+        device, CONFIG5_BRANCHING)
+    prefix = eng.factor_step().prefix_stages
+    hyper = dict(inv_step=1.0 / cfg.step_size, step_size=cfg.step_size,
+                 penalty_state=cfg.penalty_state,
+                 penalty_safety=cfg.penalty_safety,
+                 xs_upper=float(XS_UPPER), max_iterations=MAX_ITER)
+    kc = S.stream_constants(fa, prefix_stages=prefix,
+                            max_iterations=MAX_ITER)
+    print(f"[stream] 15: config 5: nodes {tree.n_nodes} scenarios "
+          f"{tree.ns} prefix stages {prefix}; K1 launches over stages "
+          f"{kc['ranges']}; step size {cfg.step_size:.6g} (built and "
+          f"tuned in {time.perf_counter() - t0:.3f} s)")
+    dims = dict(N=tree.N, ns=tree.ns, nx=net.nx, nu=net.nu,
+                nv=fa["invWbar"].shape[0])
+    if K.fits(**dims) or not S.stream_fits(**dims):
+        raise SmokeFailure("config 5 should be past the whole-solve "
+                           "kernel's limits and within the streaming "
+                           "kernels'")
+    c = hyper["inv_step"]
+    step_hot = make_step((1.2 * net.xmax).astype(np.float32))
+    ps = S.plain_iterations(kc, step_hot, iterations=PASS_ITER, **hyper)
+    lams = kc["lams"]
+    sc = (lams[PASS_ITER - 1], lams[PASS_ITER], 1.0) + PASS_SHRINKS
+    scal = dict(lam_prev=sc[0], lam_i=sc[1], upd=1.0, k1f=sc[3],
+                k2f=sc[4], c=c, xs_upper=hyper["xs_upper"])
+    print(f"[stream] 15: state after {PASS_ITER} plain iterations from "
+          f"tanks at 1.2 xmax: max |y.xi| "
+          f"{float(ps['y']['xi'].abs().max()):.6g}, max |y.psi| "
+          f"{float(ps['y']['psi'].abs().max()):.6g}, its shrinks "
+          f"{float(ps['k1f']):g}, {float(ps['k2f']):g}; the pass is given "
+          f"k1f {sc[3]}, k2f {sc[4]}")
+    yk, zk, vk, chk = S.k1_call(kc, step_hot, ps["pre"], ps["y"], ps["z"],
+                                sc, **hyper)
+    yp, zp, vp, chp = S.k1_plain(kc, step_hot["beta"], ps["pre"], ps["y"],
+                                 ps["z"], step=hyper["step_size"], **scal)
+    ratio = 0.0
+
+    def held(name, got, ref):
+        nonlocal ratio
+        err = check_close(name, got, ref, PASS_FACTOR)
+        ratio = max(ratio, err / max(float(ref.abs().max()), 1.0))
+
+    for k in ("xi", "psi"):
+        held(f"15.k1.y.{k}", yk[k], yp[k])
+        held(f"15.k1.z.{k}", zk[k], zp[k])
+    held("15.k1.v", vk, vp)
+    held("15.k1.champion", chk, chp)
+    pdu = step_hot["prev_u"] - step_hot["prev_uhat"]
+    xk, uk, prek, d1k, d2k = S.k2_call(kc, step_hot, vp, yp, zp, sc,
+                                       **hyper)
+    xp, up, prep, d1p, d2p = S.k2_plain(
+        kc, vp, step_hot["uhat"], step_hot["e"], step_hot["x0"], pdu, yp,
+        zp, lam_i=sc[1], c=c, xs_upper=hyper["xs_upper"])
+    held("15.k2.x", xk, xp)
+    held("15.k2.u", uk, up)
+    for k in ("xi", "psi"):
+        held(f"15.k2.pre.{k}", prek[k], prep[k])
+    held("15.k2.d1sq", d1k, d1p)
+    held("15.k2.d2sq", d2k, d2p)
+    print(f"[stream] 15: one K1 and one K2 pass hold their plain halves; "
+          f"largest deviation {ratio:.6g} x max(|plain|, 1) (bound "
+          f"{PASS_FACTOR:g})")
+    del ps, yk, zk, vk, yp, zp, vp, xk, uk, prek, xp, up, prep
+
+    # 16. the 500-iteration solve against the plain APG solve
+    step = make_step(cfg.current_x)
+    kern = S.apg_stream(kc, step, None, **hyper)
+    run_plain = apg_mod.make_apg(prefix_stages=prefix, **hyper)
+    plain = run_plain(fa, step)
+    f64 = {}
+
+    def witness():
+        if "out" not in f64:
+            f64["out"] = run_plain(as_f64(fa), as_f64(step))
+        return f64["out"]
+
+    errs = {}
+    for k in ("control", "u", "x", "v", "primal_infeasibility"):
+        errs[k] = close_or_witness(f"16.{k}", kern[k], plain[k],
+                                   lambda k=k: witness()[k])
+    for k in ("xi", "psi"):
+        close_or_witness(f"16.y.{k}", kern["y"][k], plain["y"][k],
+                         lambda k=k: witness()["y"][k])
+    if int(kern["iterations"]) != MAX_ITER:
+        raise SmokeFailure("the streaming solve ran "
+                           f"{int(kern['iterations'])} iterations")
+    y0 = plain["y"]
+    kern_w = S.apg_stream(kc, step, y0, **hyper)
+    plain_w = run_plain(fa, step, y0)
+    close_or_witness("16.warm.control", kern_w["control"],
+                     plain_w["control"],
+                     lambda: run_plain(as_f64(fa), as_f64(step),
+                                       as_f64(y0))["control"])
+    again = S.apg_stream(kc, step, None, **hyper)
+    same = outputs_equal(again, kern, ("x", "u", "v", "control",
+                                       "primal_infeasibility"))
+    print(f"[stream] 16: {MAX_ITER} iterations held to the plain solve; "
+          f"warm start held; two calls equal bit for bit: {same}")
+    if not same:
+        raise SmokeFailure("the streaming kernels do not repeat themselves")
+    del kern_w, plain_w, again, plain, f64
+    # two independent kernels on the Barcelona problem
+    fa_b = kc_b["fa"]
+    kc_sb = S.stream_constants(fa_b, prefix_stages=kc_b["prefix_stages"],
+                               max_iterations=MAX_ITER)
+    ks = S.apg_stream(kc_sb, step_b, None, **hyper_b)
+    kw = K.apg_solve(kc_b, step_b, None, **hyper_b)
+    for k in ("control", "u", "x", "primal_infeasibility"):
+        check_close(f"16.barcelona.{k}", ks[k], kw[k])
+    for k in ("xi", "psi"):
+        check_close(f"16.barcelona.y.{k}", ks["y"][k], kw["y"][k])
+    print("[stream] 16: on the Barcelona problem the streaming kernels "
+          "hold the whole-solve kernel")
+
+    # 17. the closed loops at config 5 (the main path)
+    def loop(backend):
+        ctrl = SmpcController(copy.deepcopy(cfg), network=net, tree=tree,
+                              forecaster=forecaster(net), backend=backend,
+                              device="cuda")
+        ctrl.initialise()
+        zero_counts()
+        t0 = time.perf_counter()
+        log = ctrl.closed_loop(STREAM_LOOP_STEPS)
+        loop_ms = (time.perf_counter() - t0) * 1e3 / STREAM_LOOP_STEPS
+        n = count_launches(f"17.{backend}", "apg_stream",
+                           0 if backend == "torch" else STREAM_LOOP_STEPS)
+        controls = np.array([log[f"control{t}"]
+                             for t in range(STREAM_LOOP_STEPS)])
+        kpis = {k: log[k] for k in KPI_KEYS}
+        ms = [log[f"time{t}"][0] for t in range(STREAM_LOOP_STEPS)]
+        print(f"[stream] 17.{backend}: route {ctrl.route}, "
+              f"{STREAM_LOOP_STEPS} steps, apg_stream launches {n}, solve "
+              f"ms per step {', '.join(f'{m:.3f}' for m in ms)}; whole "
+              f"step {loop_ms:.3f} ms; kpis {json.dumps(kpis)}")
+        if not (np.isfinite(controls).all() and
+                np.isfinite(list(kpis.values())).all()):
+            raise SmokeFailure(f"17.{backend}: non-finite controls or KPIs")
+        if "memoryLeakWarning" in log:
+            raise SmokeFailure(log["memoryLeakWarning"])
+        return ctrl.route, controls, n
+
+    route_a, auto, n_auto = loop("auto")
+    route_s, streamed, n_stream = loop("stream")
+    route_t, plain_c, _ = loop("torch")
+    if (route_a, route_s, route_t) != ("stream", "stream", "plain"):
+        raise SmokeFailure(f"17: routes {route_a}, {route_s}, {route_t}")
+    same = np.array_equal(auto, streamed)
+    print(f"[stream] 17: auto and stream controls equal bit for bit: "
+          f"{same}")
+    if not same:
+        raise SmokeFailure("17: auto and stream controls differ")
+    check_close("17.controls", torch.as_tensor(auto),
+                torch.as_tensor(plain_c))
+
+    # 18. timing, inputs staged on the device; the kernels by the
+    # profiler; the plain version; peak memory; the bound
+    staged = [make_step(x) for x in perturbed(
+        cfg.current_x, np.random.default_rng(7), REPEATS)]
+    times, enqueue = [], []
+    for st in staged:
+        ms, enq, out = timed(lambda: S.apg_stream(kc, st, None, **hyper))
+        times.append(ms)
+        enqueue.append(enq)
+        if not bool(torch.isfinite(out["control"]).all()):
+            raise SmokeFailure("18: non-finite control")
+    med = float(np.median(times))
+    per_kernel = kernel_times(lambda: S.apg_stream(kc, step, None, **hyper),
+                              MAX_ITER, ("k1_kernel", "k2_kernel",
+                                         "scalars_kernel", "tail_kernel"))
+    plain_ms = timed(lambda: S.apg_stream_plain(kc, step, None, **hyper))[0]
+    torch.cuda.synchronize()
+    held_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = S.apg_stream(kc, step, None, **hyper)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    bound = stream_bound(kc, step, out, MAX_ITER)
+    print(f"[timing] stream {MAX_ITER}-iteration solve at config 5: median "
+          f"{med:.3f} ms of {REPEATS} ({', '.join(f'{t:.3f}' for t in times)})"
+          f", {med * 1e3 / MAX_ITER:.3f} us per iteration; host enqueue "
+          f"{', '.join(f'{t:.3f}' for t in enqueue)} ms; plain version "
+          f"{plain_ms:.3f} ms")
+    if per_kernel is None:
+        print("[timing] stream kernels: the profiler trace holds no device "
+              "time (not measured)")
+    else:
+        print("[timing] stream kernels, device us per iteration: " +
+              ", ".join(f"{k} {v:.3f}" for k, v in per_kernel.items()))
+    print(f"[memory] stream solve: peak {peak / 2**20:.3f} MiB allocated, "
+          f"{(peak - held_bytes) / 2**20:.3f} MiB above the "
+          f"{held_bytes / 2**20:.3f} MiB held before it")
+    print(f"[bound] stream: {bound[2] / 1e9:.3f} GFLOP, {bound[3] / 1e6:.3f} "
+          f"MB: {bound[0]:.6f} ms, set by {bound[1]}; the state streamed "
+          f"once per iteration: {bound[5] / 1e9:.3f} GB, {bound[4]:.6f} ms")
+    return {"name": "apg_stream", "route": "cuda",
+            "source": "rapidnet_tpu_torch/csrc/apg_stream.cu",
+            "replaces": "rapidnet_tpu/ops/pallas_stream.py:251",
+            "launches": n_auto + n_stream, "max_abs_err": errs["u"],
+            "ms": med, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reference-kernel", default=None, metavar="DIR",
@@ -1278,7 +1615,7 @@ def main() -> int:
     t0 = time.perf_counter()
     jobs = {build.library_path(name): (name, None) for name in KERNELS}
     if args.reference_kernel:
-        for name in KERNELS:
+        for name in REFERENCE_KERNELS:
             src = Path(args.reference_kernel) / f"{name}.cu"
             jobs.setdefault(build.library_path(name, src), (name, src))
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -1288,7 +1625,7 @@ def main() -> int:
     if args.reference_kernel:
         ref_libs = {name: ctypes.CDLL(str(build.build(
             name, Path(args.reference_kernel) / f"{name}.cu")))
-            for name in KERNELS}
+            for name in REFERENCE_KERNELS}
     for name, so in libs.items():
         build.load(name)
         print(f"[build] {so.name} built and loaded")
@@ -1319,6 +1656,8 @@ def main() -> int:
     entries += qn_entries
     entries += qn_batch_phases(ref_libs, cfg, net, tree, fa, make_batch,
                                hyper, prefix, tols)
+    entries.append(stream_phases(device, kc, make_step(cfg.current_x),
+                                 hyper))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of one whole-solve kernel call goes, on one GPU.
+"""Where the time of one solve kernel call goes, on one GPU.
 
     python3 profile_solve.py [--algorithm apg|fbe|nama] [--iterations 500]
-                             [--batch B] [--out profile_out]
+                             [--batch B | --stream] [--out profile_out]
 
 Builds the Barcelona-scale problem of ``chip_smoke.py``, warms the
 algorithm's whole-solve kernel up (APG: ``csrc/apg_solve.cu``; FBE and
 NAMA: ``csrc/qn_solve.cu`` with the config's L-BFGS buffer of 5), then
 prints, for one solve or, with ``--batch B``, one batched call of B
 solves (states x0 * (1 + 0.02 N(0, 1)), numpy seed 7, assembled on the
-device from the shared base):
+device from the shared base), or, with ``--stream``, one APG solve of
+the streaming kernels (``csrc/apg_stream.cu``) at BASELINE config 5
+(the same widths over branching [8, 8, 4, 4]: 1024 scenarios):
 
 * the CUDA-event time of one call and the host's time to enqueue it;
 * per phase kernel, its launches and its device µs per iteration
@@ -60,9 +62,13 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=0,
                     help="trace one batched call of this many solves "
                          "(0: one single solve)")
+    ap.add_argument("--stream", action="store_true",
+                    help="the streaming APG kernels at BASELINE config 5")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
     algorithm = ALGORITHMS[args.algorithm]
+    if args.stream and (args.batch or algorithm is not None):
+        ap.error("--stream runs one APG solve")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -70,16 +76,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_solve: no CUDA GPU available", file=sys.stderr)
         return 1
-    from chip_smoke import build_problem
+    from chip_smoke import (BARCELONA_BRANCHING, CONFIG5_BRANCHING,
+                            build_problem)
     from rapidnet_tpu_torch.engine.engine import XS_UPPER
     from rapidnet_tpu_torch.ops import apg_solve as K
+    from rapidnet_tpu_torch.ops import apg_stream as S
     from rapidnet_tpu_torch.ops import qn_solve as Q
 
     n_it = args.iterations
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     device = torch.device("cuda", 0)
-    cfg, eng, net, tree, fa, make_step, make_batch = build_problem(device)
+    cfg, eng, net, tree, fa, make_step, make_batch = build_problem(
+        device, CONFIG5_BRANCHING if args.stream else BARCELONA_BRANCHING)
     hyper = dict(inv_step=1.0 / cfg.step_size, step_size=cfg.step_size,
                  penalty_state=cfg.penalty_state,
                  penalty_safety=cfg.penalty_safety,
@@ -93,7 +102,11 @@ def main() -> int:
             (args.batch, x0.size)))).astype(np.float32))
     else:
         step = make_step(cfg.current_x)
-    if algorithm is None:
+    if args.stream:
+        kc = S.stream_constants(fa, prefix_stages=prefix,
+                                max_iterations=n_it)
+        run, kw = S.apg_stream, hyper
+    elif algorithm is None:
         kc = K.kernel_constants(fa, prefix_stages=prefix,
                                 max_iterations=n_it)
         run = K.apg_solve_batch if args.batch else K.apg_solve
@@ -112,7 +125,8 @@ def main() -> int:
     torch.cuda.synchronize()
 
     summary = {"algorithm": args.algorithm, "iterations": n_it,
-               "batch": args.batch, "solves": []}
+               "batch": args.batch, "stream": args.stream,
+               "scenarios": tree.ns, "solves": []}
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     for _ in range(3):
@@ -150,9 +164,25 @@ def main() -> int:
         print(f"[phase] {p['kernel']:34s} launches {p['launches']:6d}  "
               f"{p['us_per_iteration']:8.3f} us per iteration")
 
+    device_events = [e for e in prof.events()
+                     if str(getattr(e, "device_type", "")).endswith("CUDA")]
     intervals = [(e.time_range.start, e.time_range.end)
-                 for e in prof.events()
-                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+                 for e in device_events]
+    if args.stream:
+        # K1's launches of an iteration in order: one per range of stages
+        k1 = sorted((e.time_range.start, e.time_range.end)
+                    for e in device_events if "k1_kernel" in e.name)
+        n_r = len(kc["ranges"])
+        if len(k1) == n_it * n_r:
+            ranges = []
+            for r, (hi, lo, gather) in enumerate(kc["ranges"]):
+                us = sum(e - s for s, e in k1[r::n_r]) / n_it
+                ranges.append({"stages": [hi, lo], "gather": gather,
+                               "us_per_iteration": us})
+                print(f"[k1] launch {r}: stages {hi}..{lo}, handoff read "
+                      f"{gather}: {us:.3f} us per iteration, "
+                      f"{us / (hi - lo + 1):.3f} us per stage")
+            summary["k1_launches"] = ranges
     if intervals:
         busy, span = busy_span(intervals)
         summary.update(device_busy_ms=busy / 1e3, device_span_ms=span / 1e3,

@@ -4,10 +4,13 @@ The port of ``rapidnet_tpu`` (JAX) to PyTorch and CUDA for one NVIDIA
 H100.  The host layer (``model``, ``engine``, ``io``) is a NumPy copy of
 the JAX package's, because importing any ``rapidnet_tpu`` module imports
 JAX; tensors begin at the factor-array boundary (``convert``).  The
-solver is plain PyTorch (``solver``), and the whole APG solve runs as a
-CUDA kernel written for Hopper (``ops/apg_solve.py``,
-``csrc/apg_solve.cu``), built with nvcc on first use; the same kernel
-runs B independent solves in one call for ``BatchedSmpcController``.
+solver is plain PyTorch (``solver``), and three CUDA kernels written for
+Hopper, built with nvcc on first use, run the solves on the card: the
+whole APG solve (``ops/apg_solve.py``, ``csrc/apg_solve.cu``), the whole
+FBE/NAMA solve (``ops/qn_solve.py``, ``csrc/qn_solve.cu``), each also
+running B independent solves in one call for ``BatchedSmpcController``,
+and the streaming APG iteration for trees past the whole-solve kernels'
+shared-memory limits (``ops/apg_stream.py``, ``csrc/apg_stream.cu``).
 
 This package imports torch and never jax.
 """
@@ -16,6 +19,7 @@ __version__ = "0.1.0"
 
 from rapidnet_tpu_torch.model.network import DwnNetwork
 from rapidnet_tpu_torch.model.scenario_tree import ScenarioTree
+from rapidnet_tpu_torch.model.forecaster import Forecaster
 from rapidnet_tpu_torch.model.config import SmpcConfig
 from rapidnet_tpu_torch.engine.engine import Engine
 from rapidnet_tpu_torch.solver.controller import SmpcController
@@ -24,6 +28,7 @@ from rapidnet_tpu_torch.solver.batch import BatchedSmpcController
 __all__ = [
     "DwnNetwork",
     "ScenarioTree",
+    "Forecaster",
     "SmpcConfig",
     "Engine",
     "SmpcController",

@@ -39,10 +39,17 @@ def main(argv=None):
                    help="torch device of the solve (default cuda; "
                         "raises when no GPU is present)")
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "cuda", "torch"],
-                   help="auto/cuda: the algorithm's whole-solve CUDA "
-                        "kernel (its plain version on the CPU); torch: "
-                        "the plain PyTorch solve")
+                   choices=["auto", "cuda", "stream", "torch"],
+                   help="auto: on a GPU the whole-solve CUDA kernel when "
+                        "the tree fits it, else the streaming kernels "
+                        "(APG, fixed budget), else the plain solve; cuda: "
+                        "the whole-solve kernel; stream: the streaming "
+                        "APG kernels; torch: the plain PyTorch solve (the "
+                        "kernels' plain versions run on the CPU)")
+    p.add_argument("--stream-precision", default=None,
+                   choices=["highest"],
+                   help="the streaming kernels' products: highest (full "
+                        "float32, the only precision measured so far)")
     p.add_argument("--tolerance", type=float, default=None,
                    help="terminate each solve when the residual "
                         "magnitude drops below this (default: fixed "
@@ -52,7 +59,8 @@ def main(argv=None):
     from rapidnet_tpu_torch.solver.controller import SmpcController
 
     ctrl = SmpcController(args.config, backend=args.backend,
-                          device=args.device, tolerance=args.tolerance)
+                          device=args.device, tolerance=args.tolerance,
+                          stream_precision=args.stream_precision)
     if args.no_price_uncertainty:
         ctrl.engine.price_uncertainty = False
     if args.no_demand_uncertainty:

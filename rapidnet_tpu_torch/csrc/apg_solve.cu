@@ -53,7 +53,8 @@
 // matrices, Cs and lams are read by every instance from one buffer, and
 // uhat and e may be too (batch stride 0, the shared-forecast batch).
 // The single solve is B = 1 of the same source, compiled without the
-// per-instance offsets (BATCHED = false).  Per instance, the state,
+// per-instance offsets (BATCHED = false); the batched entry keeps them
+// at every B, B = 1 included.  Per instance, the state,
 // scratch and step inputs are ~1,570 floats per row, ~3.8 MB at
 // Barcelona scale, beside ~1.7 MB of shared constants: at B = 32 the
 // working set is ~120 MB, above the 50 MB L2, so the batch streams its
@@ -541,6 +542,18 @@ __global__ void finish_iteration_kernel(Args pb, int it) {
   if (p.tol_mode && !(fmaxf(xabs, pabs) > p.tol)) p.status[0] = 1;
 }
 
+// Dynamic shared memory (bytes) of the three sweep phases: the launch's
+// and, through apg_solve_smem, the routing gate's one formula.
+struct SweepSmem {
+  size_t tail, prefix, fwd;
+};
+SweepSmem sweep_smem(int N, int ns, int nx, int nu, int nv) {
+  const size_t RS = (size_t)(N + ROW_GROUP - 1) / ROW_GROUP * ROW_GROUP;
+  return {sizeof(float) * (size_t)(nu + nx + nv) * RS,
+          sizeof(float) * 2 * (size_t)(nx + nv) * ns,
+          sizeof(float) * (size_t)(2 * nv + nu + nx) * RS};
+}
+
 cudaError_t set_smem(const void* kernel, size_t bytes, int max_optin) {
   if (bytes > (size_t)max_optin) return cudaErrorInvalidValue;
   if (bytes > 48 * 1024)
@@ -554,9 +567,9 @@ cudaError_t set_smem(const void* kernel, size_t bytes, int max_optin) {
 template <bool BATCHED>
 cudaError_t run_iterations(const Args& p, cudaStream_t st) {
   const int ns = p.ns, nx = p.nx, nu = p.nu, nv = p.nv, B = p.B;
-  const size_t smem_tail = sizeof(float) * (size_t)(nu + nx + nv) * p.RS;
-  const size_t smem_prefix = sizeof(float) * 2 * (size_t)(nx + nv) * ns;
-  const size_t smem_fwd = sizeof(float) * (size_t)(2 * nv + nu + nx) * p.RS;
+  const SweepSmem sm = sweep_smem(p.N, ns, nx, nu, nv);
+  const size_t smem_tail = sm.tail, smem_prefix = sm.prefix,
+               smem_fwd = sm.fwd;
   int dev = 0, max_optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -594,16 +607,10 @@ cudaError_t run_iterations(const Args& p, cudaStream_t st) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// Runs max_it iterations of B independent solves on `stream` without
-// synchronising.  Every per-instance array carries a leading batch axis
-// (contiguous instances); uhat and e may instead be one array read by
-// every instance (batch stride 0).  The caller fills y_xi/y_psi and
-// yp_xi/yp_psi with the warm start, zeroes x, u, `trace` (B, max_it)
-// and `status` (B, 2), and reads x, u, y, trace and status[:, 1] after
-// the stream has run.  Returns a cudaError_t (0 on success).
-extern "C" int apg_solve_batch(
+// The solve of apg_solve_batch below, compiled with the per-instance
+// offsets (BATCHED = true) or without them (the single solve, B = 1).
+template <bool BATCHED>
+int solve(
     const float* d1, const float* d2, const float* g, const float* nhp,
     const float* rep, const float* xmin, const float* xmax, const float* xs,
     const float* umin, const float* umax, const float* L, const float* BbT,
@@ -634,13 +641,43 @@ extern "C" int apg_solve_batch(
   p.w_xi = w_xi; p.w_psi = w_psi; p.t = t; p.a = a; p.df_xi = df_xi;
   p.df_psi = df_psi; p.x = x; p.u = u; p.norm_part = norm_part;
   p.champ_part = champ_part; p.trace = trace; p.status = status;
-
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return B == 1 ? run_iterations<false>(p, st) : run_iterations<true>(p, st);
+  return run_iterations<BATCHED>(p, static_cast<cudaStream_t>(stream));
 }
 
-// The single solve: B = 1 of the batched solve, with the argument list
-// the single-solve wrapper has always called.
+}  // namespace
+
+// Runs max_it iterations of B independent solves on `stream` without
+// synchronising.  Every per-instance array carries a leading batch axis
+// (contiguous instances); uhat and e may instead be one array read by
+// every instance (batch stride 0).  The caller fills y_xi/y_psi and
+// yp_xi/yp_psi with the warm start, zeroes x, u, `trace` (B, max_it)
+// and `status` (B, 2), and reads x, u, y, trace and status[:, 1] after
+// the stream has run.  Returns a cudaError_t (0 on success).
+extern "C" int apg_solve_batch(
+    const float* d1, const float* d2, const float* g, const float* nhp,
+    const float* rep, const float* xmin, const float* xmax, const float* xs,
+    const float* umin, const float* umax, const float* L, const float* BbT,
+    const float* iWT, const float* LT, const float* BT, const float* Cs,
+    const float* lams, const float* beta, const float* uhat, const float* e,
+    const float* x0, const float* pdu, float* y_xi, float* y_psi,
+    float* yp_xi, float* yp_psi, float* w_xi, float* w_psi, float* t,
+    float* a, float* df_xi, float* df_psi, float* x, float* u,
+    float* norm_part, float* champ_part, float* trace, int* status, int B,
+    long long uhat_bs, long long e_bs, int N, int ns, int nx, int nu,
+    int nv, int fp, int max_it, float c, float step, float t1c, float t2c,
+    float xs_upper, int tol_mode, float tol, void* stream) {
+  return solve<true>(
+      d1, d2, g, nhp, rep, xmin, xmax, xs, umin, umax, L, BbT, iWT, LT, BT,
+      Cs, lams, beta, uhat, e, x0, pdu, y_xi, y_psi, yp_xi, yp_psi, w_xi,
+      w_psi, t, a, df_xi, df_psi, x, u, norm_part, champ_part, trace,
+      status, B, uhat_bs, e_bs, N, ns, nx, nu, nv, fp, max_it, c, step, t1c,
+      t2c, xs_upper, tol_mode, tol, stream);
+}
+
+// The single solve: B = 1 of the batched solve compiled without the
+// per-instance offsets, with the argument list the single-solve wrapper
+// has always called.  The batched entry keeps them at B = 1 too, so a
+// batch of one holds the batched compilation to this one.
 extern "C" int apg_solve(
     const float* d1, const float* d2, const float* g, const float* nhp,
     const float* rep, const float* xmin, const float* xmax, const float* xs,
@@ -654,12 +691,20 @@ extern "C" int apg_solve(
     int ns, int nx, int nu, int nv, int fp, int max_it, float c, float step,
     float t1c, float t2c, float xs_upper, int tol_mode, float tol,
     void* stream) {
-  return apg_solve_batch(
+  return solve<false>(
       d1, d2, g, nhp, rep, xmin, xmax, xs, umin, umax, L, BbT, iWT, LT, BT,
       Cs, lams, beta, uhat, e, x0, pdu, y_xi, y_psi, yp_xi, yp_psi, w_xi,
       w_psi, t, a, df_xi, df_psi, x, u, norm_part, champ_part, trace,
       status, 1, 0, 0, N, ns, nx, nu, nv, fp, max_it, c, step, t1c, t2c,
       xs_upper, tol_mode, tol, stream);
+}
+
+// The most dynamic shared memory (bytes) a launch at these sizes asks
+// for; ops/apg_solve.py holds its routing formula to this.
+extern "C" long long apg_solve_smem(int N, int ns, int nx, int nu, int nv) {
+  const SweepSmem sm = sweep_smem(N, ns, nx, nu, nv);
+  size_t m = sm.tail > sm.prefix ? sm.tail : sm.prefix;
+  return (long long)(m > sm.fwd ? m : sm.fwd);
 }
 
 extern "C" const char* apg_solve_error_string(int err) {

@@ -1033,6 +1033,20 @@ cudaError_t launch(void (*kernel)(KArgs...), dim3 blocks, int threads,
   return cudaGetLastError();
 }
 
+// Dynamic shared memory (bytes) of the sweeps and of the residual-and-
+// value phase: the launch's and, through qn_solve_smem, the routing
+// gate's one formula.
+struct SolveSmem {
+  size_t tail, prefix, fwd, res;
+};
+SolveSmem solve_smem(int N, int ns, int nx, int nu, int nv) {
+  const size_t RS = (size_t)(N + ROW_GROUP - 1) / ROW_GROUP * ROW_GROUP;
+  return {sizeof(float) * (size_t)(nu + nx + nv) * RS,
+          sizeof(float) * 2 * (size_t)(nx + nv) * ns,
+          sizeof(float) * (size_t)(2 * nv + nu + nx) * RS,
+          sizeof(float) * (size_t)nu * RS};
+}
+
 struct Plan {
   size_t smem_tail, smem_prefix, smem_fwd, smem_res;
   dim3 slots;               // (ns, B): one block per slot and instance
@@ -1144,10 +1158,11 @@ cudaError_t run_solve(const Args& p, cudaStream_t st, int max_it,
                       bool is_fbe) {
   const int ns = p.ns, nx = p.nx, nu = p.nu, nv = p.nv;
   Plan pl;
-  pl.smem_tail = sizeof(float) * (size_t)(nu + nx + nv) * p.RS;
-  pl.smem_prefix = sizeof(float) * 2 * (size_t)(nx + nv) * ns;
-  pl.smem_fwd = sizeof(float) * (size_t)(2 * nv + nu + nx) * p.RS;
-  pl.smem_res = sizeof(float) * (size_t)nu * p.RS;
+  const SolveSmem sm = solve_smem(p.N, ns, nx, nu, nv);
+  pl.smem_tail = sm.tail;
+  pl.smem_prefix = sm.prefix;
+  pl.smem_fwd = sm.fwd;
+  pl.smem_res = sm.res;
   pl.slots = dim3(ns, p.B);
   pl.scalar_threads = p.B < 32 ? p.B : 32;
   pl.scalar_blocks = (p.B + pl.scalar_threads - 1) / pl.scalar_threads;
@@ -1310,6 +1325,15 @@ extern "C" int qn_solve_launches_per_iteration(int is_fbe, int bs, int fp) {
   const int sweep = fp > 0 ? 3 : 2;
   return sweep + 1 + (is_fbe ? sweep : 0) + 1 + 1 + 1 + 2 * bs +
          (is_fbe ? sweep : 2 * sweep + 1) + 1 + 3 * (LS_MAX_STEPS + 1) + 2;
+}
+
+// The most dynamic shared memory (bytes) a launch at these sizes asks
+// for; ops/qn_solve.py holds its routing formula to this.
+extern "C" long long qn_solve_smem(int N, int ns, int nx, int nu, int nv) {
+  const SolveSmem sm = solve_smem(N, ns, nx, nu, nv);
+  size_t m = sm.tail > sm.prefix ? sm.tail : sm.prefix;
+  m = m > sm.fwd ? m : sm.fwd;
+  return (long long)(m > sm.res ? m : sm.res);
 }
 
 extern "C" const char* qn_solve_error_string(int err) {

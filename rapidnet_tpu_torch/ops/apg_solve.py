@@ -26,8 +26,10 @@ dual pair keeps the XLA path's unpadded layout ``{"xi": (N, ns, 2nx),
 The kernel keeps one slot's stage rows, and the branching prefix's
 slot rows, in a block's shared memory (at most 227 KB): at the
 Barcelona-scale widths that admits N <= 152 stages and ns <= 181
-scenarios.  A larger tree's launch is refused and the wrapper raises;
-such trees are the streaming kernel's (ROADMAP queue 2, #2).
+scenarios.  ``fits`` says whether a tree is within those limits, by the
+formulas of the launch; a larger tree's launch is refused and the
+wrapper raises.  The controllers' ``auto`` sends such trees to the
+streaming kernels (``ops/apg_stream.py``).
 """
 
 from __future__ import annotations
@@ -44,9 +46,34 @@ ROW_KEYS = ("d1", "d2", "g", "nhp", "rep", "xmin", "xmax", "xs", "umin",
             "umax")
 MATRIX_KEYS = ("L", "BbT", "iWT", "LT", "BT", "Cs", "lams")
 STEP_KEYS = ("beta", "uhat", "e", "x0", "pdu")
+ROW_GROUP = 8        # stage rows per thread in a product (csrc/apg_solve.cu)
 STATE_KEYS = ("y_xi", "y_psi", "yp_xi", "yp_psi", "w_xi", "w_psi", "t",
               "a", "df_xi", "df_psi", "x", "u", "norm_part", "champ_part",
               "trace", "status")
+
+
+def sweep_smem(N: int, ns: int, nx: int, nu: int, nv: int) -> dict:
+    """Shared memory (bytes) of the sweep phases at these sizes, as the
+    launch computes it (``run_iterations`` in csrc/apg_solve.cu, the
+    same sweeps in csrc/qn_solve.cu)."""
+    RS = -(-N // ROW_GROUP) * ROW_GROUP
+    return {"tail": 4 * (nu + nx + nv) * RS,
+            "prefix": 4 * 2 * (nx + nv) * ns,
+            "forward": 4 * (2 * nv + nu + nx) * RS}
+
+
+def smem(N: int, ns: int, nx: int, nu: int, nv: int) -> int:
+    """The most shared memory (bytes) a launch at these sizes asks for
+    (``apg_solve_smem`` in the source, checked at every launch)."""
+    return max(sweep_smem(N, ns, nx, nu, nv).values())
+
+
+def fits(N: int, ns: int, nx: int, nu: int, nv: int,
+         smem_limit: int | None = None) -> bool:
+    """Whether the whole-solve APG kernel takes a tree of these sizes:
+    every phase's shared memory within ``smem_limit`` (default: the
+    current CUDA device's opt-in limit per block)."""
+    return smem(N, ns, nx, nu, nv) <= build.smem_optin(smem_limit)
 
 
 def sweep_constants(fa: dict, *, prefix_stages: tuple) -> dict:
@@ -193,7 +220,7 @@ def apg_solve(kc, step, y0=None, *, inv_step, step_size, penalty_state,
         return apg_solve_plain(kc, step, y0, **hyper)
     if dev.type != "cuda":
         raise ValueError(f"apg_solve runs on cpu or cuda, not {dev.type}")
-    lib = build.load("apg_solve")
+    lib = _load(kc)
     # the C host function launches on the current device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -230,7 +257,7 @@ def apg_solve_batch(kc, steps, y0=None, *, inv_step, step_size,
     if dev.type != "cuda":
         raise ValueError(f"apg_solve_batch runs on cpu or cuda, not "
                          f"{dev.type}")
-    lib = build.load("apg_solve")
+    lib = _load(kc)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         apg_solve_batch.launches += 1
@@ -242,6 +269,16 @@ def apg_solve_batch(kc, steps, y0=None, *, inv_step, step_size,
 
 
 apg_solve_batch.launches = 0
+
+
+def _load(kc) -> ctypes.CDLL:
+    """``csrc/apg_solve.cu``, built and loaded, with the shared memory its
+    launch asks for at these constants' sizes held to ``smem``."""
+    fa = kc["fa"]
+    dims = (*fa["d1"].shape, fa["g"].shape[-1], fa["invWbar"].shape[0])
+    lib = build.load("apg_solve")
+    build.check_smem(lib, "apg_solve", dims, smem(*dims))
+    return lib
 
 
 def _entry(lib, batched: bool):

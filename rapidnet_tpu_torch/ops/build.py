@@ -73,6 +73,32 @@ def build(name: str, source=None) -> Path:
     return so
 
 
+def smem_optin(smem_limit: int | None = None) -> int:
+    """``smem_limit``, or the current CUDA device's opt-in shared memory
+    per block (232,448 bytes on an H100): the most a launch may ask
+    for."""
+    if smem_limit is not None:
+        return int(smem_limit)
+    import torch
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).shared_memory_per_block_optin
+
+
+def check_smem(lib: ctypes.CDLL, name: str, dims: tuple, need: int) -> None:
+    """Raise when ``csrc/<name>.cu`` asks for other shared memory at
+    ``dims`` (N, ns, nx, nu, nv) than ``need``, the routing gate's
+    formula in ``ops/<name>.py``: one formula, held to the launch's own
+    (``<name>_smem`` in the source) at every launch."""
+    fn = getattr(lib, f"{name}_smem")
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    got = fn(*dims)
+    if got != need:
+        raise RuntimeError(f"csrc/{name}.cu asks for {got} bytes of shared "
+                           f"memory at {dims}; ops/{name}.py's gate "
+                           f"computes {need}")
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""

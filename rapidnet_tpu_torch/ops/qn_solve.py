@@ -34,9 +34,9 @@ output; the TPU kernel's padded ``{"xi1", "xi2", "psi"}`` is not ported.
 
 The kernel's sweeps are those of ``csrc/apg_solve.cu``, with the same
 shared-memory limits on the tree (N <= 152 stages, ns <= 181 scenarios
-at the Barcelona-scale widths); a larger tree's launch is refused and
-the wrapper raises.  The history is float32 (the TPU kernel's bf16
-``lbfgs_dtype`` is not on this path).
+at the Barcelona-scale widths; ``fits``); a larger tree's launch is
+refused and the wrapper raises.  The history is float32 (the TPU
+kernel's bf16 ``lbfgs_dtype`` is not on this path).
 """
 
 from __future__ import annotations
@@ -62,6 +62,23 @@ STATE_KEYS = ("y", "yp", "yvp", "w", "rs", "yv", "dd", "wd", "df", "x", "u",
               "tr_tau", "st")
 N_INT_SCALARS = 10      # the int scalars of csrc/qn_solve.cu (I_COUNT)
 N_FLOAT_SCALARS = 4     # the float scalars before rho and alpha (S_RHO)
+
+
+def fits(N: int, ns: int, nx: int, nu: int, nv: int,
+         smem_limit: int | None = None) -> bool:
+    """Whether the whole-solve FBE/NAMA kernel takes a tree of these
+    sizes: the sweeps' shared memory (``apg_solve.sweep_smem``) and the
+    residual-and-value phase's (nu stage rows) within ``smem_limit``
+    (default: the current CUDA device's opt-in limit per block), the
+    formulas of ``run_solve`` in csrc/qn_solve.cu."""
+    return smem(N, ns, nx, nu, nv) <= build.smem_optin(smem_limit)
+
+
+def smem(N: int, ns: int, nx: int, nu: int, nv: int) -> int:
+    """The most shared memory (bytes) a launch at these sizes asks for
+    (``qn_solve_smem`` in the source, checked at every launch)."""
+    RS = -(-N // apg_k.ROW_GROUP) * apg_k.ROW_GROUP
+    return max(apg_k.smem(N, ns, nx, nu, nv), 4 * nu * RS)
 
 
 def kernel_constants(fa: dict, *, prefix_stages: tuple) -> dict:
@@ -188,7 +205,7 @@ def qn_solve(kc, step, y0=None, *, algorithm, inv_step, step_size,
         return qn_solve_plain(kc, step, y0, **hyper)
     if dev.type != "cuda":
         raise ValueError(f"qn_solve runs on cpu or cuda, not {dev.type}")
-    lib = build.load("qn_solve")
+    lib = _load(kc)
     # the C host function launches on the current device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -224,7 +241,7 @@ def qn_solve_batch(kc, steps, y0=None, *, algorithm, inv_step, step_size,
     if dev.type != "cuda":
         raise ValueError(f"qn_solve_batch runs on cpu or cuda, not "
                          f"{dev.type}")
-    lib = build.load("qn_solve")
+    lib = _load(kc)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         qn_solve_batch.launches += 1
@@ -236,6 +253,16 @@ def qn_solve_batch(kc, steps, y0=None, *, algorithm, inv_step, step_size,
 
 
 qn_solve_batch.launches = 0
+
+
+def _load(kc) -> ctypes.CDLL:
+    """``csrc/qn_solve.cu``, built and loaded, with the shared memory its
+    launch asks for at these constants' sizes held to ``smem``."""
+    fa = kc["fa"]
+    dims = (*fa["d1"].shape, fa["g"].shape[-1], fa["invWbar"].shape[0])
+    lib = build.load("qn_solve")
+    build.check_smem(lib, "qn_solve", dims, smem(*dims))
+    return lib
 
 
 def _entry(lib, batched: bool):

@@ -18,10 +18,16 @@ FBE and NAMA (``config.algorithm``; FBE and NAMA with the config's
   wrapper (``ops/apg_solve.apg_solve_batch`` for APG,
   ``ops/qn_solve.qn_solve_batch`` for FBE and NAMA), which launches the
   CUDA kernel on a CUDA device, with or without a tolerance, and runs
-  its plain version on the CPU;
-* ``'cuda'``: the same, and raises unless ``device`` is a CUDA device;
+  its plain version on the CPU; on a CUDA device, a tree past the
+  kernel's limits (``fits``) runs the plain batched solve, as the JAX
+  package keeps its XLA path there (``rapidnet_tpu/solver/batch.py:163-184``);
+* ``'cuda'``: the batched kernel wrapper, and raises unless ``device``
+  is a CUDA device;
 * ``'torch'``: the plain batched PyTorch solve (``solver/apg.py``,
   ``solver/quasi_newton.py``) on any device.
+
+``'stream'`` is refused, as the JAX package's batched controller refuses
+it: the streaming kernels run one solve.
 
 The built-in simulator advances each instance as ``SmpcController``
 does, so an instance of a batch with its own forecaster runs the single
@@ -53,7 +59,7 @@ from rapidnet_tpu_torch.ops import apg_solve, qn_solve
 from rapidnet_tpu_torch.solver import apg as apg_mod
 from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
 from rapidnet_tpu_torch.solver.controller import (ALGORITHMS, BACKENDS,
-                                                  resolve_device)
+                                                  resolve_device, tree_dims)
 
 
 class BatchedSmpcController:
@@ -77,9 +83,10 @@ class BatchedSmpcController:
         """device: where the solves run ('cuda' by default; raises when
         no GPU is present).  mesh is the JAX controller's multi-device
         option, not ported yet."""
-        if backend not in BACKENDS:
+        backends = tuple(b for b in BACKENDS if b != "stream")
+        if backend not in backends:
             raise ValueError(f"unknown backend '{backend}' "
-                             f"(expected one of {BACKENDS})")
+                             f"(expected one of {backends})")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-GPU solves are not ported yet (ROADMAP queue 1, "
@@ -154,7 +161,11 @@ class BatchedSmpcController:
                      else qn_mod.make_solver_batch)
             kernel = (qn_solve.make_qn_kernel_batch_shared if shared
                       else qn_solve.make_qn_kernel_batch)
-        if self.backend == "torch":
+        fits = apg_solve.fits if cfg.algorithm == ALGORITHM_APG \
+            else qn_solve.fits
+        past_limits = (self.backend == "auto" and self.device.type == "cuda"
+                       and not fits(**tree_dims(self._fa)))
+        if self.backend == "torch" or past_limits:
             run, fa = plain(**kw), self._fa
             self._solver = lambda *args: run(fa, *args)
         else:

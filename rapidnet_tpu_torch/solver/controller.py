@@ -14,11 +14,19 @@ The three algorithms of the reference run on one device: APG, global
 FBE and NAMA (``config.algorithm``; FBE and NAMA with the config's
 ``lbfgs_buffer_size``).  ``backend``:
 
-* ``'auto'`` (default): the whole-solve kernel wrapper of the algorithm
-  (ops/apg_solve.py for APG, ops/qn_solve.py for FBE and NAMA), which
-  launches the CUDA kernel on a CUDA device and runs its plain version
-  on the CPU;
-* ``'cuda'``: the same, and raises unless ``device`` is a CUDA device;
+* ``'auto'`` (default): on a CUDA device, the solve ``auto_route``
+  picks from the tree's sizes: the algorithm's whole-solve kernel
+  (ops/apg_solve.py for APG, ops/qn_solve.py for FBE and NAMA) when the
+  tree fits it; past its limits, for APG with no tolerance, the
+  streaming kernels (ops/apg_stream.py) when they take the tree; else
+  the plain PyTorch solve, as the JAX package keeps its XLA path there
+  (``rapidnet_tpu/solver/controller.py:348-411``).  On the CPU, the
+  whole-solve kernel wrapper, which runs its plain version there;
+* ``'cuda'``: the whole-solve kernel wrapper, and raises unless
+  ``device`` is a CUDA device;
+* ``'stream'``: APG through the streaming kernels (their plain version
+  on the CPU); raises with a tolerance, as the JAX package does, and
+  for FBE and NAMA, whose streaming solve is not ported yet;
 * ``'torch'``: the plain PyTorch solve (solver/apg.py,
   solver/quasi_newton.py) on any device.
 
@@ -49,12 +57,37 @@ from rapidnet_tpu_torch.model.config import (ALGORITHM_APG, ALGORITHM_FBE,
 from rapidnet_tpu_torch.model.forecaster import Forecaster, JsonForecaster
 from rapidnet_tpu_torch.model.network import DwnNetwork
 from rapidnet_tpu_torch.model.scenario_tree import ScenarioTree
-from rapidnet_tpu_torch.ops import apg_solve, qn_solve
+from rapidnet_tpu_torch.ops import apg_solve, apg_stream, qn_solve
 from rapidnet_tpu_torch.solver import apg as apg_mod
 from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
 
-BACKENDS = ("auto", "cuda", "torch")
+BACKENDS = ("auto", "cuda", "stream", "torch")
 ALGORITHMS = (ALGORITHM_APG, ALGORITHM_FBE, ALGORITHM_NAMA)
+STREAM_PRECISIONS = (None, "highest")
+
+
+def auto_route(algorithm: str, *, tolerance, N: int, ns: int, nx: int,
+               nu: int, nv: int, smem_limit: int | None = None) -> str:
+    """The solve ``backend='auto'`` runs on a CUDA device, from the
+    tree's sizes: 'kernel' (the whole-solve kernel) when the tree fits
+    it; else 'stream' for APG with no tolerance when the streaming
+    kernels take the tree; else 'plain'.  ``smem_limit``: the card's
+    opt-in shared memory per block (default: the current device's)."""
+    dims = (N, ns, nx, nu, nv)
+    whole = apg_solve.fits if algorithm == ALGORITHM_APG else qn_solve.fits
+    if whole(*dims, smem_limit=smem_limit):
+        return "kernel"
+    if (algorithm == ALGORITHM_APG and tolerance is None and
+            apg_stream.stream_fits(*dims, smem_limit=smem_limit)):
+        return "stream"
+    return "plain"
+
+
+def tree_dims(fa: dict) -> dict:
+    """N, ns, nx, nu and nv of a factor dict, for ``auto_route``."""
+    N, ns, nx = fa["d1"].shape
+    return dict(N=N, ns=ns, nx=nx, nu=fa["g"].shape[-1],
+                nv=fa["invWbar"].shape[0])
 
 
 def resolve_device(device) -> torch.device:
@@ -80,8 +113,11 @@ class SmpcController:
                  stream_precision: Optional[str] = None,
                  stream_lbfgs_dtype: Optional[str] = None):
         """device: where the solve runs ('cuda' by default; raises when
-        no GPU is present).  mesh and stream_* are the JAX controller's
-        multi-device and streaming options, not ported yet."""
+        no GPU is present).  stream_precision: the streaming kernels'
+        products, None or 'highest' (full float32; no reduced-precision
+        knob is measured yet).  mesh and stream_lbfgs_dtype are the JAX
+        controller's multi-device and streaming FBE/NAMA options, not
+        ported yet."""
         if isinstance(config, str):
             config = SmpcConfig.from_json(config)
         if backend not in BACKENDS:
@@ -91,17 +127,30 @@ class SmpcController:
             raise NotImplementedError(
                 "multi-GPU solves are not ported yet (ROADMAP queue 1, "
                 "item 12)")
-        if stream_precision is not None or stream_lbfgs_dtype is not None:
+        if stream_precision not in STREAM_PRECISIONS:
+            raise ValueError(
+                f"stream_precision must be None or 'highest' (the "
+                f"streaming kernels' products run in full float32), got "
+                f"'{stream_precision}'")
+        if stream_lbfgs_dtype is not None:
             raise NotImplementedError(
-                "the streaming kernels are not ported yet (ROADMAP "
-                "queue 1, item 7)")
+                "the streaming FBE/NAMA solve is not ported yet (ROADMAP "
+                "queue 1, item 10)")
         if config.algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm '{config.algorithm}'")
+        if backend == "stream":
+            if tolerance is not None:
+                raise ValueError(apg_stream.TOLERANCE_MESSAGE)
+            if config.algorithm != ALGORITHM_APG:
+                raise NotImplementedError(
+                    "backend='stream' runs APG; the streaming FBE/NAMA "
+                    "solve is not ported yet (ROADMAP queue 1, item 10)")
         self.device = resolve_device(device)
         if backend == "cuda" and self.device.type != "cuda":
             raise ValueError(
                 f"backend='cuda' needs a CUDA device, got '{device}'")
         self.backend = backend
+        self.route = None        # the solve initialise() picked
         self.warm_start = warm_start
         self.tolerance = tolerance
         self._y_carry = None
@@ -149,12 +198,41 @@ class SmpcController:
                       lbfgs_buffer_size=int(cfg.lbfgs_buffer_size))
             make_plain = qn_mod.make_solver
             make_kernel = qn_solve.make_qn_kernel
-        if self.backend == "torch":
+        route, consts = self._route(kw)
+        self.route = route
+        if route == "plain":
             run = make_plain(**kw)
             fa = self._fa
             self._solver = lambda step, y0: run(fa, step, y0)
+        elif route == "stream":
+            self._solver = apg_stream.make_apg_stream_kernel(
+                self._fa, consts=consts, **kw)
         else:
             self._solver = make_kernel(self._fa, **kw)
+
+    def _route(self, kw: dict):
+        """'kernel', 'stream' or 'plain', and the streaming constants
+        when the gate built them.  ``auto`` on a CUDA device follows
+        ``auto_route``; a tree the rank-1 or 0/1 pack refuses goes to
+        the plain solve, as the JAX package's does
+        (``controller.py:381-390``), with the refusal kept in
+        ``route_reason``."""
+        self.route_reason = None
+        if self.backend in ("torch", "stream"):
+            return ("plain" if self.backend == "torch" else "stream"), None
+        if self.backend == "cuda" or self.device.type != "cuda":
+            return "kernel", None
+        route = auto_route(self.config.algorithm, tolerance=self.tolerance,
+                           **tree_dims(self._fa))
+        if route != "stream":
+            return route, None
+        try:
+            return route, apg_stream.stream_constants(
+                self._fa, prefix_stages=kw["prefix_stages"],
+                max_iterations=kw["max_iterations"])
+        except apg_stream.NotStreamable as exc:
+            self.route_reason = str(exc)
+            return "plain", None
 
     # ------------------------------------------------------------------
     def prepare_step(self, sim_time: int) -> dict:

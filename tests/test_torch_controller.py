@@ -241,7 +241,8 @@ def test_device_and_backend_requests_raise():
 
 
 def test_unported_options_raise():
-    """Multi-GPU solves and streaming raise; single-device FBE
+    """Multi-GPU solves, the streaming FBE/NAMA history option and a
+    stream precision that is not measured raise; single-device FBE
     controllers, one instance or a batch, build, and an unknown
     algorithm raises."""
     from rapidnet_tpu_torch import BatchedSmpcController, SmpcController
@@ -260,5 +261,7 @@ def test_unported_options_raise():
         SmpcController(bad, **kw)
     with pytest.raises(NotImplementedError, match="item 12"):
         SmpcController(cfg, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="stream_precision"):
         SmpcController(cfg, stream_precision="default", **kw)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        SmpcController(cfg, stream_lbfgs_dtype="bfloat16", **kw)

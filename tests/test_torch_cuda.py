@@ -1,5 +1,5 @@
-"""The whole-solve CUDA kernels, APG single and batched, FBE and NAMA
-single and batched, on the card.
+"""The CUDA kernels on the card: the whole-solve kernels, APG single and
+batched, FBE and NAMA single and batched, and the streaming APG kernels.
 
 These tests need a CUDA GPU and skip without one.  They import neither
 jax nor the JAX package, because the card's machine has no JAX; since
@@ -582,3 +582,198 @@ def test_qn_batched_controller_launches_the_kernel(cuda_device, algorithm):
     b = ref["controls"]
     np.testing.assert_allclose(got["controls"], b, rtol=1e-3,
                                atol=1e-4 * max(np.abs(b).max(), 1.0))
+
+
+# ---------------------------------------------------------------------------
+# The streaming APG kernels (csrc/apg_stream.cu).  One K1 or K2 pass and a
+# 25-iteration solve on the branchy tree of tests/test_pallas_stream.py
+# (three prefix aggregations) are held to their plain halves within 1e-4
+# of the largest magnitude, as the whole-solve kernel is; repeats are bit
+# for bit (the reductions run in a fixed order).
+
+STREAM_SHRINKS = (0.25, 0.5)   # given to the single passes: the solves at
+                               # these penalties never shrink
+
+
+def _stream_problem(device, x0_scale=1.2, branching=(3, 2, 2), N=8,
+                    widths=(4, 7, 3, 2), max_iterations=ITERS):
+    from rapidnet_tpu_torch.convert import (factor_arrays, factor_tensors,
+                                            step_arrays, step_tensors)
+    from rapidnet_tpu_torch.engine.engine import XS_UPPER, Engine
+    from rapidnet_tpu_torch.model.config import synthetic_config
+    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
+    from rapidnet_tpu_torch.model.network import synthetic_network
+    from rapidnet_tpu_torch.model.scenario_tree import generate_tree
+
+    nx, nu, nd, ne = widths
+    net = synthetic_network(nx=nx, nu=nu, nd=nd, ne=ne, seed=11)
+    tree = generate_tree(N=N, branching=list(branching), nd=nd, nu=nu,
+                         seed=11)
+    fc = synthetic_forecaster(N=N, nd=nd, nu=nu, sim_horizon=4, seed=11)
+    cfg = synthetic_config(net, tree, max_iterations=max_iterations,
+                           step_size=1e-3)
+    cfg.current_x = (x0_scale * net.xmax).astype(np.float32)
+    eng = Engine(net, tree, cfg)
+    fc.predict_demand(0)
+    fc.predict_prices(0)
+    fa = factor_tensors(factor_arrays(eng), device)
+    step = step_tensors(step_arrays(eng.prepare_step(
+        fc.nominal_demand, fc.nominal_prices, cfg.current_x, cfg.prev_u,
+        cfg.prev_demand)), device)
+    kw = dict(inv_step=1.0 / cfg.step_size, step_size=cfg.step_size,
+              penalty_state=cfg.penalty_state,
+              penalty_safety=cfg.penalty_safety,
+              xs_upper=float(XS_UPPER), max_iterations=max_iterations)
+    return fa, eng.factor_step().prefix_stages, step, kw
+
+
+@pytest.mark.cuda
+def test_stream_single_passes_match_plain_halves(cuda_device):
+    from rapidnet_tpu_torch.ops import apg_stream as S
+
+    fa, prefix, step, kw = _stream_problem(cuda_device)
+    kc = S.stream_constants(fa, prefix_stages=prefix, max_iterations=ITERS)
+    st = S.plain_iterations(kc, step, iterations=5, **kw)
+    sc = (kc["lams"][4], kc["lams"][5], 1.0) + STREAM_SHRINKS
+    scal = dict(lam_prev=sc[0], lam_i=sc[1], upd=1.0, k1f=sc[3], k2f=sc[4],
+                c=kw["inv_step"], xs_upper=kw["xs_upper"])
+    n0 = S.k1_call.launches
+    yk, zk, vk, chk = S.k1_call(kc, step, st["pre"], st["y"], st["z"], sc,
+                                **kw)
+    assert S.k1_call.launches == n0 + 1
+    yp, zp, vp, chp = S.k1_plain(kc, step["beta"], st["pre"], st["y"],
+                                 st["z"], step=kw["step_size"], **scal)
+    for k in ("xi", "psi"):
+        _close(yk[k], yp[k])
+        _close(zk[k], zp[k])
+    _close(vk, vp)
+    _close(chk, chp)
+    pdu = step["prev_u"] - step["prev_uhat"]
+    got = S.k2_call(kc, step, vp, yp, zp, sc, **kw)
+    ref = S.k2_plain(kc, vp, step["uhat"], step["e"], step["x0"], pdu, yp,
+                     zp, lam_i=sc[1], c=kw["inv_step"],
+                     xs_upper=kw["xs_upper"])
+    for g, r in zip(got[:2] + (got[2]["xi"], got[2]["psi"]) + got[3:],
+                    ref[:2] + (ref[2]["xi"], ref[2]["psi"]) + ref[3:]):
+        _close(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branching,N", [((3, 2, 2), 8), ((3, 3, 3), 6),
+                                         ((16, 16), 4)])
+def test_stream_solve_matches_plain(cuda_device, branching, N):
+    """Trees whose slots fill the last tile of 8 or not, with one to
+    three prefix aggregations; cold and warm-started."""
+    from rapidnet_tpu_torch.ops import apg_stream as S
+
+    fa, prefix, step, kw = _stream_problem(cuda_device, branching=branching,
+                                           N=N)
+    kc = S.stream_constants(fa, prefix_stages=prefix, max_iterations=ITERS)
+    n0 = S.apg_stream.launches
+    got = S.apg_stream(kc, step, None, **kw)
+    assert S.apg_stream.launches == n0 + 1
+    ref = S.apg_stream_plain(kc, step, None, **kw)
+    for k in ("control", "u", "x", "v", "primal_infeasibility"):
+        _close(got[k], ref[k])
+    for k in ("xi", "psi"):
+        _close(got["y"][k], ref["y"][k])
+    warm = S.apg_stream(kc, step, ref["y"], **kw)
+    _close(warm["u"], S.apg_stream_plain(kc, step, ref["y"], **kw)["u"])
+
+
+@pytest.mark.cuda
+def test_stream_repeats_bit_for_bit(cuda_device):
+    from rapidnet_tpu_torch.ops import apg_stream as S
+
+    fa, prefix, step, kw = _stream_problem(cuda_device)
+    kc = S.stream_constants(fa, prefix_stages=prefix, max_iterations=ITERS)
+    a = S.apg_stream(kc, step, None, **kw)
+    b = S.apg_stream(kc, step, None, **kw)
+    for k in ("control", "u", "x", "v", "primal_infeasibility"):
+        assert torch.equal(a[k], b[k]), k
+    for k in ("xi", "psi"):
+        assert torch.equal(a["y"][k], b["y"][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns", [181, 182])
+def test_fits_agrees_with_the_launch(cuda_device, ns):
+    """At the Barcelona-scale widths the whole-solve kernels take ns 181
+    and refuse ns 182 at the launch, as ``fits`` says; the streaming
+    kernels take both."""
+    from rapidnet_tpu_torch.ops import apg_solve as K
+    from rapidnet_tpu_torch.ops import apg_stream as S
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    fa, prefix, step, kw = _stream_problem(
+        cuda_device, x0_scale=0.3, branching=(ns,), N=4,
+        widths=(63, 114, 88, 17), max_iterations=2)
+    dims = (4, ns, 63, 114, 97)
+    kc = K.kernel_constants(fa, prefix_stages=prefix, max_iterations=2)
+    kq = Q.kernel_constants(fa, prefix_stages=prefix)
+    runs = {K.fits: lambda: K.apg_solve(kc, step, None, **kw),
+            Q.fits: lambda: Q.qn_solve(kq, step, None, lbfgs_buffer_size=5,
+                                       algorithm="namaAlgorithm", **kw)}
+    for fits, run in runs.items():
+        assert fits(*dims) == (ns <= 181)
+        if fits(*dims):
+            assert bool(torch.isfinite(run()["u"]).all())
+        else:
+            with pytest.raises(RuntimeError, match="kernel failed"):
+                run()
+    assert S.stream_fits(*dims)
+    ks = S.stream_constants(fa, prefix_stages=prefix, max_iterations=2)
+    _close(S.apg_stream(ks, step, None, **kw)["u"],
+           S.apg_stream_plain(ks, step, None, **kw)["u"])
+
+
+@pytest.mark.cuda
+def test_smem_formulas_match_the_sources(cuda_device):
+    """Each gate's shared-memory formula equals its source's, at the
+    Barcelona-scale and BASELINE config 5 sizes and at a tiny tree."""
+    from rapidnet_tpu_torch.ops import apg_solve, apg_stream, build, qn_solve
+
+    shapes = [(24, 25, 63, 114, 97), (24, 181, 63, 114, 97),
+              (24, 1024, 63, 114, 97), (153, 25, 63, 114, 97),
+              (8, 12, 4, 7, 5)]
+    for name, mod in (("apg_solve", apg_solve), ("qn_solve", qn_solve),
+                      ("apg_stream", apg_stream)):
+        lib = build.load(name)
+        for dims in shapes:
+            build.check_smem(lib, name, dims, mod.smem(*dims))
+
+
+@pytest.mark.cuda
+def test_auto_streams_a_tree_past_the_whole_solve_kernel(cuda_device):
+    """SmpcController(device='cuda') with backend 'auto' on a tree of
+    182 scenarios at the Barcelona-scale widths: one streaming launch per
+    step, no whole-solve launch, and the controls of 'stream' bit for
+    bit and of 'torch' within bound."""
+    from rapidnet_tpu_torch import SmpcController
+    from rapidnet_tpu_torch.model.config import synthetic_config
+    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
+    from rapidnet_tpu_torch.model.network import synthetic_network
+    from rapidnet_tpu_torch.model.scenario_tree import generate_tree
+    from rapidnet_tpu_torch.ops import apg_solve as K
+    from rapidnet_tpu_torch.ops import apg_stream as S
+
+    def run(backend):
+        net = synthetic_network(nx=63, nu=114, nd=88, ne=17, seed=7)
+        tree = generate_tree(N=4, branching=[182], nd=88, nu=114, seed=7)
+        fc = synthetic_forecaster(N=4, nd=88, nu=114, sim_horizon=3, seed=7)
+        cfg = synthetic_config(net, tree, max_iterations=20,
+                               step_size=1e-3)
+        ctrl = SmpcController(cfg, network=net, tree=tree, forecaster=fc,
+                              backend=backend)
+        return ctrl, ctrl.closed_loop(3)
+
+    n0, k0 = S.apg_stream.launches, K.apg_solve.launches
+    ctrl, auto = run("auto")
+    assert ctrl.route == "stream"
+    assert S.apg_stream.launches == n0 + 3 and K.apg_solve.launches == k0
+    _, stream = run("stream")
+    _, plain = run("torch")
+    for t in range(3):
+        assert auto[f"control{t}"] == stream[f"control{t}"]
+        _close(torch.tensor(auto[f"control{t}"]),
+               torch.tensor(plain[f"control{t}"]))
