@@ -37,7 +37,8 @@ x0 * (1 + 0.02 N(0, 1)) (numpy seed 7, as bench.py:133-136):
 6c. holds the batched entry at B = 1 (compiled with the per-instance
     offsets) to the single solve (compiled without them), bit for bit;
     with ``--reference-kernel DIR`` (the ``csrc`` directory of an earlier
-    checkout) also the single solve to that source's kernel;
+    checkout) also the single solve to that source's kernel (and, in 12a
+    and 16, the FBE, NAMA and streaming APG solves to its kernels);
 7.  runs 3-step batched closed loops through
     ``BatchedSmpcController(device="cuda")`` with a shared forecaster,
     cold and warm-started: one kernel call per step, finite controls and
@@ -121,10 +122,11 @@ at B = 32, the states of phase 6, buffer 5, for each algorithm:
 14.  timing: batch-32 solves/s (median of 5 calls, inputs staged,
      synchronised around each), the host's enqueue ms, the launches per
      iteration, the peak device memory above what was held before, the
-     plain batch's time on instances 0-3 of the last call at 500
-     iterations (its JSON entry says how many instances: all 32 would
-     take minutes) and the bound (the instances' operations, each with
-     its own trial count, against the bytes).
+     plain batch's time on instances 0-3 of the last call over
+     QN_TRACK_MAX iterations (its JSON entry says how many instances and
+     iterations: all 32 at 500 would take many minutes) and the bound
+     (the instances' operations, each with its own trial count, against
+     the bytes).
 
 Then the streaming APG kernels (``csrc/apg_stream.cu``) at BASELINE
 config 5 (bench_ladder.py:47: the same widths and horizon over branching
@@ -151,6 +153,41 @@ iterations), a tree past the whole-solve kernels' limits:
     K1, K2, the scalar phase and the tail (``torch.profiler``), the
     plain version's time (``apg_stream_plain``), the peak device memory
     above what was held, and the bound (``stream_bound``).
+
+Then the streaming FBE/NAMA path (``solver/qn_stream.py`` over the sweeps
+of ``csrc/stream_qn.cu`` and the history passes of ``csrc/lbfgs.cu``) at
+config 5, L-BFGS buffer 5, 500 iterations:
+
+19. one S1 and one S2 pass in each variant (solve step, Hessian oracle)
+    from the duals of phase 15's stressed state, within PASS_FACTOR *
+    max(|plain|, 1) of ``s1_plain`` / ``s2_plain``; one dots and one
+    combine pass over a full history (seeded, column 0 zero) in float32
+    and in bfloat16 storage, the dots within 1e-5 of the rep-weighted sum
+    of the products' magnitudes, combine within 1e-6 * max(|plain|, 1);
+20. per algorithm: TRACK (as 9a) between the kernels' solve and the
+    plain QN solve (``quasi_newton.make_solver``), at least the JAX
+    package's strict horizon (3 FBE, 2 NAMA); the 500-iteration solve
+    with no host sync (``torch.cuda.set_sync_debug_mode('error')``), its
+    residual tail within 10 times the plain version's, the control
+    within the physical bounds, two calls equal bit for bit; a warm
+    start from the plain solve's duals held as 9a; the bf16 history's
+    control within 1e-1 * max(|f32|, 1) of the float32 one (the
+    deviation printed); and on the Barcelona problem TRACK between the
+    streaming solve and the whole-solve QN kernel;
+21. per algorithm, 4-step loops through ``SmpcController(device="cuda")``
+    with backends ``auto`` (it must route to the streaming solve),
+    ``stream`` and ``stream`` with ``stream_lbfgs_dtype="bfloat16"``: the
+    S1, S2, dots and combine wrapper calls of every solve and no other
+    kernel, finite controls and KPIs, ``auto`` and ``stream`` equal bit
+    for bit; then a 2-step loop through ``torch`` (the plain solve), FBE,
+    its gap to the streaming loop printed;
+22. timing per algorithm and history storage: the median wall ms of 7
+    solves (inputs staged), the host's enqueue ms, the peak device memory
+    above what was held, the device µs per iteration of S1, S2, the dots,
+    combine and the PyTorch glue with the idle share
+    (``torch.profiler``, a PROFILE_ITER-iteration solve), the bound; and
+    each kernel's ms per call at the main path's shapes beside its plain
+    version's and its bound.
 
 Each phase prints its own line.  The last lines are the card's name and
 power limit, one JSON line describing each kernel (with its bound: the
@@ -189,9 +226,10 @@ BATCH_REPEATS = 5     # bench.py:138-147
 PIPELINE_DEPTH, PIPELINE_ROUNDS = 4, 3     # bench.py:161-171
 FP32_FLOPS = 67e12    # H100 SXM, FP32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-KERNELS = ("apg_solve", "qn_solve", "apg_stream")   # sources under csrc/
-REFERENCE_KERNELS = ("apg_solve", "qn_solve")   # the single solves that
-                                                # --reference-kernel holds
+KERNELS = ("apg_solve", "qn_solve", "apg_stream", "stream_qn",
+           "lbfgs")                         # sources under csrc/
+REFERENCE_KERNELS = ("apg_solve", "qn_solve", "apg_stream")   # the solves
+                                            # --reference-kernel holds
 BARCELONA_BRANCHING = (5, 5)        # bench.py:42-65: 556 nodes, ns 25
 CONFIG5_BRANCHING = (8, 8, 4, 4)    # BASELINE config 5 (bench_ladder.py:47):
                                     # 20,809 nodes, ns 1024
@@ -212,6 +250,11 @@ QN_TRACES = ("tau", "value_fbe", "primal_infeasibility")
 QN_U_FACTOR = 2e-3    # u within 2e-3 * max(|u|, 1): the JAX package's bound
                       # on its full-size problem (tests/test_pallas_qn.py:131)
 QN_LOOP_STEPS = 4
+QN_SHORT = {"fbe": 3, "nama": 2}   # the JAX package's strict horizons between
+                                   # its streaming and XLA QN solves
+                                   # (tests/test_qn_stream.py:47-84)
+PLAIN_LOOP_STEPS = 2  # phase 21's plain FBE loop at config 5
+PROFILE_ITER = 50     # phase 22's profiled solves
 PLAIN_INSTANCES = 4   # phase 12b-c: the instances held to the plain batch
 BATCH_LOOP_STEPS = 3
 APG_KEYS = ("control", "u", "x", "primal_infeasibility", "y.xi", "y.psi")
@@ -437,11 +480,15 @@ def wrappers():
     """Each kernel wrapper, by the name its launches are counted under."""
     from rapidnet_tpu_torch.ops import apg_solve as K
     from rapidnet_tpu_torch.ops import apg_stream as S
+    from rapidnet_tpu_torch.ops import lbfgs as LB
     from rapidnet_tpu_torch.ops import qn_solve as Q
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
     return {"apg_solve": K.apg_solve, "apg_solve_batch": K.apg_solve_batch,
             "qn_solve": Q.qn_solve, "qn_solve_batch": Q.qn_solve_batch,
             "apg_stream": S.apg_stream, "apg_stream.k1": S.k1_call,
-            "apg_stream.k2": S.k2_call}
+            "apg_stream.k2": S.k2_call, "stream_qn.s1": SQ.s1_call,
+            "stream_qn.s2": SQ.s2_call, "lbfgs.dots": LB.dots,
+            "lbfgs.combine": LB.combine}
 
 
 def zero_counts():
@@ -966,14 +1013,15 @@ def qn_batch_phases(ref_libs, cfg, net, tree, fa, make_batch, hyper, prefix,
                                "differs from the single closed loop")
 
         # 14. timing, inputs staged on the device; the plain batch on the
-        # first P instances of the last call (all 32 would take minutes)
+        # first P instances of the last call over QN_TRACK_MAX iterations
+        # (all 32 at 500 would take many minutes; 4 at 500, ~45 s)
         med, steps_r, out = batch_timing(
             short, kern_b, lambda: make_batch(perturbed(x0, rng)))
         per_it = Q.launches_per_iteration(algorithm, bs, kq["fp"])
-        plain_ms = timed(lambda: plain_b(steps_r))[0]
+        plain_ms = timed(lambda: plain_b(steps_r, QN_TRACK_MAX))[0]
         print(f"[timing] {short}: {per_it} launches per iteration after the "
               f"first, whatever B; plain batch of instances 0-{P - 1}, "
-              f"{MAX_ITER} iterations: {plain_ms:.3f} ms "
+              f"{QN_TRACK_MAX} iterations: {plain_ms:.3f} ms "
               f"({plain_ms / P:.3f} ms per instance)")
         bound = qn_solve_bound(kq, steps_r, out, algorithm, prefix)
         print(f"[bound] {short} batched: {bound[2] / 1e9:.3f} GFLOP, "
@@ -986,6 +1034,7 @@ def qn_batch_phases(ref_libs, cfg, net, tree, fa, make_batch, hyper, prefix,
              "replaces": "rapidnet_tpu/ops/pallas_qn.py:686",
              "launches": loop_launches, "max_abs_err": err_u, "ms": med,
              "plain_ms": plain_ms, "plain_instances": P,
+             "plain_iterations": QN_TRACK_MAX,
              "bound_ms": bound[0], "bound_by": bound[1],
              "library_ms": None})
     return entries
@@ -1368,10 +1417,13 @@ def kernel_times(run, n_it, names):
     return {n: t / n_it for n, t in totals.items()}
 
 
-def stream_phases(device, kc_b, step_b, hyper_b):
+def stream_phases(ref_libs, device, kc_b, step_b, hyper_b):
     """Phases 15-18, the streaming APG kernels at BASELINE config 5 (and,
     in 16, on the Barcelona problem's ``step_b`` against the whole-solve
-    kernel's constants ``kc_b``); returns their JSON entry."""
+    kernel's constants ``kc_b``); ``ref_libs``: the kernels of an earlier
+    checkout's sources, or None.  Returns their JSON entry and the
+    config-5 problem (cfg, net, tree, fa, make_step, the streaming
+    constants, the prefix stages, the solver's keywords)."""
     import numpy as np
     import torch
     from rapidnet_tpu_torch.engine.engine import XS_UPPER
@@ -1484,6 +1536,22 @@ def stream_phases(device, kc_b, step_b, hyper_b):
           f"warm start held; two calls equal bit for bit: {same}")
     if not same:
         raise SmokeFailure("the streaming kernels do not repeat themselves")
+    if ref_libs:
+        from rapidnet_tpu_torch.ops import build
+        load = build.load
+        build.load = lambda name: (ref_libs[name] if name == "apg_stream"
+                                   else load(name))
+        try:
+            ref = S.apg_stream(kc, step, None, **hyper)
+        finally:
+            build.load = load
+        same = outputs_equal(ref, kern, ("x", "u", "v", "control",
+                                         "primal_infeasibility"))
+        print(f"[stream] 16: the streaming solve equals the reference "
+              f"kernels (apg_stream.cu of --reference-kernel) bit for bit: "
+              f"{same}")
+        if not same:
+            raise SmokeFailure("the streaming APG solve changed")
     del kern_w, plain_w, again, plain, f64
     # two independent kernels on the Barcelona problem
     fa_b = kc_b["fa"]
@@ -1578,20 +1646,559 @@ def stream_phases(device, kc_b, step_b, hyper_b):
     print(f"[bound] stream: {bound[2] / 1e9:.3f} GFLOP, {bound[3] / 1e6:.3f} "
           f"MB: {bound[0]:.6f} ms, set by {bound[1]}; the state streamed "
           f"once per iteration: {bound[5] / 1e9:.3f} GB, {bound[4]:.6f} ms")
-    return {"name": "apg_stream", "route": "cuda",
-            "source": "rapidnet_tpu_torch/csrc/apg_stream.cu",
-            "replaces": "rapidnet_tpu/ops/pallas_stream.py:251",
-            "launches": n_auto + n_stream, "max_abs_err": errs["u"],
-            "ms": med, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": None}
+    entry = {"name": "apg_stream", "route": "cuda",
+             "source": "rapidnet_tpu_torch/csrc/apg_stream.cu",
+             "replaces": "rapidnet_tpu/ops/pallas_stream.py:251",
+             "launches": n_auto + n_stream, "max_abs_err": errs["u"],
+             "ms": med, "plain_ms": plain_ms, "bound_ms": bound[0],
+             "bound_by": bound[1], "library_ms": None}
+    return entry, (cfg, net, tree, fa, make_step, kc, prefix, hyper)
+
+
+def busy_span(intervals):
+    """(busy, span) in the units of the (start, end) intervals: the time
+    covered by at least one interval, and the first start to the last
+    end."""
+    intervals = sorted(intervals)
+    busy, span = 0, intervals[-1][1] - intervals[0][0]
+    cur_s, cur_e = intervals[0]
+    for s, e in intervals[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + cur_e - cur_s, span
+
+
+def stream_qn_counts(algorithm, iterations, solves=1):
+    """The wrapper calls of ``solves`` streaming FBE/NAMA solves of
+    ``iterations`` iterations on the card: the first iteration runs the
+    solve step's sweep pair (and FBE's gradient oracle), every later one
+    three sweep pairs, one dots and one combine pass; the third is
+    captured once and replayed for the rest (``qn_stream.replayed``), so
+    each wrapper is called for the first three."""
+    first = 2 if algorithm == QN_ALGORITHMS["fbe"] else 1
+    called = min(iterations, 3)
+    pairs = solves * (first + 3 * (called - 1))
+    passes = solves * (called - 1)
+    return {"stream_qn.s1": pairs, "stream_qn.s2": pairs,
+            "lbfgs.dots": passes, "lbfgs.combine": passes}
+
+
+def check_counts(tag, want):
+    """The launches counted since ``zero_counts()``: each wrapper of
+    ``want`` launched as many times as it says and every other wrapper
+    none.  Returns the counts of ``want``'s wrappers."""
+    counts = {k: fn.launches for k, fn in wrappers().items()}
+    got = {k: counts.pop(k) for k in want}
+    if got != want or any(counts.values()):
+        raise SmokeFailure(f"{tag}: launches {got}, expected {want}; the "
+                           f"other kernels' {counts}")
+    return got
+
+
+def event_ms(fn, reps):
+    """Device ms per call of fn(), by CUDA events over ``reps`` calls
+    after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(reps):
+        fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / reps
+
+
+STREAM_QN_PARTS = {"s1_kernel": "S1", "s2_kernel": "S2",
+                   "dots_kernel": "dots", "dots_finish_kernel": "dots",
+                   "combine_kernel": "combine"}
+
+
+def stream_qn_part(kernel_name):
+    """The part of the streaming FBE/NAMA solve a device kernel belongs
+    to: S1, S2, dots, combine, or the glue (PyTorch's own kernels)."""
+    import re
+    m = re.search(r"(\w+_kernel)[<(]", kernel_name)
+    return STREAM_QN_PARTS.get(m.group(1) if m else "", "glue")
+
+
+def stream_qn_profile(run, n_it):
+    """One ``run()`` of ``n_it`` iterations under ``torch.profiler``:
+    device µs per iteration of S1, S2, the dots (both of its kernels),
+    combine and the glue (every other device kernel), the device's busy
+    ms over the span of the run and the idle share; None where the trace
+    holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not events:
+        return None
+    per = dict.fromkeys(("S1", "S2", "dots", "combine", "glue"), 0.0)
+    for e in events:
+        per[stream_qn_part(e.name)] += e.time_range.end - e.time_range.start
+    busy, span = busy_span([(e.time_range.start, e.time_range.end)
+                            for e in events])
+    out = {k: v / n_it for k, v in per.items()}
+    out.update(busy_ms=busy / 1e3, span_ms=span / 1e3,
+               idle_share=1.0 - busy / span)
+    return out
+
+
+def bound_of(flops, nbytes):
+    """(ms, what sets it): the larger of the FP32 operations over 67
+    TFLOP/s and the bytes over 3.35 TB/s."""
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def stream_qn_work(kc):
+    """The products of one S1 and one S2 pass on every tree node (a
+    prefix node once: the rep mask counts the nodes) and of the prefix
+    handoffs, and the bytes each variant moves (inputs read once, outputs
+    written once): {"S1": (flops, bytes solve step, bytes oracle), "S2":
+    ...}."""
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+    N, ns, nx, nu, nv = SQ.dims(kc)
+    D = 2 * nx + nu
+    rows, nodes = N * ns, int((kc["rep"] > 0).sum())
+    children = int(kc["agg_ptr"][-1]) if kc["agg_stages"] else 0
+    consts = sum(kc[k].numel() * 4 for k in
+                 ("cx1", "cx2", "cu", "L", "BbT", "iWT", "LT", "BT"))
+    s1_f = nodes * 2 * (nv * nx + nv * nu + nv * nv) + children * (nx + nv)
+    s1_b = consts + 4 * rows * (2 + D + nv)           # sq, nhp, w in; v out
+    s2_f = nodes * 2 * (nu * nv + nx * nu)
+    s2_b = consts + 4 * rows * (1 + nv + nx + nu + D)  # sq, v in; x u pr out
+    return {"S1": (s1_f, s1_b + 4 * rows * nv, s1_b),
+            "S2": (s2_f, s2_b + 4 * rows * (nu + nx) + 4 * (nx + nu), s2_b)}
+
+
+def history_work(E, rows, M, size, dots):
+    """(flops, bytes) of one history pass over E values a column, M
+    columns a history, ``size`` bytes a stored value: the dots read both
+    histories, s, yv, g and rep and write 6 M + 6 floats, 2 (6 M + 6)
+    operations a value; combine reads both histories and g and writes the
+    direction, 2 (2 M + 1) operations a value."""
+    if dots:
+        return (2 * (6 * M + 6) * E,
+                (2 * M + 2) * E * size + 4 * E + 4 * rows + 4 * (6 * M + 6))
+    return 2 * (2 * M + 1) * E, 2 * M * E * size + 8 * E + 4 * (2 * M + 1)
+
+
+def stream_qn_phases(device, problem, kq_b, kc_b, step_b, hyper_b):
+    """Phases 19-22, the streaming FBE/NAMA path at BASELINE config 5
+    (``problem``, phase 15's), and in 20 on the Barcelona problem against
+    the whole-solve QN kernel (its constants ``kq_b``, the streaming
+    constants' source ``kc_b``); returns the JSON entries of S1, S2 and
+    the history passes."""
+    import numpy as np
+    import torch
+    from rapidnet_tpu_torch.ops import apg_stream as S
+    from rapidnet_tpu_torch.ops import lbfgs as LB
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+    from rapidnet_tpu_torch.solver import qn_stream as QS
+    from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
+    from rapidnet_tpu_torch.solver.controller import SmpcController
+
+    cfg, net, tree, fa, make_step, kc, prefix, hyper = problem
+    bs = int(cfg.lbfgs_buffer_size)
+    N, ns, nx, nu, nv = SQ.dims(kc)
+    D, M = 2 * nx + nu, bs + 1
+    rows, E = N * ns, N * ns * (2 * nx + nu)
+    errs = {}
+
+    # 19. one S1/S2 pass in each variant against its plain half, from the
+    # duals after PASS_ITER plain APG iterations from tanks at 1.2 xmax;
+    # one dots and one combine pass over a full history in each storage
+    step_hot = make_step((1.2 * net.xmax).astype(np.float32))
+    ps = S.plain_iterations(kc, step_hot, iterations=PASS_ITER, **hyper)
+    w = torch.cat([ps["y"]["xi"], ps["y"]["psi"]], dim=-1).contiguous()
+    pdu = (step_hot["prev_u"] - step_hot["prev_uhat"]).contiguous()
+    affine = {True: ((step_hot["beta"],), (step_hot["uhat"], step_hot["e"],
+                                           step_hot["x0"], pdu)),
+              False: ((), ())}
+    v_in = SQ.s1_plain(kc, w, step_hot["beta"])
+    del ps
+    for aff, (a1, a2) in affine.items():
+        label = "solve" if aff else "oracle"
+        errs[f"S1.{label}"] = check_close(
+            f"19.s1.{label}.v", SQ.s1_call(kc, w, *a1),
+            SQ.s1_plain(kc, w, *a1), PASS_FACTOR)
+        got, ref = SQ.s2_call(kc, v_in, *a2), SQ.s2_plain(kc, v_in, *a2)
+        errs[f"S2.{label}"] = max(
+            check_close(f"19.s2.{label}.{name}", g, r, PASS_FACTOR)
+            for name, g, r in zip(("x", "u", "images"), got, ref))
+    gen = torch.Generator().manual_seed(19)
+
+    def seeded(*shape):
+        return torch.randn(shape, generator=gen).to(device)
+
+    hist = {}
+    for dtype in LB.STORAGE:
+        mat_s, mat_y = (seeded(M, N, ns, D).to(dtype) for _ in range(2))
+        mat_s[0] = 0
+        mat_y[0] = 0
+        s, yv = (seeded(N, ns, D).to(dtype) for _ in range(2))
+        g = seeded(N, ns, D)
+        coef = seeded(2 * M + 1)
+        hist[dtype] = (mat_s, mat_y, s, yv, g, coef)
+        name = str(dtype).split(".")[-1]
+        got = LB.dots(kc["rep"], mat_s, mat_y, s, yv, g)
+        ref = LB.dots_plain(kc["rep"], mat_s, mat_y, s, yv, g)
+        mag = LB.dots_plain(kc["rep"], mat_s.abs(), mat_y.abs(), s.abs(),
+                            yv.abs(), g.abs())
+        ratio = max(float(((a - b).abs() / m.clamp(min=1e-30)).max())
+                    for a, b, m in zip(got, ref, mag))
+        errs[f"dots.{name}"] = max(float((a - b).abs().max())
+                                   for a, b in zip(got, ref))
+        print(f"[stream_qn] 19.dots.{name}: max |kernel - plain| "
+              f"{errs[f'dots.{name}']:.6g}, at most {ratio:.6g} of the "
+              f"rep-weighted sum of |products| (bound 1e-5)")
+        if not ratio <= 1e-5:
+            raise SmokeFailure(f"19.dots.{name}: kernel and plain disagree")
+        errs[f"combine.{name}"] = check_close(
+            f"19.combine.{name}", LB.combine(coef, mat_s, mat_y, g),
+            LB.combine_plain(coef, mat_s, mat_y, g), 1e-6)
+    print(f"[stream_qn] 19: S1/S2 in both variants hold their plain halves "
+          f"(bound {PASS_FACTOR:g} x max(|plain|, 1)); the history passes "
+          f"hold theirs in float32 and bfloat16 (history {M} x {E} values)")
+
+    def solver(algorithm, n=MAX_ITER, dtype="float32", consts=kc, f=fa,
+               hy=hyper):
+        return QS.make_qn_stream(f, algorithm=algorithm, consts=consts,
+                                 prefix_stages=consts["prefix_stages"],
+                                 lbfgs_buffer_size=bs, lbfgs_dtype=dtype,
+                                 **dict(hy, max_iterations=n))
+
+    def plain_qn(algorithm, n, step, y0=None, f=fa, hy=hyper,
+                 consts=kc):
+        return qn_mod.make_solver(
+            algorithm=algorithm, prefix_stages=consts["prefix_stages"],
+            lbfgs_buffer_size=bs, **dict(hy, max_iterations=n))(f, step, y0)
+
+    def tracking(tag, kern, plain, min_track):
+        """9a's TRACK between two solves of n iterations (kern(n),
+        plain(n)): the traces within the JAX bounds, then control and u;
+        at least ``min_track``."""
+        k_s, p_s = kern(QN_TRACK_MAX), plain(QN_TRACK_MAX)
+        traced = qn_horizon(k_s, p_s, QN_TRACK_MAX)
+        track = traced
+        while track >= min_track:
+            k_t, p_t = kern(track), plain(track)
+            agree, u_atol = solutions_agree(k_t, p_t)
+            if agree:
+                break
+            track -= 1
+        print(f"[stream_qn] {tag}: TRACK {track} (traces within the JAX "
+              f"bounds over {traced} of {QN_TRACK_MAX} iterations, control "
+              f"and u after the first {track})")
+        if track < min_track:
+            raise SmokeFailure(f"{tag}: the two solves track over {track} "
+                               f"iterations, fewer than {min_track}")
+        check_allclose(f"{tag}.control", k_t["control"], p_t["control"],
+                       1e-3, 1e-4)
+        return check_allclose(f"{tag}.u", k_t["u"], p_t["u"], 0.0, u_atol)
+
+    # 20. the solve: kernels against the plain QN solve over the horizon
+    # over which two float32 solves track; the residual tail at 500
+    # iterations; repeats; a warm start; the bf16 history; no host sync
+    step = make_step(cfg.current_x)
+    solves, plain_ms, bf16_dev = {}, {}, {}
+    for short, algorithm in QN_ALGORITHMS.items():
+        min_track = QN_SHORT[short]
+        errs[f"solve.{short}"] = tracking(
+            f"20.{short}", lambda n: solver(algorithm, n)(step),
+            lambda n: plain_qn(algorithm, n, step), min_track)
+        run = solver(algorithm)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            k_full = run(step)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_full = plain_qn(algorithm, MAX_ITER, step)
+        torch.cuda.synchronize()
+        plain_ms[short] = (time.perf_counter() - t0) * 1e3
+        again = run(step)
+        same = outputs_equal(again, k_full, ("x", "u", "v", "control") +
+                             QN_TRACES)
+        tail_k = float(np.median(
+            k_full["primal_infeasibility"].abs().cpu().numpy()[-20:]))
+        tail_p = float(np.median(
+            p_full["primal_infeasibility"].abs().cpu().numpy()[-20:]))
+        u0 = k_full["control"]
+        inside = bool(((u0 >= fa["umin_phys"] - 1e-5) &
+                       (u0 <= fa["umax_phys"] + 1e-5)).all())
+        print(f"[stream_qn] 20.{short}: {MAX_ITER} iterations with no host "
+              f"sync (torch.cuda.set_sync_debug_mode('error')); median "
+              f"|infeasibility| of the last 20: kernels {tail_k:.6g}, plain "
+              f"{tail_p:.6g}; control within the physical bounds: "
+              f"{inside}; two calls equal bit for bit: {same}; plain solve "
+              f"{plain_ms[short]:.3f} ms")
+        if not (bool(torch.isfinite(k_full["u"]).all()) and
+                int(k_full["iterations"]) == MAX_ITER):
+            raise SmokeFailure(f"20.{short}: the 500-iteration solve failed")
+        if not tail_k < 10 * max(tail_p, 1e-6):
+            raise SmokeFailure(f"20.{short}: residual tail {tail_k:.6g} "
+                               f"above 10 x the plain version's")
+        if not (inside and same):
+            raise SmokeFailure(f"20.{short}: control outside its bounds or "
+                               "repeats differ")
+        y0 = p_full["y"]
+        tracking(f"20.{short}.warm",
+                 lambda n: solver(algorithm, n)(step, y0),
+                 lambda n: plain_qn(algorithm, n, step, y0), min_track)
+        k16 = solver(algorithm, dtype="bfloat16")(step)
+        dev16 = float((k16["control"] - u0).abs().max())
+        scale = max(float(u0.abs().max()), 1.0)
+        bf16_dev[short] = dev16 / scale
+        print(f"[stream_qn] 20.{short}.bf16: {MAX_ITER} iterations with the "
+              f"bf16 history: max |control - f32's| {dev16:.6g} "
+              f"({dev16 / scale:.6g} of max(|f32|, 1); gate 1e-1); u "
+              f"{float((k16['u'] - k_full['u']).abs().max()):.6g}")
+        if not (bool(torch.isfinite(k16["u"]).all()) and
+                dev16 <= 1e-1 * scale):
+            raise SmokeFailure(f"20.{short}.bf16: the bf16 history's "
+                               "control strays")
+        solves[short] = k_full
+        del p_full, again, k16
+        # two independent kernels on the Barcelona problem
+        fa_b = kc_b["fa"]
+        ks_b = S.stream_constants(fa_b, prefix_stages=kc_b["prefix_stages"],
+                                  max_iterations=MAX_ITER)
+        tracking(f"20.{short}.barcelona",
+                 lambda n: solver(algorithm, n, consts=ks_b, f=fa_b,
+                                  hy=hyper_b)(step_b),
+                 lambda n: Q.qn_solve(kq_b, step_b, None,
+                                      **dict(hyper_b, max_iterations=n,
+                                             algorithm=algorithm,
+                                             lbfgs_buffer_size=bs)),
+                 min_track)
+
+    # 21. the closed loops at config 5 (the main path): auto, stream and
+    # stream with the bf16 history for each algorithm; a plain FBE loop
+    launches = {}
+    loop_controls = {}
+
+    def loop(short, backend, steps=STREAM_LOOP_STEPS, **kw):
+        c = copy.deepcopy(cfg)
+        c.algorithm = QN_ALGORITHMS[short]
+        ctrl = SmpcController(c, network=net, tree=tree,
+                              forecaster=forecaster(net), backend=backend,
+                              device="cuda", **kw)
+        ctrl.initialise()
+        zero_counts()
+        t0 = time.perf_counter()
+        log = ctrl.closed_loop(steps)
+        loop_ms = (time.perf_counter() - t0) * 1e3 / steps
+        want = ({} if backend == "torch" else
+                stream_qn_counts(c.algorithm, MAX_ITER, steps))
+        got = check_counts(f"21.{short}.{backend}", want)
+        tag = f"{short}.{backend}" + (".bf16" if kw else "")
+        controls = np.array([log[f"control{t}"] for t in range(steps)])
+        kpis = {k: log[k] for k in KPI_KEYS}
+        ms = [log[f"time{t}"][0] for t in range(steps)]
+        print(f"[stream_qn] 21.{tag}: route {ctrl.route}, {steps} steps, "
+              f"launches {json.dumps(got)}, solve ms per step "
+              f"{', '.join(f'{m:.3f}' for m in ms)}; whole step "
+              f"{loop_ms:.3f} ms; kpis {json.dumps(kpis)}")
+        if not (np.isfinite(controls).all() and
+                np.isfinite(list(kpis.values())).all()):
+            raise SmokeFailure(f"21.{tag}: non-finite controls or KPIs")
+        if "memoryLeakWarning" in log:
+            raise SmokeFailure(log["memoryLeakWarning"])
+        want_route = "plain" if backend == "torch" else "stream"
+        if ctrl.route != want_route:
+            raise SmokeFailure(f"21.{tag}: route {ctrl.route}")
+        for k, n in got.items():
+            if k.startswith("lbfgs"):
+                k += ".bfloat16" if kw else ".float32"
+            launches[k] = launches.get(k, 0) + n
+        loop_controls[tag] = controls
+        return controls
+
+    for short in QN_ALGORITHMS:
+        auto = loop(short, "auto")
+        streamed = loop(short, "stream")
+        loop(short, "stream", stream_lbfgs_dtype="bfloat16")
+        if not np.array_equal(auto, streamed):
+            raise SmokeFailure(f"21.{short}: auto and stream controls differ")
+        print(f"[stream_qn] 21.{short}: auto and stream controls equal bit "
+              f"for bit: True")
+    plain_c = loop("fbe", "torch", steps=PLAIN_LOOP_STEPS)
+    gap = float(np.abs(loop_controls["fbe.stream"][:PLAIN_LOOP_STEPS] -
+                       plain_c).max())
+    print(f"[stream_qn] 21.fbe: the plain loop's controls against the "
+          f"streaming loop's over {PLAIN_LOOP_STEPS} steps: max |difference|"
+          f" {gap:.6g} (two float32 QN solves part after a few iterations; "
+          f"recorded, not gated)")
+
+    # 22. timing, inputs staged on the device: 500-iteration solves per
+    # algorithm and history storage; device µs per iteration by the
+    # profiler, the idle share, peak memory, the bound; each kernel's
+    # time per call at the main path's shapes beside its plain version's
+    staged = [make_step(x) for x in perturbed(
+        cfg.current_x, np.random.default_rng(7), REPEATS)]
+    fq = {}
+    for short, algorithm in QN_ALGORITHMS.items():
+        for dtype in ("float32", "bfloat16"):
+            run = solver(algorithm, dtype=dtype)
+            times, enqueue = [], []
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for st in staged:
+                ms, enq, out = timed(lambda: run(st))
+                times.append(ms)
+                enqueue.append(enq)
+                if not bool(torch.isfinite(out["control"]).all()):
+                    raise SmokeFailure(f"22.{short}: non-finite control")
+            peak = torch.cuda.max_memory_allocated() - held
+            med = float(np.median(times))
+            prof = stream_qn_profile(
+                lambda: solver(algorithm, PROFILE_ITER, dtype)(step),
+                PROFILE_ITER)
+            fq[(short, dtype)] = (med, prof, peak)
+            print(f"[timing] stream {short} {dtype} history, {MAX_ITER} "
+                  f"iterations at config 5: median {med:.3f} ms of "
+                  f"{REPEATS} ({', '.join(f'{t:.3f}' for t in times)}), "
+                  f"{med * 1e3 / MAX_ITER:.3f} us per iteration; host "
+                  f"enqueue {', '.join(f'{t:.3f}' for t in enqueue)} ms; "
+                  f"peak {peak / 2**20:.3f} MiB above the "
+                  f"{held / 2**20:.3f} MiB held")
+            if prof is None:
+                print("[timing] the profiler trace holds no device time "
+                      "(not measured)")
+            else:
+                print(f"[timing] stream {short} {dtype}, device us per "
+                      f"iteration over a {PROFILE_ITER}-iteration solve: " +
+                      ", ".join(f"{k} {prof[k]:.3f}" for k in
+                                ("S1", "S2", "dots", "combine", "glue")) +
+                      f"; busy {prof['busy_ms']:.3f} of a "
+                      f"{prof['span_ms']:.3f} ms span, idle share "
+                      f"{prof['idle_share']:.4f}")
+    work = stream_qn_work(kc)
+    out = solves["fbe"]
+    sweeps = work["S1"][0] + work["S2"][0]
+    value = int((kc["rep"] > 0).sum()) * 2 * nu * nu
+    for short, algorithm in QN_ALGORITHMS.items():
+        first = 2 if short == "fbe" else 1
+        for dtype, size in (("float32", 4), ("bfloat16", 2)):
+            hist_f = sum(history_work(E, rows, M, size, d)[0]
+                         for d in (True, False))
+            flops = (first * sweeps + (MAX_ITER - 1) *
+                     (3 * sweeps + 3 * value + hist_f))
+            tensors = ([kc[k] for k in SQ.CONST_KEYS] +
+                       [fa[k] for k in ("W", "umin_phys", "umax_phys")] +
+                       [step[k] for k in ("beta", "uhat", "e", "alpha_price",
+                                          "x0", "prev_u", "prev_uhat")])
+            nbytes = sum(t.numel() * t.element_size() for t in tensors) + sum(
+                t.numel() * t.element_size() for t in
+                (out["x"], out["u"], out["v"], out["y"]["xi"],
+                 out["y"]["psi"], out["primal_infeasibility"],
+                 out["value_fbe"], out["tau"], out["control"]))
+            b_ms, by = bound_of(flops, nbytes)
+            streamed = (MAX_ITER - 1) * sum(
+                history_work(E, rows, M, size, d)[1] for d in (True, False))
+            med = fq[(short, dtype)][0]
+            print(f"[bound] stream {short} {dtype}: {flops / 1e9:.3f} GFLOP, "
+                  f"{nbytes / 1e6:.3f} MB: {b_ms:.6f} ms, set by {by} "
+                  f"({100 * b_ms / med:.3f} % of the measured); the history "
+                  f"read by its two passes an iteration, over the solve: "
+                  f"{streamed / 1e9:.3f} GB, "
+                  f"{streamed / HBM_BYTES_PER_S * 1e3:.6f} ms")
+
+    # each kernel per call at the main path's shapes (phase 19's inputs):
+    # the sweeps as the iteration mixes them (one solve step, two
+    # oracles), the history passes in each storage
+    reps = 20
+
+    def sweep_mix(fn, which):
+        """One solve-step pass and two oracle passes of S1 or S2."""
+        def run():
+            for aff in (True, False, False):
+                a1, a2 = affine[aff]
+                if which == "S1":
+                    fn(kc, w, *a1)
+                else:
+                    fn(kc, v_in, *a2)
+        return run
+
+    entries = []
+    src = "rapidnet_tpu_torch/csrc/stream_qn.cu"
+    for name, call, plain, key, line in (
+            ("S1", SQ.s1_call, SQ.s1_plain, "stream_qn.s1",
+             "rapidnet_tpu/ops/pallas_stream_qn.py:79"),
+            ("S2", SQ.s2_call, SQ.s2_plain, "stream_qn.s2",
+             "rapidnet_tpu/ops/pallas_stream_qn.py:129")):
+        ms = event_ms(sweep_mix(call, name), reps) / 3
+        p_ms = event_ms(sweep_mix(plain, name), 2) / 3
+        flops, b_aff, b_orc = work[name]
+        b_ms = (bound_of(flops, b_aff)[0] + 2 * bound_of(flops, b_orc)[0]) / 3
+        by = bound_of(flops, b_orc)[1]
+        print(f"[timing] {name}: {ms:.6f} ms per call (one solve step and "
+              f"two oracles, {reps} rounds), plain {p_ms:.6f} ms; bound "
+              f"{b_ms:.6f} ms ({by}); {flops / 1e9:.3f} GFLOP a pass")
+        entries.append({
+            "name": key, "route": "cuda", "source": src, "replaces": line,
+            "launches": launches[key],
+            "max_abs_err": max(errs[f"{name}.solve"], errs[f"{name}.oracle"]),
+            "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None})
+    for dtype in LB.STORAGE:
+        name = str(dtype).split(".")[-1]
+        mat_s, mat_y, s, yv, g, coef = hist[dtype]
+        size = mat_s.element_size()
+        for which, fn, plain, line in (
+                ("dots", lambda: LB.dots(kc["rep"], mat_s, mat_y, s, yv, g),
+                 lambda: LB.dots_plain(kc["rep"], mat_s, mat_y, s, yv, g),
+                 "rapidnet_tpu/ops/pallas_lbfgs.py:72"),
+                ("combine", lambda: LB.combine(coef, mat_s, mat_y, g),
+                 lambda: LB.combine_plain(coef, mat_s, mat_y, g),
+                 "rapidnet_tpu/ops/pallas_lbfgs.py:150")):
+            ms = event_ms(fn, reps)
+            p_ms = event_ms(plain, 3)
+            flops, nbytes = history_work(E, rows, M, size, which == "dots")
+            b_ms, by = bound_of(flops, nbytes)
+            print(f"[timing] {which} {name}: {ms:.6f} ms per call, plain "
+                  f"{p_ms:.6f} ms; bound {b_ms:.6f} ms ({by}: "
+                  f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.3f} GFLOP); "
+                  f"{nbytes / ms / 1e6:.3f} GB/s")
+            key = f"lbfgs.{which}.{name}"
+            entries.append({
+                "name": key, "route": "cuda",
+                "source": "rapidnet_tpu_torch/csrc/lbfgs.cu",
+                "replaces": line, "launches": launches[key],
+                "max_abs_err": errs[f"{which}.{name}"], "ms": ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+                "library_ms": None})
+    for short in QN_ALGORITHMS:
+        print(f"[stream_qn] {short}: kernels against the plain QN solve, "
+              f"u within {errs[f'solve.{short}']:.6g} over TRACK; bf16 "
+              f"control deviation {bf16_dev[short]:.6g} of max(|f32|, 1); "
+              f"plain 500-iteration solve {plain_ms[short]:.3f} ms")
+    return entries
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reference-kernel", default=None, metavar="DIR",
                     help="the csrc directory of an earlier checkout: "
-                         "phases 6c and 12a also hold the single APG, FBE "
-                         "and NAMA solves to its kernels, bit for bit")
+                         "phases 6c, 12a and 16 also hold the single APG, "
+                         "FBE and NAMA solves and the streaming APG solve "
+                         "to its kernels, bit for bit")
     args = ap.parse_args()
     import torch
 
@@ -1649,15 +2256,31 @@ def main() -> int:
           f"prefix_stages {prefix} step_size {cfg.step_size:.6g} "
           f"(tuned in {time.perf_counter() - t0:.3f} s)")
 
+    t_run = time.perf_counter()
+
+    def lap(phases):
+        print(f"[time] phases {phases}: {time.perf_counter() - t_run:.3f} s "
+              f"since phase 3")
+
     entries, apg_kpis = apg_phases(ref_libs, device, cfg, net, tree, fa,
                                    make_step, make_batch, prefix, hyper, kc)
+    lap("3-8")
     qn_entries, tols = qn_phases(cfg, net, tree, fa, make_step, hyper,
                                   prefix, apg_kpis)
     entries += qn_entries
+    lap("9-11")
     entries += qn_batch_phases(ref_libs, cfg, net, tree, fa, make_batch,
                                hyper, prefix, tols)
-    entries.append(stream_phases(device, kc, make_step(cfg.current_x),
-                                 hyper))
+    lap("12-14")
+    step_b = make_step(cfg.current_x)
+    entry, problem5 = stream_phases(ref_libs, device, kc, step_b, hyper)
+    entries.append(entry)
+    lap("15-18")
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+    entries += stream_qn_phases(device, problem5,
+                                Q.kernel_constants(fa, prefix_stages=prefix),
+                                kc, step_b, hyper)
+    lap("19-22")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

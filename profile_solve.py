@@ -2,20 +2,26 @@
 """Where the time of one solve kernel call goes, on one GPU.
 
     python3 profile_solve.py [--algorithm apg|fbe|nama] [--iterations 500]
-                             [--batch B | --stream] [--out profile_out]
+                             [--batch B | --stream] [--lbfgs-dtype D]
+                             [--out profile_out]
 
 Builds the Barcelona-scale problem of ``chip_smoke.py``, warms the
 algorithm's whole-solve kernel up (APG: ``csrc/apg_solve.cu``; FBE and
 NAMA: ``csrc/qn_solve.cu`` with the config's L-BFGS buffer of 5), then
 prints, for one solve or, with ``--batch B``, one batched call of B
 solves (states x0 * (1 + 0.02 N(0, 1)), numpy seed 7, assembled on the
-device from the shared base), or, with ``--stream``, one APG solve of
-the streaming kernels (``csrc/apg_stream.cu``) at BASELINE config 5
-(the same widths over branching [8, 8, 4, 4]: 1024 scenarios):
+device from the shared base), or, with ``--stream``, one solve of the
+streaming path at BASELINE config 5 (the same widths over branching
+[8, 8, 4, 4]: 1024 scenarios): APG through ``csrc/apg_stream.cu``, FBE
+and NAMA through ``solver/qn_stream.py`` (the sweeps of
+``csrc/stream_qn.cu``, the history passes of ``csrc/lbfgs.cu`` with the
+history in ``--lbfgs-dtype``, float32 or bfloat16, and the PyTorch glue
+between them):
 
 * the CUDA-event time of one call and the host's time to enqueue it;
 * per phase kernel, its launches and its device µs per iteration
-  (``torch.profiler``);
+  (``torch.profiler``; PyTorch's own kernels, the streaming FBE/NAMA
+  solve's glue, by their base names, and their sum as ``glue``);
 * the device's busy time over the span of the traced solve, and the
   idle share;
 * the card's name, power limit and SM clock.
@@ -40,20 +46,6 @@ ALGORITHMS = {"apg": None, "fbe": "globalFbeAlgorithm",
               "nama": "namaAlgorithm"}
 
 
-def busy_span(intervals):
-    """(busy, span) in the units of the (start, end) intervals."""
-    intervals = sorted(intervals)
-    busy, span = 0, intervals[-1][1] - intervals[0][0]
-    cur_s, cur_e = intervals[0]
-    for s, e in intervals[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return busy + cur_e - cur_s, span
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--algorithm", default="apg",
@@ -63,12 +55,16 @@ def main() -> int:
                     help="trace one batched call of this many solves "
                          "(0: one single solve)")
     ap.add_argument("--stream", action="store_true",
-                    help="the streaming APG kernels at BASELINE config 5")
+                    help="the streaming solve at BASELINE config 5")
+    ap.add_argument("--lbfgs-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="--stream with FBE or NAMA: the L-BFGS history's "
+                         "storage")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
     algorithm = ALGORITHMS[args.algorithm]
-    if args.stream and (args.batch or algorithm is not None):
-        ap.error("--stream runs one APG solve")
+    if args.stream and args.batch:
+        ap.error("--stream runs one solve")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -77,11 +73,13 @@ def main() -> int:
         print("profile_solve: no CUDA GPU available", file=sys.stderr)
         return 1
     from chip_smoke import (BARCELONA_BRANCHING, CONFIG5_BRANCHING,
-                            build_problem)
+                            build_problem, busy_span,
+                            stream_qn_part)
     from rapidnet_tpu_torch.engine.engine import XS_UPPER
     from rapidnet_tpu_torch.ops import apg_solve as K
     from rapidnet_tpu_torch.ops import apg_stream as S
     from rapidnet_tpu_torch.ops import qn_solve as Q
+    from rapidnet_tpu_torch.solver.qn_stream import make_qn_stream
 
     n_it = args.iterations
     out_dir = pathlib.Path(args.out)
@@ -102,7 +100,18 @@ def main() -> int:
             (args.batch, x0.size)))).astype(np.float32))
     else:
         step = make_step(cfg.current_x)
-    if args.stream:
+    if args.stream and algorithm is not None:
+        kc = S.stream_constants(fa, prefix_stages=prefix,
+                                max_iterations=n_it)
+        qn_run = make_qn_stream(
+            fa, algorithm=algorithm, consts=kc, prefix_stages=prefix,
+            lbfgs_buffer_size=int(cfg.lbfgs_buffer_size),
+            lbfgs_dtype=args.lbfgs_dtype, **hyper)
+        kw = {}
+
+        def run(kc, step, y0):
+            return qn_run(step, y0)
+    elif args.stream:
         kc = S.stream_constants(fa, prefix_stages=prefix,
                                 max_iterations=n_it)
         run, kw = S.apg_stream, hyper
@@ -126,6 +135,7 @@ def main() -> int:
 
     summary = {"algorithm": args.algorithm, "iterations": n_it,
                "batch": args.batch, "stream": args.stream,
+               "lbfgs_dtype": args.lbfgs_dtype,
                "scenarios": tree.ns, "solves": []}
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
@@ -160,6 +170,7 @@ def main() -> int:
                            "us_per_iteration": dt / n_it})
     phases.sort(key=lambda p: -p["us_per_iteration"])
     summary["phases"] = phases
+
     for p in phases:
         print(f"[phase] {p['kernel']:34s} launches {p['launches']:6d}  "
               f"{p['us_per_iteration']:8.3f} us per iteration")
@@ -168,6 +179,13 @@ def main() -> int:
                      if str(getattr(e, "device_type", "")).endswith("CUDA")]
     intervals = [(e.time_range.start, e.time_range.end)
                  for e in device_events]
+    if args.stream and algorithm is not None:
+        glue = sum(e.time_range.end - e.time_range.start
+                   for e in device_events
+                   if stream_qn_part(e.name) == "glue")
+        summary["glue_us_per_iteration"] = glue / n_it
+        print(f"[phase] glue (every device kernel but S1, S2 and the "
+              f"history passes): {glue / n_it:.3f} us per iteration")
     if args.stream:
         # K1's launches of an iteration in order: one per range of stages
         k1 = sorted((e.time_range.start, e.time_range.end)

@@ -9,8 +9,11 @@ Hopper, built with nvcc on first use, run the solves on the card: the
 whole APG solve (``ops/apg_solve.py``, ``csrc/apg_solve.cu``), the whole
 FBE/NAMA solve (``ops/qn_solve.py``, ``csrc/qn_solve.cu``), each also
 running B independent solves in one call for ``BatchedSmpcController``,
-and the streaming APG iteration for trees past the whole-solve kernels'
-shared-memory limits (``ops/apg_stream.py``, ``csrc/apg_stream.cu``).
+and, for trees past the whole-solve kernels' shared-memory limits, the
+streaming APG iteration (``ops/apg_stream.py``, ``csrc/apg_stream.cu``)
+and the streaming FBE/NAMA solve (``solver/qn_stream.py``) over its oracle
+sweeps (``ops/stream_qn.py``, ``csrc/stream_qn.cu``) and L-BFGS history
+passes (``ops/lbfgs.py``, ``csrc/lbfgs.cu``).
 
 This package imports torch and never jax.
 """

@@ -3,7 +3,8 @@
 Usage:
   python -m rapidnet_tpu_torch.cli --config path/to/controllerConfig.json \
       --steps 10 --output controlOutput.json [--device cuda] \
-      [--external-simulator]
+      [--backend auto|cuda|stream|torch] \
+      [--stream-lbfgs-dtype float32|bfloat16] [--external-simulator]
 
 Runs the receding-horizon loop: forecast -> controlAction (timed) ->
 moveForwardInTime, then prints the four KPIs (src/main.cu:34-69).  The
@@ -42,14 +43,18 @@ def main(argv=None):
                    choices=["auto", "cuda", "stream", "torch"],
                    help="auto: on a GPU the whole-solve CUDA kernel when "
                         "the tree fits it, else the streaming kernels "
-                        "(APG, fixed budget), else the plain solve; cuda: "
-                        "the whole-solve kernel; stream: the streaming "
-                        "APG kernels; torch: the plain PyTorch solve (the "
+                        "(fixed budget), else the plain solve; cuda: the "
+                        "whole-solve kernel; stream: the streaming "
+                        "kernels; torch: the plain PyTorch solve (the "
                         "kernels' plain versions run on the CPU)")
     p.add_argument("--stream-precision", default=None,
                    choices=["highest"],
                    help="the streaming kernels' products: highest (full "
                         "float32, the only precision measured so far)")
+    p.add_argument("--stream-lbfgs-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="the storage of the streaming FBE/NAMA solve's "
+                        "L-BFGS history (bfloat16 halves its bytes)")
     p.add_argument("--tolerance", type=float, default=None,
                    help="terminate each solve when the residual "
                         "magnitude drops below this (default: fixed "
@@ -60,7 +65,8 @@ def main(argv=None):
 
     ctrl = SmpcController(args.config, backend=args.backend,
                           device=args.device, tolerance=args.tolerance,
-                          stream_precision=args.stream_precision)
+                          stream_precision=args.stream_precision,
+                          stream_lbfgs_dtype=args.stream_lbfgs_dtype)
     if args.no_price_uncertainty:
         ctrl.engine.price_uncertainty = False
     if args.no_demand_uncertainty:

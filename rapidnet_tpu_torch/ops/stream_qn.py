@@ -1,0 +1,242 @@
+"""The streaming oracle sweeps S1/S2: their wrappers, plain versions, counts.
+
+Counterpart of ``rapidnet_tpu/ops/pallas_stream_qn.py``
+(``make_stream_sweeps``).  The kernels are ``csrc/stream_qn.cu``, CUDA
+C++ for sm_90a, built on first use by ``ops/build.py``.  They are the
+bare tree oracle that the streaming FBE/NAMA solve
+(``solver/qn_stream.py``) calls three times an iteration, on trees past
+the whole-solve QN kernel's shared-memory limits (``qn_solve.fits``):
+
+* S1, backward over the stages: the dual triple w -> v, the backward
+  recursion t = d1 w1 + d2 w2 + t, inner = a + Bb t + L'(g wp) [+ beta],
+  v = nhp iW inner, with the child -> parent handoff at the prefix
+  stages;
+* S2, forward: v -> x, u and the primal images p1 = d1 x, p2 = d2 x,
+  pp = g u, with du = du + L v, u = du [+ uhat], x = x + B u [+ e] from
+  du = pdu and x = x0 (or zero).
+
+``affine=True`` is the solve step (the bracketed terms and the start);
+``affine=False`` is the Hessian oracle, which reads none of them.
+
+Layout: unpadded, stage-major (N, ns, d) rows.  The dual triple is one
+tensor (N, ns, D), D = 2 nx + nu, [w1 | w2 | wp] per row (so ``xi`` of
+the XLA path is its first 2 nx columns and ``psi`` the rest), and so are
+the images [p1 | p2 | pp].  The constants are those of the streaming APG
+kernels (``apg_stream.stream_constants``: the rank-1 rows, the matrices
+and the prefix handoffs as index lists, the stage ranges).
+
+``s1_call`` and ``s2_call`` are the wrappers: on CPU tensors they run
+``s1_plain`` and ``s2_plain``; on CUDA tensors they launch the kernels or
+raise.  ``s1_call.launches`` and ``s2_call.launches`` count the passes
+they launched (S1 launches one kernel per range of stages).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rapidnet_tpu_torch.ops import apg_stream as S
+from rapidnet_tpu_torch.ops import build
+
+TILE = 8                 # scenario slots per block (csrc/stream_qn.cu)
+CONST_KEYS = ("cx1", "cx2", "cu", "sq", "nhp", "L", "BbT", "iWT", "LT",
+              "BT") + S.INDEX_KEYS
+
+
+def smem(N: int, ns: int, nx: int, nu: int, nv: int) -> int:
+    """The most shared memory (bytes) a launch at these sizes asks for,
+    the larger of the S1 and S2 tiles (``stream_qn_smem`` in the source,
+    checked at every launch)."""
+    return 4 * TILE * max(nx + nv + nu, 2 * nu + nx + nv)
+
+
+def stream_fits(N: int, ns: int, nx: int, nu: int, nv: int,
+                smem_limit: int | None = None) -> bool:
+    """Whether S1/S2 take a tree of these sizes: their tiles' shared
+    memory within ``smem_limit`` (default: the current CUDA device's
+    opt-in limit per block)."""
+    return ns >= 1 and N >= 1 and \
+        smem(N, ns, nx, nu, nv) <= build.smem_optin(smem_limit)
+
+
+def dims(kc) -> tuple:
+    """(N, ns, nx, nu, nv) of the streaming constants."""
+    return S._dims(kc)
+
+
+# ---------------------------------------------------------------- plain
+
+
+def s1_plain(kc, w, beta=None):
+    """One S1 pass in plain PyTorch (pallas_stream_qn.py:79-126): the dual
+    triple ``w`` (N, ns, D) -> v (N, ns, nv); ``beta`` (N, ns, nv) for the
+    solve step, None for the Hessian oracle."""
+    fa = kc["fa"]
+    nx = kc["cx1"].shape[-1]
+    tb = (S._rows(kc, "cx1") * w[..., :nx] +
+          S._rows(kc, "cx2") * w[..., nx:2 * nx])
+    gw = S._rows(kc, "cu") * w[..., 2 * nx:]
+    BbT, L = kc["BbT"], kc["L"]
+    N = tb.shape[0]
+    q = torch.zeros_like(tb[0])
+    r = w.new_zeros(w.shape[1], BbT.shape[1])
+    inner = []
+    for s in range(N - 1, -1, -1):
+        q = tb[s] + q
+        r = r + q @ BbT + gw[s] @ L
+        if beta is not None:
+            r = r + beta[s]
+        inner.append(r)
+        if s in kc["agg_stages"]:
+            Cp, Bp = fa["prefix_Cp"][s], fa["prefix_Bp"][s]
+            q = Bp @ (Cp @ q)
+            r = Bp @ (Cp @ r)
+    inner = torch.stack(inner[::-1])
+    return kc["nhp"][..., None] * (inner @ kc["iWT"])
+
+
+def s2_plain(kc, v, uhat=None, e=None, x0=None, pdu=None):
+    """One S2 pass in plain PyTorch (pallas_stream_qn.py:129-166): v ->
+    (x, u, images (N, ns, D)); ``uhat``, ``e``, ``x0`` and ``pdu`` for the
+    solve step, all None for the Hessian oracle."""
+    affine = uhat is not None
+    ns = v.shape[1]
+    nx = kc["cx1"].shape[-1]
+    nu = kc["cu"].shape[-1]
+    dv = v @ kc["LT"]
+    du = pdu.expand(ns, -1) if affine else v.new_zeros(ns, nu)
+    xs = x0.expand(ns, -1) if affine else v.new_zeros(ns, nx)
+    x, u = [], []
+    for s in range(v.shape[0]):
+        du = du + dv[s]
+        u_s = uhat[s] + du if affine else du
+        xs = xs + u_s @ kc["BT"]
+        if affine:
+            xs = xs + e[s]
+        x.append(xs)
+        u.append(u_s)
+    x, u = torch.stack(x), torch.stack(u)
+    images = torch.cat([S._rows(kc, "cx1") * x, S._rows(kc, "cx2") * x,
+                        S._rows(kc, "cu") * u], dim=-1)
+    return x, u, images
+
+
+# -------------------------------------------------------------- wrappers
+
+
+def _check_consts(kc):
+    """The constants' devices, types and shapes; returns the device."""
+    N, ns, nx, nu, nv = dims(kc)
+    dev = kc["sq"].device
+    shapes = {"cx1": (N, nx), "cx2": (N, nx), "cu": (N, nu), "sq": (N, ns),
+              "nhp": (N, ns), "L": (nu, nv), "BbT": (nx, nv),
+              "iWT": (nv, nv), "LT": (nv, nu), "BT": (nu, nx)}
+    for k, shp in shapes.items():
+        S._check(k, kc[k], shp, dev)
+    for k in S.INDEX_KEYS:
+        S._check(k, kc[k], tuple(kc[k].shape), dev, torch.int32)
+    return dev
+
+
+def _entry(lib):
+    """The C entry ``stream_qn``, declared."""
+    fn = lib.stream_qn
+    if fn.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * 24 + [i32] * 5 + [ptr, i32, i32, i32, ptr]
+        fn.restype = i32
+        lib.stream_qn_tile.restype = i32
+        lib.stream_qn_error_string.argtypes = [i32]
+        lib.stream_qn_error_string.restype = ctypes.c_char_p
+        if lib.stream_qn_tile() != TILE:
+            raise RuntimeError("csrc/stream_qn.cu's tile differs from "
+                               "ops/stream_qn.TILE")
+    return fn
+
+
+def _launch(kc, mode, affine, *, w=None, v, x=None, u=None, pr=None,
+            beta=None, uhat=None, e=None, x0=None, pdu=None):
+    """Enqueue one S1 (mode 1) or S2 (mode 2) pass on the current stream
+    of the constants' device.  Raises on a refused launch."""
+    N, ns, nx, nu, nv = dims(kc)
+    if not stream_fits(N, ns, nx, nu, nv):
+        raise ValueError(f"the streaming sweeps do not take this tree (N {N},"
+                         f" ns {ns}, nx {nx}, nu {nu}, nv {nv})")
+    dev = kc["sq"].device
+    lib = build.load("stream_qn")
+    fn = _entry(lib)
+    build.check_smem(lib, "stream_qn", (N, ns, nx, nu, nv),
+                     smem(N, ns, nx, nu, nv))
+    carry = (torch.empty((2, ns, nx + nv), dtype=torch.float32, device=dev)
+             if mode == 1 else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    flat = [r for rng in kc["ranges"] for r in rng]
+    ranges = (ctypes.c_int * len(flat))(*flat)
+    args = ([ptr(kc[k]) for k in CONST_KEYS] +
+            [ptr(t) for t in (beta, uhat, e, x0, pdu, w, v, x, u, pr, carry)])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args, N, ns, nx, nu, nv, ranges, len(kc["ranges"]),
+                 int(affine), mode, stream)
+    if err != 0:
+        msg = lib.stream_qn_error_string(err).decode()
+        raise RuntimeError(f"stream_qn kernel failed: error {err} ({msg})")
+
+
+def s1_call(kc, w, beta=None):
+    """One S1 pass: ``w`` (N, ns, D) -> v (N, ns, nv); ``beta`` for the
+    solve step (affine), None for the Hessian oracle.  CPU tensors run
+    ``s1_plain``; CUDA tensors launch the kernel."""
+    N, ns, nx, nu, nv = dims(kc)
+    dev = _check_consts(kc)
+    S._check("w", w, (N, ns, 2 * nx + nu), dev)
+    if beta is not None:
+        S._check("beta", beta, (N, ns, nv), dev)
+    if dev.type == "cpu":
+        return s1_plain(kc, w, beta)
+    if dev.type != "cuda":
+        raise ValueError(f"s1_call runs on cpu or cuda, not {dev.type}")
+    v = torch.empty((N, ns, nv), dtype=torch.float32, device=dev)
+    s1_call.launches += 1
+    _launch(kc, 1, beta is not None, w=w, v=v, beta=beta)
+    return v
+
+
+s1_call.launches = 0
+
+
+def s2_call(kc, v, uhat=None, e=None, x0=None, pdu=None):
+    """One S2 pass: v -> (x, u, images); ``uhat``, ``e``, ``x0``, ``pdu``
+    for the solve step (all or none).  CPU tensors run ``s2_plain``; CUDA
+    tensors launch the kernel."""
+    N, ns, nx, nu, nv = dims(kc)
+    dev = _check_consts(kc)
+    S._check("v", v, (N, ns, nv), dev)
+    affine = [t is not None for t in (uhat, e, x0, pdu)]
+    if any(affine) and not all(affine):
+        raise ValueError("s2_call takes uhat, e, x0 and pdu together")
+    if affine[0]:
+        for k, t, shp in (("uhat", uhat, (N, ns, nu)), ("e", e, (N, ns, nx)),
+                          ("x0", x0, (nx,)), ("pdu", pdu, (nu,))):
+            S._check(k, t, shp, dev)
+    if dev.type == "cpu":
+        return s2_plain(kc, v, uhat, e, x0, pdu)
+    if dev.type != "cuda":
+        raise ValueError(f"s2_call runs on cpu or cuda, not {dev.type}")
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    x, u, pr = empty(N, ns, nx), empty(N, ns, nu), empty(N, ns, 2 * nx + nu)
+    s2_call.launches += 1
+    _launch(kc, 2, affine[0], v=v, x=x, u=u, pr=pr, uhat=uhat, e=e, x0=x0,
+            pdu=pdu)
+    return x, u, pr
+
+
+s2_call.launches = 0

@@ -17,16 +17,17 @@ FBE and NAMA (``config.algorithm``; FBE and NAMA with the config's
 * ``'auto'`` (default): on a CUDA device, the solve ``auto_route``
   picks from the tree's sizes: the algorithm's whole-solve kernel
   (ops/apg_solve.py for APG, ops/qn_solve.py for FBE and NAMA) when the
-  tree fits it; past its limits, for APG with no tolerance, the
-  streaming kernels (ops/apg_stream.py) when they take the tree; else
-  the plain PyTorch solve, as the JAX package keeps its XLA path there
-  (``rapidnet_tpu/solver/controller.py:348-411``).  On the CPU, the
-  whole-solve kernel wrapper, which runs its plain version there;
+  tree fits it; past its limits, with no tolerance, the streaming
+  solve when its kernels take the tree (APG: ops/apg_stream.py; FBE and
+  NAMA: solver/qn_stream.py over ops/stream_qn.py and ops/lbfgs.py);
+  else the plain PyTorch solve, as the JAX package keeps its XLA path
+  there (``rapidnet_tpu/solver/controller.py:348-411``).  On the CPU,
+  the whole-solve kernel wrapper, which runs its plain version there;
 * ``'cuda'``: the whole-solve kernel wrapper, and raises unless
   ``device`` is a CUDA device;
-* ``'stream'``: APG through the streaming kernels (their plain version
-  on the CPU); raises with a tolerance, as the JAX package does, and
-  for FBE and NAMA, whose streaming solve is not ported yet;
+* ``'stream'``: the streaming solve of the algorithm (the kernels' plain
+  versions on the CPU); raises with a tolerance, as the JAX package
+  does;
 * ``'torch'``: the plain PyTorch solve (solver/apg.py,
   solver/quasi_newton.py) on any device.
 
@@ -57,28 +58,39 @@ from rapidnet_tpu_torch.model.config import (ALGORITHM_APG, ALGORITHM_FBE,
 from rapidnet_tpu_torch.model.forecaster import Forecaster, JsonForecaster
 from rapidnet_tpu_torch.model.network import DwnNetwork
 from rapidnet_tpu_torch.model.scenario_tree import ScenarioTree
-from rapidnet_tpu_torch.ops import apg_solve, apg_stream, qn_solve
+from rapidnet_tpu_torch.ops import apg_solve, apg_stream, lbfgs, qn_solve
+from rapidnet_tpu_torch.ops import stream_qn
 from rapidnet_tpu_torch.solver import apg as apg_mod
+from rapidnet_tpu_torch.solver import qn_stream
 from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
 
 BACKENDS = ("auto", "cuda", "stream", "torch")
 ALGORITHMS = (ALGORITHM_APG, ALGORITHM_FBE, ALGORITHM_NAMA)
 STREAM_PRECISIONS = (None, "highest")
+STREAM_LBFGS_DTYPES = (None, "float32", "bfloat16")
 
 
 def auto_route(algorithm: str, *, tolerance, N: int, ns: int, nx: int,
-               nu: int, nv: int, smem_limit: int | None = None) -> str:
+               nu: int, nv: int, smem_limit: int | None = None,
+               lbfgs_buffer_size: int | None = None) -> str:
     """The solve ``backend='auto'`` runs on a CUDA device, from the
     tree's sizes: 'kernel' (the whole-solve kernel) when the tree fits
-    it; else 'stream' for APG with no tolerance when the streaming
-    kernels take the tree; else 'plain'.  ``smem_limit``: the card's
-    opt-in shared memory per block (default: the current device's)."""
+    it; else, with no tolerance, 'stream' when the algorithm's streaming
+    kernels take the tree (for FBE and NAMA, also a history of
+    ``lbfgs_buffer_size`` + 1 columns); else 'plain'.  ``smem_limit``:
+    the card's opt-in shared memory per block (default: the current
+    device's)."""
     dims = (N, ns, nx, nu, nv)
-    whole = apg_solve.fits if algorithm == ALGORITHM_APG else qn_solve.fits
+    if algorithm == ALGORITHM_APG:
+        whole, stream_fits = apg_solve.fits, apg_stream.stream_fits
+    else:
+        whole, stream_fits = qn_solve.fits, stream_qn.stream_fits
     if whole(*dims, smem_limit=smem_limit):
         return "kernel"
-    if (algorithm == ALGORITHM_APG and tolerance is None and
-            apg_stream.stream_fits(*dims, smem_limit=smem_limit)):
+    history_fits = (algorithm == ALGORITHM_APG or lbfgs_buffer_size is None
+                    or int(lbfgs_buffer_size) + 1 <= lbfgs.MAX_COLS)
+    if (tolerance is None and history_fits and
+            stream_fits(*dims, smem_limit=smem_limit)):
         return "stream"
     return "plain"
 
@@ -115,9 +127,12 @@ class SmpcController:
         """device: where the solve runs ('cuda' by default; raises when
         no GPU is present).  stream_precision: the streaming kernels'
         products, None or 'highest' (full float32; no reduced-precision
-        knob is measured yet).  mesh and stream_lbfgs_dtype are the JAX
-        controller's multi-device and streaming FBE/NAMA options, not
-        ported yet."""
+        knob is measured yet).  stream_lbfgs_dtype: the storage of the
+        streaming FBE/NAMA solve's L-BFGS history, 'float32' (the
+        default, also None) or 'bfloat16' (half the history's bytes; the
+        history holds differences, and the line search guards the
+        direction).  mesh, the JAX controller's multi-device option, is
+        not ported yet."""
         if isinstance(config, str):
             config = SmpcConfig.from_json(config)
         if backend not in BACKENDS:
@@ -132,19 +147,15 @@ class SmpcController:
                 f"stream_precision must be None or 'highest' (the "
                 f"streaming kernels' products run in full float32), got "
                 f"'{stream_precision}'")
-        if stream_lbfgs_dtype is not None:
-            raise NotImplementedError(
-                "the streaming FBE/NAMA solve is not ported yet (ROADMAP "
-                "queue 1, item 10)")
+        if stream_lbfgs_dtype not in STREAM_LBFGS_DTYPES:
+            raise ValueError(
+                f"stream_lbfgs_dtype must be 'float32' or 'bfloat16', got "
+                f"'{stream_lbfgs_dtype}'")
+        self.stream_lbfgs_dtype = stream_lbfgs_dtype or "float32"
         if config.algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm '{config.algorithm}'")
-        if backend == "stream":
-            if tolerance is not None:
-                raise ValueError(apg_stream.TOLERANCE_MESSAGE)
-            if config.algorithm != ALGORITHM_APG:
-                raise NotImplementedError(
-                    "backend='stream' runs APG; the streaming FBE/NAMA "
-                    "solve is not ported yet (ROADMAP queue 1, item 10)")
+        if backend == "stream" and tolerance is not None:
+            raise ValueError(apg_stream.TOLERANCE_MESSAGE)
         self.device = resolve_device(device)
         if backend == "cuda" and self.device.type != "cuda":
             raise ValueError(
@@ -204,9 +215,13 @@ class SmpcController:
             run = make_plain(**kw)
             fa = self._fa
             self._solver = lambda step, y0: run(fa, step, y0)
-        elif route == "stream":
+        elif route == "stream" and cfg.algorithm == ALGORITHM_APG:
             self._solver = apg_stream.make_apg_stream_kernel(
                 self._fa, consts=consts, **kw)
+        elif route == "stream":
+            self._solver = qn_stream.make_qn_stream(
+                self._fa, consts=consts,
+                lbfgs_dtype=self.stream_lbfgs_dtype, **kw)
         else:
             self._solver = make_kernel(self._fa, **kw)
 
@@ -223,6 +238,7 @@ class SmpcController:
         if self.backend == "cuda" or self.device.type != "cuda":
             return "kernel", None
         route = auto_route(self.config.algorithm, tolerance=self.tolerance,
+                           lbfgs_buffer_size=self.config.lbfgs_buffer_size,
                            **tree_dims(self._fa))
         if route != "stream":
             return route, None
@@ -354,11 +370,15 @@ class SmpcController:
     def device_bytes_in_use(self) -> int:
         """Bytes held by live tensors on the solve's CUDA device (the
         reference's cudaMemGetInfo leak probe,
-        src/SmpcController.cu:1612-1624); 0 on the CPU, which keeps no
-        such census."""
+        src/SmpcController.cu:1612-1624): the bytes they asked for, not
+        the allocator's blocks (``memory_allocated``), since a request
+        may be served whole by a cached block up to 1 MB larger, so two
+        solves holding the same tensors could count differently; 0 on
+        the CPU, which keeps no such census."""
         if self.device.type != "cuda":
             return 0
-        return torch.cuda.memory_allocated(self.device)
+        return torch.cuda.memory_stats(self.device)[
+            "requested_bytes.all.current"]
 
     # ------------------------------------------------------------------
     def closed_loop(self, steps: int, output_json: Optional[str] = None

@@ -291,8 +291,10 @@ def test_fits_states_the_kernels_limits():
     ("namaAlgorithm", None, 25, "kernel"),
     (APG, None, 1024, "stream"),
     (APG, 1e-3, 1024, "plain"),
-    ("globalFbeAlgorithm", None, 1024, "plain"),
-    ("namaAlgorithm", None, 1024, "plain"),
+    ("globalFbeAlgorithm", None, 1024, "stream"),
+    ("namaAlgorithm", None, 1024, "stream"),
+    ("globalFbeAlgorithm", 1e-3, 1024, "plain"),
+    ("namaAlgorithm", 1e-3, 1024, "plain"),
 ])
 def test_auto_route_is_a_function_of_shapes(algorithm, tolerance, ns,
                                              route):
@@ -301,6 +303,12 @@ def test_auto_route_is_a_function_of_shapes(algorithm, tolerance, ns,
     dims = dict(CONFIG5, ns=ns)
     assert auto_route(algorithm, tolerance=tolerance, smem_limit=H100_SMEM,
                       **dims) == route
+    # the streaming history kernels take a buffer of up to 15
+    big = "plain" if route == "stream" and algorithm != APG else route
+    assert auto_route(algorithm, tolerance=tolerance, smem_limit=H100_SMEM,
+                      lbfgs_buffer_size=16, **dims) == big
+    assert auto_route(algorithm, tolerance=tolerance, smem_limit=H100_SMEM,
+                      lbfgs_buffer_size=15, **dims) == route
 
 
 def _port_controller(**kw):
@@ -342,12 +350,16 @@ def test_stream_backend_refusals():
     with pytest.raises(ValueError, match="tolerance"):
         _port_controller(backend="stream", tolerance=1e-3)
     for algorithm in ("globalFbeAlgorithm", "namaAlgorithm"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            _port_controller(backend="stream", algorithm=algorithm)
+        with pytest.raises(ValueError, match="tolerance"):
+            _port_controller(backend="stream", algorithm=algorithm,
+                             tolerance=1e-3)
+        ctrl = _port_controller(backend="stream", algorithm=algorithm)
+        ctrl.initialise()
+        assert ctrl.route == "stream"
     with pytest.raises(ValueError, match="stream_precision"):
         _port_controller(backend="stream", stream_precision="default")
-    with pytest.raises(NotImplementedError):
-        _port_controller(stream_lbfgs_dtype="bfloat16")
+    with pytest.raises(ValueError, match="stream_lbfgs_dtype"):
+        _port_controller(stream_lbfgs_dtype="float16")
     ctrl = _port_controller()
     with pytest.raises(ValueError, match="unknown backend 'stream'"):
         BatchedSmpcController(ctrl.config, ctrl.network, ctrl.tree,

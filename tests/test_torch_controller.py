@@ -241,10 +241,10 @@ def test_device_and_backend_requests_raise():
 
 
 def test_unported_options_raise():
-    """Multi-GPU solves, the streaming FBE/NAMA history option and a
-    stream precision that is not measured raise; single-device FBE
-    controllers, one instance or a batch, build, and an unknown
-    algorithm raises."""
+    """Multi-GPU solves, a stream precision that is not measured and a
+    streaming FBE/NAMA history storage other than float32 or bfloat16
+    raise; single-device FBE controllers, one instance or a batch, build,
+    with either history storage, and an unknown algorithm raises."""
     from rapidnet_tpu_torch import BatchedSmpcController, SmpcController
     from rapidnet_tpu_torch.model.config import ALGORITHM_FBE
     cfg, net, tree, fc = _problem("rapidnet_tpu_torch")
@@ -263,5 +263,7 @@ def test_unported_options_raise():
         SmpcController(cfg, mesh=object(), **kw)
     with pytest.raises(ValueError, match="stream_precision"):
         SmpcController(cfg, stream_precision="default", **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        SmpcController(cfg, stream_lbfgs_dtype="bfloat16", **kw)
+    assert SmpcController(fbe, stream_lbfgs_dtype="bfloat16",
+                          **kw).stream_lbfgs_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="stream_lbfgs_dtype"):
+        SmpcController(cfg, stream_lbfgs_dtype="float16", **kw)

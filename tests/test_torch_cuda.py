@@ -1,5 +1,6 @@
 """The CUDA kernels on the card: the whole-solve kernels, APG single and
-batched, FBE and NAMA single and batched, and the streaming APG kernels.
+batched, FBE and NAMA single and batched, the streaming APG kernels, and
+the streaming FBE/NAMA sweeps and history passes.
 
 These tests need a CUDA GPU and skip without one.  They import neither
 jax nor the JAX package, because the card's machine has no JAX; since
@@ -731,13 +732,14 @@ def test_fits_agrees_with_the_launch(cuda_device, ns):
 def test_smem_formulas_match_the_sources(cuda_device):
     """Each gate's shared-memory formula equals its source's, at the
     Barcelona-scale and BASELINE config 5 sizes and at a tiny tree."""
-    from rapidnet_tpu_torch.ops import apg_solve, apg_stream, build, qn_solve
+    from rapidnet_tpu_torch.ops import (apg_solve, apg_stream, build,
+                                        qn_solve, stream_qn)
 
     shapes = [(24, 25, 63, 114, 97), (24, 181, 63, 114, 97),
               (24, 1024, 63, 114, 97), (153, 25, 63, 114, 97),
               (8, 12, 4, 7, 5)]
     for name, mod in (("apg_solve", apg_solve), ("qn_solve", qn_solve),
-                      ("apg_stream", apg_stream)):
+                      ("apg_stream", apg_stream), ("stream_qn", stream_qn)):
         lib = build.load(name)
         for dims in shapes:
             build.check_smem(lib, name, dims, mod.smem(*dims))
@@ -777,3 +779,196 @@ def test_auto_streams_a_tree_past_the_whole_solve_kernel(cuda_device):
         assert auto[f"control{t}"] == stream[f"control{t}"]
         _close(torch.tensor(auto[f"control{t}"]),
                torch.tensor(plain[f"control{t}"]))
+
+
+# The streaming FBE/NAMA path: the sweeps S1/S2 (csrc/stream_qn.cu), in
+# the solve-step and the Hessian-oracle variants, and the history passes
+# (csrc/lbfgs.cu), in float32 and bfloat16 storage, each against its
+# plain version on seeded inputs: a sweep within 1e-4 of the largest
+# magnitude (as the streaming APG passes), the dots within 1e-5 of the
+# rep-weighted sum of the products' magnitudes and combine within 1e-6 *
+# max(|plain|, 1) (tests/test_torch_qn_stream.py's bounds against the JAX
+# package); the kernels reduce in a fixed order, so repeats are bit for
+# bit.  The whole solve on the card is held to the same solve on the CPU
+# (the plain versions) over 3 (FBE) and 2 (NAMA) iterations, with the
+# short-horizon bounds of tests/test_qn_stream.py:67-84.
+
+
+def _seeded(shape, device, seed, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(dtype).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("affine", [True, False], ids=["solve", "oracle"])
+@pytest.mark.parametrize("branching,N", [((3, 2, 2), 8), ((3, 3, 3), 6)])
+def test_stream_sweeps_match_plain(cuda_device, affine, branching, N):
+    from rapidnet_tpu_torch.ops import apg_stream as S
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+
+    fa, prefix, step, kw = _stream_problem(cuda_device, branching=branching,
+                                           N=N)
+    kc = S.stream_constants(fa, prefix_stages=prefix, max_iterations=ITERS)
+    N, ns, nx, nu, nv = SQ.dims(kc)
+    w = _seeded((N, ns, 2 * nx + nu), cuda_device, 3)
+    v = _seeded((N, ns, nv), cuda_device, 4)
+    pdu = step["prev_u"] - step["prev_uhat"]
+    aff = ((step["uhat"], step["e"], step["x0"], pdu) if affine
+           else (None,) * 4)
+    beta = step["beta"] if affine else None
+    n1, n2 = SQ.s1_call.launches, SQ.s2_call.launches
+    got_v = SQ.s1_call(kc, w, beta)
+    got = SQ.s2_call(kc, v, *aff)
+    assert (SQ.s1_call.launches, SQ.s2_call.launches) == (n1 + 1, n2 + 1)
+    _close(got_v, SQ.s1_plain(kc, w, beta))
+    for g, r in zip(got, SQ.s2_plain(kc, v, *aff)):
+        _close(g, r)
+    assert torch.equal(SQ.s1_call(kc, w, beta), got_v)
+    assert torch.equal(SQ.s2_call(kc, v, *aff)[2], got[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_history_passes_match_plain(cuda_device, dtype):
+    from rapidnet_tpu_torch.ops import lbfgs as LB
+
+    M, N, ns, D = 6, 8, 37, 15
+    mat_s = _seeded((M, N, ns, D), cuda_device, 5, dtype)
+    mat_y = _seeded((M, N, ns, D), cuda_device, 6, dtype)
+    mat_s[0] = 0
+    mat_y[0] = 0
+    s = _seeded((N, ns, D), cuda_device, 7, dtype)
+    yv = _seeded((N, ns, D), cuda_device, 8, dtype)
+    g = _seeded((N, ns, D), cuda_device, 9)
+    rep = (_seeded((N, ns), cuda_device, 10) > -0.5).float()
+    n0 = LB.dots.launches
+    got = LB.dots(rep, mat_s, mat_y, s, yv, g)
+    assert LB.dots.launches == n0 + 1
+    ref = LB.dots_plain(rep, mat_s, mat_y, s, yv, g)
+    mag = LB.dots_plain(rep, mat_s.abs(), mat_y.abs(), s.abs(), yv.abs(),
+                        g.abs())
+    for a, b, m in zip(got, ref, mag):
+        assert bool(((a - b).abs() <= 1e-5 * m).all()), (a - b).abs().max()
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, LB.dots(rep, mat_s, mat_y, s, yv, g)))
+    coef = _seeded((2 * M + 1,), cuda_device, 11)
+    out = LB.combine(coef, mat_s, mat_y, g)
+    ref = LB.combine_plain(coef, mat_s, mat_y, g)
+    bound = 1e-6 * max(float(ref.abs().max()), 1.0)
+    assert float((out - ref).abs().max()) <= bound
+    assert torch.equal(out, LB.combine(coef, mat_s, mat_y, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lbfgs_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("algorithm,iters", [("globalFbeAlgorithm", 4),
+                                             ("namaAlgorithm", 3)])
+def test_qn_stream_solve_matches_cpu(cuda_device, algorithm, iters,
+                                     lbfgs_dtype):
+    """The streaming solve through the kernels (its third iteration
+    captured and replayed as a CUDA graph) against the same solve on the
+    CPU (every wrapper's plain version, every iteration enqueued);
+    repeats bit for bit."""
+    from rapidnet_tpu_torch.ops import lbfgs as LB
+    from rapidnet_tpu_torch.solver.qn_stream import make_qn_stream
+
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        fa, prefix, step, kw = _stream_problem(dev, max_iterations=iters)
+        run = make_qn_stream(fa, algorithm=algorithm, prefix_stages=prefix,
+                             lbfgs_buffer_size=5, lbfgs_dtype=lbfgs_dtype,
+                             **kw)
+        n0 = LB.dots.launches
+        out[dev.type] = run(step)
+        if dev.type == "cuda":
+            assert LB.dots.launches == n0 + min(iters, 3) - 1
+            again = run(step)
+            for k in ("u", "x", "v", "value_fbe", "tau"):
+                assert torch.equal(again[k], out["cuda"][k]), k
+    got, ref = out["cuda"], out["cpu"]
+
+    def scaled(k, a, b):
+        b = b.cpu()
+        bound = 5e-4 * max(float(b.abs().max()), 1.0)
+        assert float((a.cpu() - b).abs().max()) <= bound, k
+
+    for k in ("control", "u", "x", "v"):
+        scaled(k, got[k], ref[k])
+    for k in ("xi", "psi"):
+        scaled(k, got["y"][k], ref["y"][k])
+    np.testing.assert_allclose(_np(got["value_fbe"]), _np(ref["value_fbe"]),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(got["tau"]), _np(ref["tau"]), atol=1e-6)
+    np.testing.assert_allclose(_np(got["primal_infeasibility"]),
+                               _np(ref["primal_infeasibility"]), rtol=1e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_auto_streams_qn_past_the_whole_solve_kernel(cuda_device):
+    """SmpcController(device='cuda') with FBE and backend 'auto' on a tree
+    of 182 scenarios at the Barcelona-scale widths: the streaming QN
+    kernels run (three sweep pairs an iteration after the first, one dots
+    and one combine pass; the wrappers are called for the first three
+    iterations, the third captured and replayed), the whole-solve QN
+    kernel does not, and the bf16 history runs too."""
+    from rapidnet_tpu_torch import SmpcController
+    from rapidnet_tpu_torch.model.config import synthetic_config
+    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
+    from rapidnet_tpu_torch.model.network import synthetic_network
+    from rapidnet_tpu_torch.model.scenario_tree import generate_tree
+    from rapidnet_tpu_torch.ops import lbfgs as LB
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+
+    iters, steps = 6, 2
+
+    def run(backend, **kw):
+        net = synthetic_network(nx=63, nu=114, nd=88, ne=17, seed=7)
+        tree = generate_tree(N=4, branching=[182], nd=88, nu=114, seed=7)
+        fc = synthetic_forecaster(N=4, nd=88, nu=114, sim_horizon=3, seed=7)
+        cfg = synthetic_config(net, tree, max_iterations=iters,
+                               step_size=1e-3)
+        cfg.algorithm = "globalFbeAlgorithm"
+        ctrl = SmpcController(cfg, network=net, tree=tree, forecaster=fc,
+                              backend=backend, **kw)
+        return ctrl, ctrl.closed_loop(steps)
+
+    n0 = (SQ.s1_call.launches, LB.dots.launches, LB.combine.launches,
+          Q.qn_solve.launches)
+    ctrl, auto = run("auto")
+    assert ctrl.route == "stream"
+    assert (SQ.s1_call.launches - n0[0], LB.dots.launches - n0[1],
+            LB.combine.launches - n0[2], Q.qn_solve.launches - n0[3]) == (
+        steps * (2 + 3 * 2), steps * 2, steps * 2, 0)
+    _, stream = run("stream")
+    _, bf16 = run("stream", stream_lbfgs_dtype="bfloat16")
+    for t in range(steps):
+        assert auto[f"control{t}"] == stream[f"control{t}"]
+        assert np.isfinite(bf16[f"control{t}"]).all()
+
+
+@pytest.mark.cuda
+def test_leak_census_counts_what_tensors_hold(cuda_device):
+    """``device_bytes_in_use`` counts the bytes live tensors asked for: a
+    request served by a cached block up to 1 MB larger (which the
+    allocator hands out whole) counts its own size, so two solves that
+    hold the same tensors count the same."""
+    from rapidnet_tpu_torch import SmpcController
+    from rapidnet_tpu_torch.model.config import synthetic_config
+    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
+    from rapidnet_tpu_torch.model.network import synthetic_network
+    from rapidnet_tpu_torch.model.scenario_tree import generate_tree
+
+    net = synthetic_network(nx=4, nu=7, nd=3, ne=2, seed=7)
+    tree = generate_tree(N=4, branching=[2], nd=3, nu=7, seed=7)
+    fc = synthetic_forecaster(N=4, nd=3, nu=7, sim_horizon=3, seed=7)
+    ctrl = SmpcController(synthetic_config(net, tree), network=net,
+                          tree=tree, forecaster=fc)
+    big = torch.empty(11436032 // 4, device=cuda_device)
+    del big                                       # a cached block
+    base = ctrl.device_bytes_in_use()
+    held = torch.cuda.memory_allocated(cuda_device)
+    t = torch.empty(11206656 // 4, device=cuda_device)
+    assert ctrl.device_bytes_in_use() - base == t.numel() * 4
+    assert torch.cuda.memory_allocated(cuda_device) - held >= t.numel() * 4
