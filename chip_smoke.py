@@ -189,6 +189,47 @@ config 5, L-BFGS buffer 5, 500 iterations:
     each kernel's ms per call at the main path's shapes beside its plain
     version's and its bound.
 
+Then the scenario-sharded streaming solves (``ops/apg_stream_sharded.py``,
+``solver/qn_stream.py`` with ``mesh=``; the per-shard K1/K2 and S1/S2 of
+``csrc/apg_stream.cu`` and ``csrc/stream_qn.cu`` and the partial parent
+block of ``csrc/stream_sharded.cu``) at config 5 over MESH_RANKS = 2
+ranks: two processes, spawned once the kernels are built, share card 0
+over a gloo group (NCCL refuses two ranks on one card).  Both ranks run
+every phase; rank 0 prints:
+
+23. one K1a pass (K1 over the rank's slots and stages N-1 .. s_hi, then
+    the partial parent block), one partial parent block, one K2 pass on
+    the block, and one sharded S1 pass (with its all-reduce and
+    root-side stages) and one S2 pass on the block in each variant, from
+    phase 15's stressed state, each within PASS_FACTOR * max(|plain|, 1)
+    of the plain halves on the same card;
+24. the 500-iteration sharded APG solve against the single-device
+    streaming solve (phase 16's kernels): control, u, x and the trace
+    within 1e-3 * max(|ref|, 1) or under the float64 witness rule; a warm
+    start likewise; two calls equal bit for bit;
+25. FBE and NAMA: TRACK (as 9a) between the sharded and the single-device
+    streaming solves, at least QN_SHORT; the MESH_QN_ITER-iteration
+    (cut from 500) solve's residual tail within 10 times the
+    single-device solve's; two calls equal bit for bit; the bf16
+    history's control within 1e-1 * max(|f32|, 1); MESH_QN_REPEATS
+    solves per algorithm and history storage, timed;
+26. the main path: 4-step loops through ``SmpcController(mesh=...,
+    backend="auto")`` for APG (500 iterations) and FBE and NAMA
+    (MESH_LOOP_ITER iterations a step, cut from 500 to fit the time
+    limit): the route, every sharded wrapper's calls and no other
+    kernel's, finite controls and KPIs, no leak; each against the
+    single-device ``auto`` path (APG: the loop's controls within 1e-3 *
+    max(|ref|, 1); FBE/NAMA: every step's solve, from the sharded loop's
+    own step and warm start, held by 25's rule to the single-device auto
+    solve of those inputs: TRACK at least QN_SHORT and the residual tail
+    within 10 times);
+27. timing: the median ms of 7 sharded APG solves and of 25's QN solves,
+    rank 0's profile over PROFILE_ITER iterations (device µs per
+    iteration of each kernel and of the glue, host µs in the collectives,
+    idle share), each sharded kernel's ms per pass on rank 0's block
+    (rank 1 idle) beside its plain half's and its bound, the peak memory
+    of each rank.
+
 Each phase prints its own line.  The last lines are the card's name and
 power limit, one JSON line describing each kernel (with its bound: the
 larger of its FP32 operations over 67 TFLOP/s and its bytes, each input
@@ -202,6 +243,7 @@ from __future__ import annotations
 import argparse
 import copy
 import ctypes
+import gc
 import json
 import subprocess
 import sys
@@ -227,7 +269,7 @@ PIPELINE_DEPTH, PIPELINE_ROUNDS = 4, 3     # bench.py:161-171
 FP32_FLOPS = 67e12    # H100 SXM, FP32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 KERNELS = ("apg_solve", "qn_solve", "apg_stream", "stream_qn",
-           "lbfgs")                         # sources under csrc/
+           "lbfgs", "stream_sharded")       # sources under csrc/
 REFERENCE_KERNELS = ("apg_solve", "qn_solve", "apg_stream")   # the solves
                                             # --reference-kernel holds
 BARCELONA_BRANCHING = (5, 5)        # bench.py:42-65: 556 nodes, ns 25
@@ -480,6 +522,7 @@ def wrappers():
     """Each kernel wrapper, by the name its launches are counted under."""
     from rapidnet_tpu_torch.ops import apg_solve as K
     from rapidnet_tpu_torch.ops import apg_stream as S
+    from rapidnet_tpu_torch.ops import apg_stream_sharded as SS
     from rapidnet_tpu_torch.ops import lbfgs as LB
     from rapidnet_tpu_torch.ops import qn_solve as Q
     from rapidnet_tpu_torch.ops import stream_qn as SQ
@@ -488,7 +531,11 @@ def wrappers():
             "apg_stream": S.apg_stream, "apg_stream.k1": S.k1_call,
             "apg_stream.k2": S.k2_call, "stream_qn.s1": SQ.s1_call,
             "stream_qn.s2": SQ.s2_call, "lbfgs.dots": LB.dots,
-            "lbfgs.combine": LB.combine}
+            "lbfgs.combine": LB.combine,
+            "apg_stream_sharded.k1a": SS.k1a_call,
+            "apg_stream_sharded.k2": SS.k2_local,
+            "stream_sharded.partial_parents": SS.partial_parents,
+            "stream_qn.s1a": SQ.s1a_call}
 
 
 def zero_counts():
@@ -1795,6 +1842,30 @@ def history_work(E, rows, M, size, dots):
     return 2 * (2 * M + 1) * E, 2 * M * E * size + 8 * E + 4 * (2 * M + 1)
 
 
+def tracking(tag, kern, plain, min_track):
+    """9a's TRACK between two solves of n iterations (kern(n),
+    plain(n)): the traces within the JAX bounds, then control and u;
+    at least ``min_track``."""
+    k_s, p_s = kern(QN_TRACK_MAX), plain(QN_TRACK_MAX)
+    traced = qn_horizon(k_s, p_s, QN_TRACK_MAX)
+    track = traced
+    while track >= min_track:
+        k_t, p_t = kern(track), plain(track)
+        agree, u_atol = solutions_agree(k_t, p_t)
+        if agree:
+            break
+        track -= 1
+    print(f"[stream_qn] {tag}: TRACK {track} (traces within the JAX "
+          f"bounds over {traced} of {QN_TRACK_MAX} iterations, control "
+          f"and u after the first {track})")
+    if track < min_track:
+        raise SmokeFailure(f"{tag}: the two solves track over {track} "
+                           f"iterations, fewer than {min_track}")
+    check_allclose(f"{tag}.control", k_t["control"], p_t["control"],
+                   1e-3, 1e-4)
+    return check_allclose(f"{tag}.u", k_t["u"], p_t["u"], 0.0, u_atol)
+
+
 def stream_qn_phases(device, problem, kq_b, kc_b, step_b, hyper_b):
     """Phases 19-22, the streaming FBE/NAMA path at BASELINE config 5
     (``problem``, phase 15's), and in 20 on the Barcelona problem against
@@ -1886,29 +1957,6 @@ def stream_qn_phases(device, problem, kq_b, kc_b, step_b, hyper_b):
         return qn_mod.make_solver(
             algorithm=algorithm, prefix_stages=consts["prefix_stages"],
             lbfgs_buffer_size=bs, **dict(hy, max_iterations=n))(f, step, y0)
-
-    def tracking(tag, kern, plain, min_track):
-        """9a's TRACK between two solves of n iterations (kern(n),
-        plain(n)): the traces within the JAX bounds, then control and u;
-        at least ``min_track``."""
-        k_s, p_s = kern(QN_TRACK_MAX), plain(QN_TRACK_MAX)
-        traced = qn_horizon(k_s, p_s, QN_TRACK_MAX)
-        track = traced
-        while track >= min_track:
-            k_t, p_t = kern(track), plain(track)
-            agree, u_atol = solutions_agree(k_t, p_t)
-            if agree:
-                break
-            track -= 1
-        print(f"[stream_qn] {tag}: TRACK {track} (traces within the JAX "
-              f"bounds over {traced} of {QN_TRACK_MAX} iterations, control "
-              f"and u after the first {track})")
-        if track < min_track:
-            raise SmokeFailure(f"{tag}: the two solves track over {track} "
-                               f"iterations, fewer than {min_track}")
-        check_allclose(f"{tag}.control", k_t["control"], p_t["control"],
-                       1e-3, 1e-4)
-        return check_allclose(f"{tag}.u", k_t["u"], p_t["u"], 0.0, u_atol)
 
     # 20. the solve: kernels against the plain QN solve over the horizon
     # over which two float32 solves track; the residual tail at 500
@@ -2192,6 +2240,648 @@ def stream_qn_phases(device, problem, kq_b, kc_b, step_b, hyper_b):
     return entries
 
 
+MESH_RANKS = 2        # phases 23-27: two ranks share card 0 over gloo
+MESH_TIMEOUT = 1500   # s the parent waits for the ranks' results
+MESH_LOOP_ITER = 50   # phase 26's QN loops: iterations per step (cut from
+                      # 500: a sharded QN iteration takes ~35 ms here)
+MESH_QN_ITER = 200    # phases 25/27's sharded QN solves (cut from 500:
+                      # a sharded QN iteration takes ~40 ms here)
+MESH_QN_REPEATS = 3   # phases 25/27: sharded QN solves timed per
+                      # algorithm and history storage
+def mesh_qn_counts(algorithm, iterations, solves=1):
+    """The wrapper calls of ``solves`` sharded FBE/NAMA solves: every
+    iteration runs eagerly (no graph on a mesh), the first with the
+    solve step's sweeps (and FBE's gradient oracle), every later one with
+    three sweeps, one dots and one combine pass; each sharded backward
+    sweep launches one partial parent block."""
+    first = 2 if algorithm == QN_ALGORITHMS["fbe"] else 1
+    sweeps = solves * (first + 3 * (iterations - 1))
+    passes = solves * (iterations - 1)
+    return {"stream_qn.s1a": sweeps, "stream_qn.s2": sweeps,
+            "stream_sharded.partial_parents": sweeps,
+            "lbfgs.dots": passes, "lbfgs.combine": passes}
+
+
+def shard_work(kc):
+    """Per pass on a rank's block: the products on its tree nodes (the
+    rep mask counts a node once) and handoffs, and the bytes (inputs read
+    once, outputs written once) of K1a (stages N-1 .. s_hi with the dual
+    update), K2, the partial parent block, the sharded S1 (stages N-1 ..
+    s_hi; solve step and oracle) and S2 on the block: {name: (flops,
+    bytes) or (flops, bytes solve step, bytes oracle)}."""
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+    N, nsl, nx, nu, nv = SQ.dims(kc)
+    s_hi = kc["s_hi"]
+    D, W = 2 * nx + nu, nx + nv
+    high = int((kc["rep"][s_hi:] > 0).sum())
+    nodes = int((kc["rep"] > 0).sum())
+    rows_h, rows = (N - s_hi) * nsl, N * nsl
+    children = int(kc["agg_ptr"][-1]) if kc["agg_stages"] else 0
+    consts = sum(kc[k].numel() * 4 for k in
+                 ("cx1", "cx2", "cu", "bx_min", "bx_max", "bx_s", "bu_min",
+                  "bu_max", "L", "BbT", "iWT", "LT", "BT"))
+    bw = 2 * (nv * nx + nv * nu + nv * nv)
+    fw = 2 * (nu * nv + nx * nu)
+    R = kc["n_parents"]
+    pp = (int(kc["x_Cp"].sum()) * W, 4 * (nsl * W + R * W))
+    k1a_b = consts + 4 * rows_h * (3 * D + nv + 2) + 4 * rows_h * (
+        2 * D + nv) + 4 * R * W
+    k2_b = consts + 4 * rows * (nv + nu + nx + 2 * D + 3) + 4 * rows * (
+        nx + nu + D)
+    s1_b = consts + 4 * rows_h * (D + 2) + 4 * rows_h * nv + 4 * R * W
+    s2_b = consts + 4 * rows * (nv + 1) + 4 * rows * (nx + nu + D)
+    return {"k1a": (high * bw + children * W, k1a_b),
+            "k2": (nodes * fw, k2_b),
+            "partial_parents": pp,
+            "s1a": (high * bw + children * W, s1_b + 4 * rows_h * nv, s1_b),
+            "s2": (nodes * fw, s2_b + 4 * rows * (nu + nx) + 4 * (nx + nu),
+                   s2_b)}
+
+
+def mesh_profile(run, n_it, names):
+    """One ``run()`` of ``n_it`` iterations under ``torch.profiler`` on
+    this rank: device µs per iteration of the kernels in ``names`` and
+    of every other device kernel (the glue), the host µs per iteration
+    inside the collectives (the gloo calls, which copy CUDA tensors to
+    the host and back), the busy share of the span; None where the trace
+    holds no device time.  The collectives are the ``mesh.*`` spans
+    ``parallel.Mesh`` records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e for e in events
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not dev:
+        return None
+    per = dict.fromkeys(list(names) + ["glue"], 0.0)
+    for e in dev:
+        key = next((n for n in names if n in e.name), "glue")
+        per[key] += e.time_range.end - e.time_range.start
+    coll = [(e.time_range.start, e.time_range.end) for e in events
+            if e.name.startswith("mesh.")]
+    busy, span = busy_span([(e.time_range.start, e.time_range.end)
+                            for e in dev])
+    out = {k: v / n_it for k, v in per.items()}
+    out["collectives_host"] = (busy_span(coll)[0] / n_it if coll else 0.0)
+    out.update(busy_ms=busy / 1e3, span_ms=span / 1e3,
+               idle_share=1.0 - busy / span)
+    return out
+
+
+def mesh_phases(mesh):
+    """Phases 23-27 on this rank of a two-rank mesh on card 0 (every rank
+    runs them; rank 0 prints and reports): the sharded streaming APG and
+    FBE/NAMA solves at BASELINE config 5.  Returns (the JSON entries of
+    the sharded kernels, the counts of phase 26's main-path runs, this
+    rank's peak memory)."""
+    import numpy as np
+    import torch
+    from rapidnet_tpu_torch.engine.engine import XS_UPPER
+    from rapidnet_tpu_torch.ops import apg_stream as S
+    from rapidnet_tpu_torch.ops import apg_stream_sharded as SS
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+    from rapidnet_tpu_torch.solver import qn_stream as QS
+    from rapidnet_tpu_torch.solver.controller import SmpcController
+
+    dev = mesh.device
+    t0 = time.perf_counter()
+
+    def lap(phase):
+        print(f"[time] phase {phase}: {time.perf_counter() - t0:.3f} s "
+              "since the ranks began")
+
+    cfg, eng, net, tree, fa, make_step, _ = build_problem(
+        dev, CONFIG5_BRANCHING)
+    prefix = eng.factor_step().prefix_stages
+    got = mesh.pmax(torch.tensor([cfg.step_size], device=dev))
+    if float(got) != float(np.float32(cfg.step_size)):
+        raise SmokeFailure("the ranks tuned different step sizes")
+    hyper = dict(inv_step=1.0 / cfg.step_size, step_size=cfg.step_size,
+                 penalty_state=cfg.penalty_state,
+                 penalty_safety=cfg.penalty_safety,
+                 xs_upper=float(XS_UPPER), max_iterations=MAX_ITER)
+    bs = int(cfg.lbfgs_buffer_size)
+    kc1 = S.stream_constants(fa, prefix_stages=prefix,
+                             max_iterations=MAX_ITER)
+    run_apg = SS.make_apg_stream_sharded(mesh, fa, prefix_stages=prefix,
+                                         **hyper)
+    kc = run_apg.consts
+    print(f"[mesh] 23: config 5 on {mesh.size} ranks sharing {dev} over "
+          f"gloo; this rank's {kc['nsl']} of {kc['ns']} slots; top cross "
+          f"stage s_hi {kc['s_hi']}, cross stages {kc['cross_stages']}; "
+          f"K1/S1 launches over stages {kc['ranges']} (built and tuned in "
+          f"{time.perf_counter() - t0:.3f} s)")
+    errs = {}
+
+    # 23. one K1a, partial parent and sharded S1 pass (both variants)
+    # against the plain halves, from phase 15's stressed state
+    step_hot = make_step((1.2 * net.xmax).astype(np.float32))
+    ps = S.plain_iterations(kc1, step_hot, iterations=PASS_ITER, **hyper)
+    sl = kc["slots"]
+    stl = SS.shard_step(kc, step_hot)
+    lams = kc["lams"]
+    sc = torch.stack([lams[PASS_ITER - 1], lams[PASS_ITER],
+                      torch.ones((), device=dev),
+                      torch.tensor(PASS_SHRINKS[0], device=dev),
+                      torch.tensor(PASS_SHRINKS[1], device=dev)])
+
+    def stressed():
+        st = SS.new_state(kc, stl, None, MAX_ITER)
+        for k in ("xi", "psi"):
+            st[f"pre_{k}"].copy_(ps["pre"][k][:, sl])
+            st[f"y_{k}"].copy_(ps["y"][k][:, sl])
+            st[f"z_{k}"].copy_(ps["z"][k][:, sl])
+        st["sc"].copy_(sc)
+        return st
+
+    ratio = 0.0
+
+    def held(name, got_, ref):
+        nonlocal ratio
+        err = check_close(name, got_, ref, PASS_FACTOR)
+        ratio = max(ratio, err / max(float(ref.abs().max()), 1.0))
+        errs[name] = max(errs.get(name, 0.0), err)
+        return err
+
+    st_k, st_p = stressed(), stressed()
+    ext_k, par_k = SS.k1a_call(kc, stl, st_k, **hyper)
+    ext_p, par_p = SS.k1a_plain(kc, stl, st_p, **hyper)
+    hs = slice(kc["s_hi"], None)
+    err_k1a = 0.0
+    for k in ("y_xi", "y_psi", "z_xi", "z_psi", "v"):
+        err_k1a = max(err_k1a, held(f"23.k1a.{k}", st_k[k][hs], st_p[k][hs]))
+    err_k1a = max(err_k1a, held("23.k1a.extrema", ext_k, ext_p))
+    err_k1a = max(err_k1a, held("23.k1a.parents", par_k, par_p))
+    last = st_k["carry"][(len(kc["ranges"]) - 1) & 1]
+    err_pp = held("23.partial_parents", SS.partial_parents(kc, last),
+                  SS.partial_parents_plain(kc, last))
+    # one K2 pass on the block from K1a's duals and v (zero below s_hi)
+    st_p["v"][:kc["s_hi"]] = 0.0
+    st_2 = stressed()
+    for k in ("y_xi", "y_psi", "z_xi", "z_psi", "v"):
+        st_2[k].copy_(st_p[k])
+    d_k = SS.k2_local(kc, stl, st_2, **hyper)
+    pdu = (stl["prev_u"] - stl["prev_uhat"]).contiguous()
+    x_p, u_p, pre_p, d1_p, d2_p = S.k2_plain(
+        kc, st_p["v"], stl["uhat"], stl["e"], stl["x0"], pdu,
+        {"xi": st_p["y_xi"], "psi": st_p["y_psi"]},
+        {"xi": st_p["z_xi"], "psi": st_p["z_psi"]}, lam_i=sc[1],
+        c=hyper["inv_step"], xs_upper=hyper["xs_upper"])
+    err_k2 = max(held("23.k2.x", st_2["x"], x_p),
+                 held("23.k2.u", st_2["u"], u_p),
+                 held("23.k2.pre.xi", st_2["pre_xi"], pre_p["xi"]),
+                 held("23.k2.pre.psi", st_2["pre_psi"], pre_p["psi"]),
+                 held("23.k2.dsq", d_k, torch.stack([d1_p, d2_p])))
+    w = torch.cat([ps["y"]["xi"], ps["y"]["psi"]], dim=-1)[:, sl].contiguous()
+    err_s1 = 0.0
+    for name, beta in (("solve", stl["beta"]), ("oracle", None)):
+        err_s1 = max(err_s1, held(f"23.s1a.{name}",
+                                  SQ.s1a_call(kc, w, mesh, beta),
+                                  SQ.s1a_plain(kc, w, mesh, beta)))
+    v_in = SQ.s1a_plain(kc, w, mesh, stl["beta"])
+    err_s2 = 0.0
+    for name, aff in (("solve", (stl["uhat"], stl["e"], stl["x0"], pdu)),
+                      ("oracle", ())):
+        for a, b, k in zip(SQ.s2_call(kc, v_in, *aff),
+                           SQ.s2_plain(kc, v_in, *aff), ("x", "u", "pr")):
+            err_s2 = max(err_s2, held(f"23.s2.{name}.{k}", a, b))
+    print(f"[mesh] 23: K1a, the partial parent block, K2 and the sharded S1 "
+          f"(both variants) hold their plain halves on this rank's block; "
+          f"largest deviation {ratio:.6g} x max(|plain|, 1) (bound "
+          f"{PASS_FACTOR:g})")
+    del ps, st_k, st_p, st_2, w, v_in
+    lap(23)
+
+    # 24. the 500-iteration sharded APG solve against the single-device
+    # streaming kernels' (phase 16's), a warm start, repeats
+    step = make_step(cfg.current_x)
+    ref = S.apg_stream(kc1, step, None, **hyper)
+    out = run_apg(step)
+    run_plain = None
+    f64 = {}
+
+    def witness(key, y0=None):
+        nonlocal run_plain
+        from rapidnet_tpu_torch.solver import apg as apg_mod
+        if run_plain is None:
+            run_plain = apg_mod.make_apg(prefix_stages=prefix, **hyper)
+        tag = "warm" if y0 is not None else "cold"
+        if tag not in f64:
+            f64[tag] = run_plain(as_f64(fa), as_f64(step),
+                                 None if y0 is None else as_f64(y0))
+        return f64[tag][key]
+
+    err_apg = 0.0
+    for k in ("control", "u", "x", "primal_infeasibility"):
+        err_apg = max(err_apg, close_or_witness(
+            f"24.{k}", out[k], ref[k], lambda k=k: witness(k)))
+    y0 = ref["y"]
+    out_w = run_apg(step, y0)
+    ref_w = S.apg_stream(kc1, step, y0, **hyper)
+    for k in ("control", "u", "x"):
+        close_or_witness(f"24.warm.{k}", out_w[k], ref_w[k],
+                         lambda k=k: witness(k, y0))
+    again = run_apg(step)
+    same = outputs_equal(again, out, ("x", "u", "v", "control",
+                                      "primal_infeasibility"))
+    print(f"[mesh] 24: the sharded APG solve ({MAX_ITER} iterations) holds "
+          f"the single-device streaming solve; warm start held; two calls "
+          f"equal bit for bit: {same}")
+    if not same:
+        raise SmokeFailure("24: the sharded APG solve does not repeat")
+    del ref, out_w, ref_w, again, f64
+    lap(24)
+
+    # 25. FBE and NAMA, f32 and bf16 history: TRACK against the
+    # single-device streaming QN solve, the residual tail against its
+    # solve of as many iterations, bf16 vs f32, repeats; the solves are
+    # phase 27's timed samples
+    def qn(algorithm, n=MAX_ITER, dtype="float32", sharded=True):
+        return QS.make_qn_stream(
+            fa, algorithm=algorithm, prefix_stages=prefix,
+            lbfgs_buffer_size=bs, lbfgs_dtype=dtype,
+            mesh=mesh if sharded else None,
+            **dict(hyper, max_iterations=n))
+
+    # two solves of ``step`` (the repeat check) and one of a perturbed
+    # state, per history storage
+    staged = [step, step] + [make_step(x) for x in perturbed(
+        cfg.current_x, np.random.default_rng(7), MESH_QN_REPEATS - 2)]
+    qn_times, qn_peak = {}, {}
+    for short, algorithm in QN_ALGORITHMS.items():
+        errs[f"qn.{short}"] = tracking(
+            f"25.{short}", lambda n: qn(algorithm, n)(step),
+            lambda n: qn(algorithm, n, sharded=False)(step),
+            QN_SHORT[short])
+        single = qn(algorithm, MESH_QN_ITER, sharded=False)(step)
+        runs = {}
+        for dtype in ("float32", "bfloat16"):
+            run = qn(algorithm, MESH_QN_ITER, dtype=dtype)
+            times, outs = [], []
+            torch.cuda.synchronize()
+            held_b = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for i, st in enumerate(staged):
+                ms, _, o = timed(lambda: run(st))
+                times.append(ms)
+                if i < 2:
+                    outs.append(o)
+                del o
+            runs[dtype] = outs
+            qn_peak[(short, dtype)] = (torch.cuda.max_memory_allocated() -
+                                       held_b)
+            qn_times[(short, dtype)] = times
+        k_full, again = runs["float32"]
+        same = outputs_equal(again, k_full, ("x", "u", "v", "control") +
+                             QN_TRACES)
+        tail_k = float(np.median(
+            k_full["primal_infeasibility"].abs().cpu().numpy()[-20:]))
+        tail_s = float(np.median(
+            single["primal_infeasibility"].abs().cpu().numpy()[-20:]))
+        u0 = k_full["control"]
+        dev16 = float((runs["bfloat16"][0]["control"] - u0).abs().max())
+        scale = max(float(u0.abs().max()), 1.0)
+        print(f"[mesh] 25.{short}: {MESH_QN_ITER} iterations: median "
+              f"|infeasibility| of the last 20: sharded {tail_k:.6g}, single "
+              f"device {tail_s:.6g}; two calls equal bit for "
+              f"bit: {same}; bf16 history: max |control - f32's| "
+              f"{dev16:.6g} ({dev16 / scale:.6g} of max(|f32|, 1); gate "
+              f"1e-1)")
+        if not (bool(torch.isfinite(k_full["u"]).all()) and same):
+            raise SmokeFailure(f"25.{short}: non-finite or repeats differ")
+        if not tail_k < 10 * max(tail_s, 1e-6):
+            raise SmokeFailure(f"25.{short}: residual tail {tail_k:.6g} "
+                               f"above 10 x the single-device solve's")
+        if not dev16 <= 1e-1 * scale:
+            raise SmokeFailure(f"25.{short}.bf16: the control strays")
+        del runs, again, k_full, single
+    lap(25)
+
+    # 26. the main path: 4-step loops through SmpcController(mesh=...,
+    # backend="auto") for APG, FBE and NAMA, counted; APG against the
+    # single-device auto loop, each FBE/NAMA step's solve against the
+    # single-device auto solve of the same step and warm start
+    counts = {}
+
+    def host(d):
+        return None if d is None else {
+            k: v.cpu() if torch.is_tensor(v) else v for k, v in d.items()}
+
+    def card(d):
+        return None if d is None else {
+            k: v.to(dev) if torch.is_tensor(v) else v for k, v in d.items()}
+
+    def controller(algorithm, sharded, iters):
+        c = copy.deepcopy(cfg)
+        c.algorithm = algorithm
+        c.max_iterations = iters
+        ctrl = SmpcController(c, network=net, tree=tree,
+                              forecaster=forecaster(net), backend="auto",
+                              device="cuda", mesh=mesh if sharded else None)
+        ctrl.initialise()
+        return ctrl
+
+    def loop(algorithm, sharded, iters):
+        ctrl = controller(algorithm, sharded, iters)
+        solves, inputs = [], []
+        solve = ctrl._solver
+
+        def kept(step, y0):
+            # host copies: the loop's leak census counts device bytes
+            inputs.append((host(step), host(y0)))
+            o = solve(step, y0)
+            solves.append({k: o[k].cpu() for k in QN_TRACES + ("control",)
+                           if k in o})
+            return o
+
+        ctrl._solver = kept
+        zero_counts()
+        t_0 = time.perf_counter()
+        log = ctrl.closed_loop(STREAM_LOOP_STEPS)
+        loop_ms = (time.perf_counter() - t_0) * 1e3 / STREAM_LOOP_STEPS
+        n = {k: fn.launches for k, fn in wrappers().items() if fn.launches}
+        controls = np.array([log[f"control{t}"]
+                             for t in range(STREAM_LOOP_STEPS)])
+        kpis = {k: log[k] for k in KPI_KEYS}
+        return (ctrl.route, controls, kpis, n, solves, inputs, loop_ms,
+                log)
+
+    for name, algorithm in (("apg", cfg.algorithm),
+                            ("fbe", QN_ALGORITHMS["fbe"]),
+                            ("nama", QN_ALGORITHMS["nama"])):
+        iters = MAX_ITER if name == "apg" else MESH_LOOP_ITER
+        route, ctl, kpis, n, solves, inputs, loop_ms, log = loop(
+            algorithm, True, iters)
+        if name == "apg":
+            want = {k: STREAM_LOOP_STEPS * iters for k in
+                    ("apg_stream_sharded.k1a", "apg_stream_sharded.k2",
+                     "stream_sharded.partial_parents")}
+        else:
+            want = mesh_qn_counts(algorithm, iters, STREAM_LOOP_STEPS)
+        print(f"[mesh] 26.{name}: route {route}, {STREAM_LOOP_STEPS} steps "
+              f"of {iters} iterations, launches {json.dumps(n)}; solve ms "
+              f"per step {', '.join(f'{log[f'time{t}'][0]:.3f}' for t in range(STREAM_LOOP_STEPS))}"
+              f"; whole step {loop_ms:.3f} ms; kpis {json.dumps(kpis)}")
+        if n != want:
+            raise SmokeFailure(f"26.{name}: launches {n}, expected {want}")
+        for k, v in n.items():
+            counts[k] = counts.get(k, 0) + v
+        if route != "stream" or not (
+                np.isfinite(ctl).all() and
+                np.isfinite(list(kpis.values())).all()):
+            raise SmokeFailure(f"26.{name}: route {route} or non-finite "
+                               "controls or KPIs")
+        if "memoryLeakWarning" in log:
+            raise SmokeFailure(log["memoryLeakWarning"])
+        if name == "apg":
+            ref_c = loop(algorithm, False, iters)[1]
+            check_close("26.apg.controls", torch.as_tensor(ctl),
+                        torch.as_tensor(ref_c))
+            continue
+        # the two loops' states part after a step (each applies its own
+        # control), so every step's solve is held to the single-device
+        # auto solve of the sharded loop's own step and warm start
+        ref = controller(algorithm, False, iters)
+        if ref.route != "stream":
+            raise SmokeFailure(f"26.{name}: the single-device auto loop "
+                               f"routes to {ref.route}")
+        for t, (a, (st_h, y_h)) in enumerate(zip(solves, inputs)):
+            st_t, y_t = card(st_h), card(y_h)
+            tracking(
+                f"26.{name} step {t}",
+                lambda n: qn(algorithm, n)(st_t, y_t),
+                lambda n: qn(algorithm, n, sharded=False)(st_t, y_t),
+                QN_SHORT[name])
+            b = ref._solver(st_t, y_t)
+            tail_a = float(np.median(
+                a["primal_infeasibility"].abs().numpy()[-20:]))
+            tail_b = float(np.median(
+                b["primal_infeasibility"].abs().cpu().numpy()[-20:]))
+            print(f"[mesh] 26.{name} step {t}: {iters}-iteration solves, "
+                  f"residual tails {tail_a:.6g} sharded / {tail_b:.6g} "
+                  f"single device; max |control difference| "
+                  f"{float((a['control'] - b['control'].cpu()).abs().max()):.6g}"
+                  f"; this rank holds "
+                  f"{torch.cuda.memory_allocated() / 2**20:.3f} MiB, "
+                  f"reserves {torch.cuda.memory_reserved() / 2**20:.3f}")
+            if not tail_a < 10 * max(tail_b, 1e-6):
+                raise SmokeFailure(f"26.{name} step {t}: the sharded and "
+                                   "single-device solves part")
+            # each solver built here holds config 5's constants; free
+            # them (and the card's cache: the two ranks share it) before
+            # the next step's
+            del b, st_t, y_t
+            gc.collect()
+            torch.cuda.empty_cache()
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    lap(26)
+
+    # 27. timing: APG (7 solves), QN (25's); the profile of rank 0 over
+    # PROFILE_ITER iterations; per-pass kernel times; memory; bounds
+    times = []
+    torch.cuda.synchronize()
+    held_b = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for st in [step] + [make_step(x) for x in perturbed(
+            cfg.current_x, np.random.default_rng(7), REPEATS - 1)]:
+        times.append(timed(lambda: run_apg(st))[0])
+    apg_peak = torch.cuda.max_memory_allocated() - held_b
+    med = float(np.median(times))
+    print(f"[timing] sharded APG, {mesh.size} ranks on one card (gloo), "
+          f"{MAX_ITER} iterations at config 5: median {med:.3f} ms of "
+          f"{REPEATS} ({', '.join(f'{t:.3f}' for t in times)}), "
+          f"{med * 1e3 / MAX_ITER:.3f} us per iteration; this rank's peak "
+          f"{apg_peak / 2**20:.3f} MiB above the {held_b / 2**20:.3f} MiB "
+          f"held")
+    for (short, dtype), ts in qn_times.items():
+        m = float(np.median(ts))
+        print(f"[timing] sharded {short} {dtype} history, {MESH_QN_ITER} "
+              f"iterations: median {m:.3f} ms of {len(ts)} "
+              f"({', '.join(f'{t:.3f}' for t in ts)}), "
+              f"{m * 1e3 / MESH_QN_ITER:.3f} us per iteration; this rank's peak "
+              f"{qn_peak[(short, dtype)] / 2**20:.3f} MiB above what was "
+              f"held")
+    apg_p = SS.make_apg_stream_sharded(
+        mesh, fa, prefix_stages=prefix,
+        **dict(hyper, max_iterations=PROFILE_ITER))
+    fbe_p = qn(QN_ALGORITHMS["fbe"], PROFILE_ITER)
+    for tag, run, names in (
+            ("APG", lambda: apg_p(step), ("k1_kernel", "k2_kernel",
+                                          "partial_parents_kernel")),
+            ("FBE", lambda: fbe_p(step), ("s1_kernel", "s2_kernel",
+                                          "partial_parents_kernel",
+                                          "dots", "combine"))):
+        wall = timed(run)[0] / PROFILE_ITER * 1e3
+        prof = mesh_profile(run, PROFILE_ITER, names) \
+            if mesh.rank == 0 else None
+        if mesh.rank != 0:
+            run()
+        if mesh.rank == 0 and prof is None:
+            print(f"[timing] sharded {tag}: the profiler trace holds no "
+                  "device time (not measured)")
+        elif mesh.rank == 0:
+            print(f"[timing] sharded {tag}, rank 0, us per iteration over a "
+                  f"{PROFILE_ITER}-iteration solve: wall {wall:.3f}; device " +
+                  ", ".join(f"{k} {prof[k]:.3f}" for k in
+                            list(names) + ["glue"]) +
+                  f"; host in the collectives {prof['collectives_host']:.3f}"
+                  f"; device busy {prof['busy_ms']:.3f} of a "
+                  f"{prof['span_ms']:.3f} ms span, idle share "
+                  f"{prof['idle_share']:.4f}")
+    # per pass on this rank's block, rank 1 idle at a barrier meanwhile
+    work = shard_work(kc)
+    st_t = SS.new_state(kc, SS.shard_step(kc, step), None, MAX_ITER)
+    st_t["sc"].copy_(sc)
+    w = torch.zeros(kc["sq"].shape + (2 * net.nx + net.nu,), device=dev)
+    v_t = torch.zeros(kc["sq"].shape + (kc["iWT"].shape[0],), device=dev)
+    carry = torch.empty(2, kc["nsl"], net.nx + kc["iWT"].shape[0],
+                        device=dev)
+    stl = SS.shard_step(kc, step)
+    pdu = (stl["prev_u"] - stl["prev_uhat"]).contiguous()
+    last = carry[(len(kc["ranges"]) - 1) & 1]
+    sharded = "rapidnet_tpu/ops/pallas_stream_sharded.py"
+    # (entry, source, TPU kernel, wrapper counted in 26, 23's error,
+    #  kernel call, plain half, its work)
+    rows = (
+        ("apg_stream_sharded.k1a", "apg_stream.cu", f"{sharded}:264",
+         "apg_stream_sharded.k1a", err_k1a,
+         lambda: SS.k1a_call(kc, stl, st_t, **hyper),
+         lambda: SS.k1a_plain(kc, stl, st_t, **hyper), work["k1a"]),
+        ("apg_stream_sharded.k2", "apg_stream.cu", f"{sharded}:361",
+         "apg_stream_sharded.k2", err_k2,
+         lambda: SS.k2_local(kc, stl, st_t, **hyper),
+         lambda: S.k2_plain(kc, st_t["v"], stl["uhat"], stl["e"],
+                            stl["x0"], pdu,
+                            {"xi": st_t["y_xi"], "psi": st_t["y_psi"]},
+                            {"xi": st_t["z_xi"], "psi": st_t["z_psi"]},
+                            lam_i=sc[1], c=hyper["inv_step"],
+                            xs_upper=hyper["xs_upper"]), work["k2"]),
+        ("stream_sharded.partial_parents", "stream_sharded.cu",
+         f"{sharded}:354", "stream_sharded.partial_parents", err_pp,
+         lambda: SS.partial_parents(kc, last),
+         lambda: SS.partial_parents_plain(kc, last),
+         work["partial_parents"]),
+        ("stream_qn.s1a", "stream_qn.cu", f"{sharded}:830", "stream_qn.s1a",
+         err_s1,
+         lambda: SQ._launch(kc, 1, True, w=w, v=v_t, beta=stl["beta"],
+                            carry=carry),
+         lambda: SQ._s1_high_plain(kc, w, stl["beta"]), work["s1a"][:2]),
+        ("stream_qn.s2.sharded", "stream_qn.cu", f"{sharded}:878",
+         "stream_qn.s2", err_s2,
+         lambda: SQ.s2_call(kc, v_t, stl["uhat"], stl["e"], stl["x0"], pdu),
+         lambda: SQ.s2_plain(kc, v_t, stl["uhat"], stl["e"], stl["x0"],
+                             pdu), work["s2"][:2]))
+    entries = []
+    for key, src, line, counted, err, call, plain, (flops, nbytes) in rows:
+        mesh.barrier()
+        if mesh.rank == 0:
+            ms, p_ms = event_ms(call, 20), event_ms(plain, 3)
+        else:
+            ms = p_ms = 0.0
+        mesh.barrier()
+        b_ms, by = bound_of(flops, nbytes)
+        print(f"[timing] {key}: {ms:.6f} ms per pass on rank 0's block, "
+              f"plain {p_ms:.6f} ms; bound {b_ms:.6f} ms ({by}: "
+              f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB)")
+        entries.append({"name": key, "route": "cuda",
+                        "source": f"rapidnet_tpu_torch/csrc/{src}",
+                        "replaces": line, "launches": counts[counted],
+                        "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+                        "bound_ms": b_ms, "bound_by": by,
+                        "library_ms": None})
+    # the bound of one sharded solve: both ranks' blocks on the one card
+    b1 = stream_bound(kc1, step, out, MAX_ITER)
+    print(f"[bound] sharded APG solve, both ranks' work on one card: "
+          f"{b1[0]:.6f} ms ({b1[1]}), as the single-device solve's")
+    lap(27)
+    return entries, counts, torch.cuda.max_memory_allocated()
+
+
+def mesh_rank(rank, init, results):
+    """One rank of phases 23-27 (a process of its own): joins the gloo
+    group, puts (rank, outcome) on ``results``.  Rank 1's output goes to
+    /dev/null; both ranks run every phase."""
+    import os
+    import traceback
+    import torch
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        from rapidnet_tpu_torch.parallel import distributed
+        from rapidnet_tpu_torch.parallel import make_mesh
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        distributed.initialize(backend="gloo", init_method=f"file://{init}",
+                               rank=rank, world_size=MESH_RANKS)
+        mesh = make_mesh(MESH_RANKS, devices=["cuda:0"] * MESH_RANKS)
+        results.put((rank, mesh_phases(mesh)))
+        mesh.barrier()
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+
+
+def run_mesh_phases():
+    """Phases 23-27: MESH_RANKS processes (spawned: this one has
+    initialised CUDA) share card 0 over a gloo group; returns rank 0's
+    entries.  Every process started is stopped."""
+    import multiprocessing as mp
+    import queue
+    import tempfile
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    init = f"{tmp}/store"
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, init, results))
+             for r in range(MESH_RANKS)]
+    out = {}
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_TIMEOUT
+        while len(out) < MESH_RANKS:
+            try:
+                rank, res = results.get(timeout=5)
+            except queue.Empty:
+                if time.monotonic() > deadline:
+                    raise SmokeFailure("23-27: the ranks timed out")
+                if any(not p.is_alive() and p.exitcode for p in procs):
+                    raise SmokeFailure("23-27: a rank died (exit codes "
+                                       f"{[p.exitcode for p in procs]})")
+                continue
+            if isinstance(res, str):
+                raise SmokeFailure(f"23-27: rank {rank} failed:\n{res}")
+            out[rank] = res
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    entries, counts, peak0 = out[0]
+    peak1 = out[1][2]
+    print(f"[memory] sharded solves: peak {peak0 / 2**20:.3f} MiB on rank 0, "
+          f"{peak1 / 2**20:.3f} MiB on rank 1 (each process's own "
+          "allocator)")
+    if out[1][1] != counts:
+        raise SmokeFailure(f"26: the ranks' counts differ: {counts} and "
+                           f"{out[1][1]}")
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reference-kernel", default=None, metavar="DIR",
@@ -2281,6 +2971,8 @@ def main() -> int:
                                 Q.kernel_constants(fa, prefix_stages=prefix),
                                 kc, step_b, hyper)
     lap("19-22")
+    entries += run_mesh_phases()
+    lap("23-27")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -13,7 +13,9 @@ and, for trees past the whole-solve kernels' shared-memory limits, the
 streaming APG iteration (``ops/apg_stream.py``, ``csrc/apg_stream.cu``)
 and the streaming FBE/NAMA solve (``solver/qn_stream.py``) over its oracle
 sweeps (``ops/stream_qn.py``, ``csrc/stream_qn.cu``) and L-BFGS history
-passes (``ops/lbfgs.py``, ``csrc/lbfgs.cu``).
+passes (``ops/lbfgs.py``, ``csrc/lbfgs.cu``).  Those streaming solves
+also run scenario-sharded, one process per shard on torch.distributed
+(``parallel/``, ``ops/apg_stream_sharded.py``, ``csrc/stream_sharded.cu``).
 
 This package imports torch and never jax.
 """

@@ -150,14 +150,15 @@ def _aggregation(fa: dict, stages: tuple, ns: int, dev) -> dict:
             "agg_ptr": i32(ptr), "agg_idx": i32(idx if idx else [0])}
 
 
-def stage_ranges(N: int, agg_stages: tuple) -> tuple:
+def stage_ranges(N: int, agg_stages: tuple, stop: int = 0) -> tuple:
     """K1's launches: (first stage, last stage, aggregation read at the
-    start or -1), the stages descending, cut after each aggregation."""
+    start or -1), the stages descending from N - 1 to ``stop``, cut after
+    each aggregation (every one above ``stop``)."""
     ranges, hi, gather = [], N - 1, -1
     for k, p in enumerate(agg_stages):
         ranges.append((hi, p, gather))
         hi, gather = p - 1, k
-    ranges.append((hi, 0, gather))
+    ranges.append((hi, stop, gather))
     return tuple(ranges)
 
 

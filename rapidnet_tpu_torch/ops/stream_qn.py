@@ -29,6 +29,17 @@ and the prefix handoffs as index lists, the stage ranges).
 ``s1_plain`` and ``s2_plain``; on CUDA tensors they launch the kernels or
 raise.  ``s1_call.launches`` and ``s2_call.launches`` count the passes
 they launched (S1 launches one kernel per range of stages).
+
+On a scenario mesh (``make_sharded_sweeps`` of
+``rapidnet_tpu/ops/pallas_stream_sharded.py``, :799-1029) each rank runs
+the sweeps on its block of slots with the shard's constants
+(``apg_stream_sharded.pack_stream_sharded``): S2 is ``s2_call`` on the
+block; the backward sweep is ``s1a_call``, S1 (mode 1) over stages
+N-1 .. s_hi with the handoffs numbered within the shard, the partial
+parent block of stage s_hi (``apg_stream_sharded.partial_parents``),
+one all-reduce of it, and the root-side stages s_hi-1 .. 0 in PyTorch
+with no dual update (:978-1004).  ``s1a_plain`` is the same with the
+plain halves.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ import ctypes
 import torch
 
 from rapidnet_tpu_torch.ops import apg_stream as S
+from rapidnet_tpu_torch.ops import apg_stream_sharded as SS
 from rapidnet_tpu_torch.ops import build
 
 TILE = 8                 # scenario slots per block (csrc/stream_qn.cu)
@@ -157,9 +169,10 @@ def _entry(lib):
 
 
 def _launch(kc, mode, affine, *, w=None, v, x=None, u=None, pr=None,
-            beta=None, uhat=None, e=None, x0=None, pdu=None):
+            beta=None, uhat=None, e=None, x0=None, pdu=None, carry=None):
     """Enqueue one S1 (mode 1) or S2 (mode 2) pass on the current stream
-    of the constants' device.  Raises on a refused launch."""
+    of the constants' device; S1's two carry buffers are ``carry`` (2, ns,
+    nx + nv) when given.  Raises on a refused launch."""
     N, ns, nx, nu, nv = dims(kc)
     if not stream_fits(N, ns, nx, nu, nv):
         raise ValueError(f"the streaming sweeps do not take this tree (N {N},"
@@ -169,8 +182,9 @@ def _launch(kc, mode, affine, *, w=None, v, x=None, u=None, pr=None,
     fn = _entry(lib)
     build.check_smem(lib, "stream_qn", (N, ns, nx, nu, nv),
                      smem(N, ns, nx, nu, nv))
-    carry = (torch.empty((2, ns, nx + nv), dtype=torch.float32, device=dev)
-             if mode == 1 else None)
+    if mode == 1 and carry is None:
+        carry = torch.empty((2, ns, nx + nv), dtype=torch.float32,
+                            device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -240,3 +254,95 @@ def s2_call(kc, v, uhat=None, e=None, x0=None, pdu=None):
 
 
 s2_call.launches = 0
+
+
+# ------------------------------------------------------ sharded sweeps
+
+
+def _s1_high_plain(kc, w, beta):
+    """S1 over stages N-1 .. s_hi on the rank's block with the local
+    handoffs, in plain PyTorch: (v, zero below s_hi; the exit carries
+    [t | a] (nsl, nx + nv))."""
+    fa = kc["fa"]
+    nx = kc["cx1"].shape[-1]
+    N, s_hi = w.shape[0], kc["s_hi"]
+    tb = (S._rows(kc, "cx1") * w[..., :nx] +
+          S._rows(kc, "cx2") * w[..., nx:2 * nx])
+    gw = S._rows(kc, "cu") * w[..., 2 * nx:]
+    BbT, L = kc["BbT"], kc["L"]
+    q = torch.zeros_like(tb[0])
+    r = w.new_zeros(w.shape[1], BbT.shape[1])
+    v = w.new_zeros(N, w.shape[1], kc["iWT"].shape[0])
+    for s in range(N - 1, s_hi - 1, -1):
+        q = tb[s] + q
+        r = r + q @ BbT + gw[s] @ L
+        if beta is not None:
+            r = r + beta[s]
+        v[s] = kc["nhp"][s][:, None] * (r @ kc["iWT"])
+        if s in kc["agg_stages"]:
+            Cp, Bp = fa["prefix_Cp"][s], fa["prefix_Bp"][s]
+            q = Bp @ (Cp @ q)
+            r = Bp @ (Cp @ r)
+    return v, torch.cat([q, r], dim=-1)
+
+
+def _s1_low_tail(kc, w, v, parents, mesh, beta):
+    """Stages s_hi-1 .. 0 of S1 on the rank's block from the all-reduced
+    parents of stage s_hi, in place on ``v``, with the handoff of every
+    lower cross stage all-reduced (:978-1004)."""
+    nx = kc["cx1"].shape[-1]
+    t, a = SS.spread_parents(kc, parents)
+    for s in range(kc["s_hi"] - 1, -1, -1):
+        sq = kc["sq"][s][:, None]
+        t = (kc["cx1"][s] * sq) * w[s, :, :nx] + \
+            (kc["cx2"][s] * sq) * w[s, :, nx:2 * nx] + t
+        a = a + t @ kc["BbT"] + ((kc["cu"][s] * sq) * w[s, :, 2 * nx:]) @ \
+            kc["L"]
+        if beta is not None:
+            a = a + beta[s]
+        v[s] = kc["nhp"][s][:, None] * (a @ kc["iWT"])
+        if s > 0 and s in kc["low"]:
+            t, a = SS.low_handoff(kc, s, t, a, mesh)
+    return v
+
+
+def _check_shard(kc, w, beta):
+    N, ns, nx, nu, nv = dims(kc)
+    dev = _check_consts(kc)
+    S._check("w", w, (N, ns, 2 * nx + nu), dev)
+    if beta is not None:
+        S._check("beta", beta, (N, ns, nv), dev)
+    return dev
+
+
+def s1a_plain(kc, w, mesh, beta=None):
+    """One sharded backward sweep with the plain halves: the rank's block
+    of the dual triple ``w`` -> its block of v.  Collective."""
+    _check_shard(kc, w, beta)
+    v, carry = _s1_high_plain(kc, w, beta)
+    parents = mesh.psum(SS.partial_parents_plain(kc, carry))
+    return _s1_low_tail(kc, w, v, parents, mesh, beta)
+
+
+def s1a_call(kc, w, mesh, beta=None):
+    """One sharded backward sweep (``make_sharded_sweeps``' backward):
+    on CPU tensors ``s1a_plain``; on CUDA tensors S1 of
+    ``csrc/stream_qn.cu`` over the shard's stage ranges and
+    ``partial_parents`` on the carries of its last launch, then the
+    all-reduce and the root-side stages.  Collective."""
+    dev = _check_shard(kc, w, beta)
+    if dev.type == "cpu":
+        return s1a_plain(kc, w, mesh, beta)
+    if dev.type != "cuda":
+        raise ValueError(f"s1a_call runs on cpu or cuda, not {dev.type}")
+    N, ns, nx, nu, nv = dims(kc)
+    v = torch.empty((N, ns, nv), dtype=torch.float32, device=dev)
+    carry = torch.empty((2, ns, nx + nv), dtype=torch.float32, device=dev)
+    s1a_call.launches += 1
+    _launch(kc, 1, beta is not None, w=w, v=v, beta=beta, carry=carry)
+    last = carry[(len(kc["ranges"]) - 1) & 1]
+    parents = mesh.psum(SS.partial_parents(kc, last))
+    return _s1_low_tail(kc, w, v, parents, mesh, beta)
+
+
+s1a_call.launches = 0

@@ -81,16 +81,16 @@ class BatchedSmpcController:
                  device="cuda",
                  mesh=None):
         """device: where the solves run ('cuda' by default; raises when
-        no GPU is present).  mesh is the JAX controller's multi-device
-        option, not ported yet."""
+        no GPU is present).  mesh, the JAX batched controller's 2-D
+        (batch, scenario) mesh, is not ported yet."""
         backends = tuple(b for b in BACKENDS if b != "stream")
         if backend not in backends:
             raise ValueError(f"unknown backend '{backend}' "
                              f"(expected one of {backends})")
         if mesh is not None:
             raise NotImplementedError(
-                "multi-GPU solves are not ported yet (ROADMAP queue 1, "
-                "item 12)")
+                "batched solves on a mesh (the 2-D batch x scenario mesh) "
+                "are not ported yet (ROADMAP queue 1, item 12c)")
         if config.algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm '{config.algorithm}'")
         self.device = resolve_device(device)

@@ -31,6 +31,19 @@ FBE and NAMA (``config.algorithm``; FBE and NAMA with the config's
 * ``'torch'``: the plain PyTorch solve (solver/apg.py,
   solver/quasi_newton.py) on any device.
 
+``mesh``: a ``parallel.Mesh`` (one process per shard of the scenario
+axis; every rank builds the same controller and runs the same loop).
+The solve is then the scenario-sharded streaming solve
+(``ops/apg_stream_sharded.make_apg_stream_sharded`` for APG,
+``solver/qn_stream.make_qn_stream(mesh=...)`` for FBE and NAMA) on the
+mesh's device: with ``backend='stream'``, or ``'auto'`` when
+``auto_route`` picks ``'stream'`` for the whole tree
+(``rapidnet_tpu/solver/controller.py:243-346``).  ``'cuda'`` raises (the
+whole-solve kernels are single-device), as the JAX package's
+``'pallas'`` does; the plain shard_map solves (a tolerance, ``'torch'``,
+``'auto'`` on a tree the whole-solve kernel fits) are not ported
+(ROADMAP item 12b) and raise ``NotImplementedError``.
+
 Differences from the reference (intentional, as in the JAX package):
   * the built-in simulator applies the demand disturbance e to the state
     update (the reference adds it to a dead buffer,
@@ -59,6 +72,8 @@ from rapidnet_tpu_torch.model.forecaster import Forecaster, JsonForecaster
 from rapidnet_tpu_torch.model.network import DwnNetwork
 from rapidnet_tpu_torch.model.scenario_tree import ScenarioTree
 from rapidnet_tpu_torch.ops import apg_solve, apg_stream, lbfgs, qn_solve
+from rapidnet_tpu_torch.ops import apg_stream_sharded
+from rapidnet_tpu_torch.parallel.sharding import Mesh
 from rapidnet_tpu_torch.ops import stream_qn
 from rapidnet_tpu_torch.solver import apg as apg_mod
 from rapidnet_tpu_torch.solver import qn_stream
@@ -68,6 +83,10 @@ BACKENDS = ("auto", "cuda", "stream", "torch")
 ALGORITHMS = (ALGORITHM_APG, ALGORITHM_FBE, ALGORITHM_NAMA)
 STREAM_PRECISIONS = (None, "highest")
 STREAM_LBFGS_DTYPES = (None, "float32", "bfloat16")
+MESH_PLAIN = ("the plain shard_map solves on a mesh ({}) are not ported "
+              "yet (ROADMAP queue 1, item 12b); on a mesh the sharded "
+              "streaming solve runs with backend='stream' or 'auto' past "
+              "the whole-solve kernel's limits, with no tolerance")
 
 
 def auto_route(algorithm: str, *, tolerance, N: int, ns: int, nx: int,
@@ -131,17 +150,28 @@ class SmpcController:
         streaming FBE/NAMA solve's L-BFGS history, 'float32' (the
         default, also None) or 'bfloat16' (half the history's bytes; the
         history holds differences, and the line search guards the
-        direction).  mesh, the JAX controller's multi-device option, is
-        not ported yet."""
+        direction).  mesh: a ``parallel.Mesh``, the scenario-sharded
+        solve (module docstring); the solve then runs on the mesh's
+        device, and ``device`` must name the same kind (cpu or cuda)."""
         if isinstance(config, str):
             config = SmpcConfig.from_json(config)
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend '{backend}' "
                              f"(expected one of {BACKENDS})")
         if mesh is not None:
-            raise NotImplementedError(
-                "multi-GPU solves are not ported yet (ROADMAP queue 1, "
-                "item 12)")
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a rapidnet_tpu_torch."
+                                f"parallel.Mesh, got {type(mesh).__name__}")
+            if backend == "cuda":
+                raise ValueError(
+                    "the whole-solve CUDA kernels are single-device; with a "
+                    "mesh use backend='stream' (per-shard streaming "
+                    "kernels) or 'auto'")
+            if backend == "torch":
+                raise NotImplementedError(MESH_PLAIN.format(
+                    "backend='torch'"))
+            if tolerance is not None and backend != "stream":
+                raise NotImplementedError(MESH_PLAIN.format("a tolerance"))
         if stream_precision not in STREAM_PRECISIONS:
             raise ValueError(
                 f"stream_precision must be None or 'highest' (the "
@@ -157,6 +187,12 @@ class SmpcController:
         if backend == "stream" and tolerance is not None:
             raise ValueError(apg_stream.TOLERANCE_MESSAGE)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if self.device.type != mesh.device.type:
+                raise ValueError(f"device '{device}' and the mesh's device "
+                                 f"{mesh.device} differ")
+            self.device = mesh.device
         if backend == "cuda" and self.device.type != "cuda":
             raise ValueError(
                 f"backend='cuda' needs a CUDA device, got '{device}'")
@@ -209,6 +245,9 @@ class SmpcController:
                       lbfgs_buffer_size=int(cfg.lbfgs_buffer_size))
             make_plain = qn_mod.make_solver
             make_kernel = qn_solve.make_qn_kernel
+        if self.mesh is not None:
+            self._initialise_sharded(kw)
+            return
         route, consts = self._route(kw)
         self.route = route
         if route == "plain":
@@ -224,6 +263,35 @@ class SmpcController:
                 lbfgs_dtype=self.stream_lbfgs_dtype, **kw)
         else:
             self._solver = make_kernel(self._fa, **kw)
+
+    def _initialise_sharded(self, kw: dict) -> None:
+        """The scenario-sharded streaming solve over ``self.mesh``
+        (``_initialise_sharded`` of the JAX controller, its streaming
+        branch).  ``auto`` takes it when ``auto_route`` picks 'stream' for
+        the whole tree on the mesh's CUDA device; every other case raises
+        (the plain shard_map solves are not ported)."""
+        self.route_reason = None
+        if self.backend == "auto":
+            if self.device.type != "cuda":
+                raise NotImplementedError(MESH_PLAIN.format(
+                    "backend='auto' on a CPU mesh, whose tree every "
+                    "whole-solve wrapper takes"))
+            with torch.cuda.device(self.device):
+                route = auto_route(
+                    self.config.algorithm, tolerance=self.tolerance,
+                    lbfgs_buffer_size=self.config.lbfgs_buffer_size,
+                    **tree_dims(self._fa))
+            if route != "stream":
+                raise NotImplementedError(MESH_PLAIN.format(
+                    f"backend='auto' on a tree routed to '{route}'"))
+        self.route = "stream"
+        if self.config.algorithm == ALGORITHM_APG:
+            self._solver = apg_stream_sharded.make_apg_stream_sharded(
+                self.mesh, self._fa, **kw)
+        else:
+            self._solver = qn_stream.make_qn_stream(
+                self._fa, mesh=self.mesh,
+                lbfgs_dtype=self.stream_lbfgs_dtype, **kw)
 
     def _route(self, kw: dict):
         """'kernel', 'stream' or 'plain', and the streaming constants
@@ -374,9 +442,17 @@ class SmpcController:
         the allocator's blocks (``memory_allocated``), since a request
         may be served whole by a cached block up to 1 MB larger, so two
         solves holding the same tensors could count differently; 0 on
-        the CPU, which keeps no such census."""
+        the CPU, which keeps no such census.
+
+        A dead tensor that another stream used (a gloo collective on the
+        mesh records its copy stream on the tensors it is given) is
+        freed once the allocator sees that stream's work done, which it
+        checks at its next allocation: so the census waits for the card
+        and allocates once before it counts."""
         if self.device.type != "cuda":
             return 0
+        torch.cuda.synchronize(self.device)
+        torch.empty(1, device=self.device)
         return torch.cuda.memory_stats(self.device)[
             "requested_bytes.all.current"]
 

@@ -45,9 +45,29 @@ of NaN values walks down to tau = 0, which applies nothing
 The output contract is ``quasi_newton.make_solver``'s: control (the
 stage-0 u projected on the physical bounds), x, u, v, y {xi, psi},
 primal_infeasibility, value_fbe, tau and iterations.  The budget is
-fixed: a tolerance raises, as in the JAX package.  Not ported: ``mesh``,
-``emulate_shards``, ``ablate``, ``stage_block``, ``interpret``, the
-padded transposed layout and any precision but full float32.
+fixed: a tolerance raises, as in the JAX package.
+
+With ``mesh=`` (a ``parallel.Mesh``) the same solve runs scenario-sharded
+(``qn_stream.py:177-197``, ``:238-241``, ``:819-849``), one process per
+shard: each rank holds its block of slots of every slab and of the
+history, the backward sweep is ``stream_qn.s1a_call`` (the partial
+parent block of the top cross stage all-reduced), S2 runs on the block,
+and every reduction the JAX code psums is all-reduced (SUM): the diff
+dots, the value's dots and f-terms, the history dots (after the dots
+kernel's own fixed-order reduction on the block), and the line search's
+quadratics with all eleven trials' scalars in one call.  So every rank
+takes the same decisions from the same reduced scalars.  The champion
+of each iteration is kept as the block's four extrema and reduced (MAX)
+once at the end.  An iteration has seven all-reduces (and one more for
+each sweep per prefix stage below the top cross stage that crosses
+shards); every iteration runs eagerly (no graph: a gloo collective
+waits for the card).  ``run(step, y0)`` takes the global step and warm
+start on every rank and returns the global layout on every rank, the
+control rank 0's root slot summed from masked values.
+
+Not ported: ``emulate_shards``, ``ablate``, ``stage_block``,
+``interpret``, the padded transposed layout and any precision but full
+float32.
 """
 
 from __future__ import annotations
@@ -56,6 +76,7 @@ import torch
 
 from rapidnet_tpu_torch.model.config import ALGORITHM_FBE, ALGORITHM_NAMA
 from rapidnet_tpu_torch.ops import apg_stream as S
+from rapidnet_tpu_torch.ops import apg_stream_sharded as SS
 from rapidnet_tpu_torch.ops import lbfgs as LB
 from rapidnet_tpu_torch.ops import stream_qn as SQ
 from rapidnet_tpu_torch.solver import solve_step as ss
@@ -108,14 +129,18 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
                    inv_step: float, step_size: float, penalty_state: float,
                    penalty_safety: float, xs_upper: float,
                    max_iterations: int, lbfgs_buffer_size: int,
-                   tolerance=None, lbfgs_dtype=None, consts=None):
+                   tolerance=None, lbfgs_dtype=None, consts=None,
+                   mesh=None):
     """Build the streaming FBE/NAMA solve: run(step, y0=None) -> outputs.
 
     ``consts``: ``apg_stream.stream_constants(fa, ...)`` when the caller
-    already packed them (the controller's gate).  ``lbfgs_dtype``: the
-    history's storage, float32 (default) or bfloat16.  ``y0``: a dual warm
-    start {"xi", "psi"} in the XLA path's layout; the history starts
-    fresh.  On CPU tensors the kernels' plain versions run.
+    already packed them (the controller's gate; single device only).
+    ``lbfgs_dtype``: the history's storage, float32 (default) or
+    bfloat16.  ``y0``: a dual warm start {"xi", "psi"} in the XLA path's
+    layout; the history starts fresh.  ``mesh``: a ``parallel.Mesh``, the
+    scenario-sharded solve (module docstring); every rank calls ``run``
+    with the same global inputs.  On CPU tensors the kernels' plain
+    versions run.
     """
     if tolerance is not None:
         raise ValueError(TOLERANCE_MESSAGE)
@@ -130,8 +155,17 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
         raise ValueError(f"lbfgs_buffer_size {bs}: the history kernels take "
                          f"1 to {LB.MAX_COLS - 1}")
     nb = lbfgs_storage(lbfgs_dtype)
-    kc = consts if consts is not None else S.stream_constants(
-        fa, prefix_stages=prefix_stages, max_iterations=int(max_iterations))
+    if mesh is None:
+        kc = consts if consts is not None else S.stream_constants(
+            fa, prefix_stages=prefix_stages,
+            max_iterations=int(max_iterations))
+    else:
+        if consts is not None:
+            raise ValueError("consts are packed per shard on a mesh")
+        SS.check_mesh(mesh, fa)
+        kc = SS.pack_stream_sharded(fa, mesh.size, mesh.rank,
+                                    prefix_stages=prefix_stages,
+                                    max_iterations=int(max_iterations))
     N, ns, nx, nu, nv = SQ.dims(kc)
     D = 2 * nx + nu
     dev = kc["sq"].device
@@ -190,6 +224,22 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
         """A per-key shrink (3,) spread over the D columns."""
         return shr[key_of_col]
 
+    def red(*ts):
+        """The block sums ``ts`` summed over the mesh in one all-reduce
+        (the JAX code's psums); as they are on one device."""
+        if mesh is None:
+            return ts
+        flat = mesh.psum(torch.cat([t.reshape(-1) for t in ts]))
+        return tuple(part.view(t.shape) for part, t in
+                     zip(flat.split([t.numel() for t in ts]), ts))
+
+    def champion(res):
+        """The signed champion of a residual; on a mesh the block's
+        [hi_x, -lo_x, hi_u, -lo_u], reduced once after the solve."""
+        if mesh is None:
+            return signed_champion(res, nx)
+        return SS.for_max(SS._extrema(res[..., :2 * nx], res[..., 2 * nx:]))
+
     # ---------------- prox of g by scalar identities ----------------
     def diff_dots(prim, w):
         """The box and the clip distance of pre = prim + c w, and the
@@ -198,7 +248,7 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
         pre = torch.add(prim, w, alpha=c)
         box = torch.clamp(pre, lo, hi)
         diff = pre - box
-        return box, diff, key_sums(diff * diff)
+        return box, diff, red(key_sums(diff * diff))[0]
 
     def shrink_scalars(dd):
         """The two-norm shrink factors (per key; yp never shrinks) and the
@@ -226,15 +276,20 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
         return smooth + econ
 
     # ---------------- oracles ----------------
+    def backward(w, beta=None):
+        if mesh is None:
+            return SQ.s1_call(kc, w, beta)
+        return SQ.s1a_call(kc, w, mesh, beta)
+
     def solve(sp, w):
-        v = SQ.s1_call(kc, w, sp["beta"])
+        v = backward(w, sp["beta"])
         x, u, prim = SQ.s2_call(kc, v, sp["uhat"], sp["e"], sp["x0"],
                                 sp["pdu"])
         return {"v": v, "x": x, "u": u, "prim": prim}
 
     def linmap(d):
         """The Hessian oracle: the same recursion, no affine terms."""
-        v = SQ.s1_call(kc, d.contiguous())
+        v = backward(d.contiguous())
         x, u, prim = SQ.s2_call(kc, v)
         return {"v": v, "x": x, "u": u, "prim": prim}
 
@@ -248,8 +303,8 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
         no-op)."""
         s = (y - y_prev).to(nb)
         yv = (yvec - yvec_prev).to(nb)
-        dS, dY, selfd = LB.dots(kc["rep"], lb["mat_s"], lb["mat_y"], s, yv,
-                                yvec)
+        dS, dY, selfd = red(*LB.dots(kc["rep"], lb["mat_s"], lb["mat_y"], s,
+                                     yv, yvec))
         dSs, dSy, dSg = dS[:, 0], dS[:, 1], dS[:, 2]
         dYs, dYy, dYg = dY[:, 0], dY[:, 1], dY[:, 2]
         norm_s2, inv_rho, norm_y2 = selfd[0], selfd[1], selfd[2]
@@ -346,7 +401,7 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
         s2 = torch.sum(rep3 * pdd * Wdd)
         e0 = torch.sum(rep3 * (p3 * u0) * sp["alpha"])
         e1 = torch.sum(rep3 * (p3 * u_dir) * sp["alpha"])
-        return s0, s1, s2, e0, e1
+        return torch.stack([s0, s1, s2, e0, e1])
 
     def _ls_trial_scalars(base, w_dir, p_dir):
         """Every trial of the ladder, one reduction pass each
@@ -382,7 +437,8 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
         direction is not one of descent; one masked materialise.
         Returns (x, u, y_new, infeasibility, tau)."""
         skip = (dval > 0) | (torch.abs(dval) < LS_TOLERANCE)
-        vals, shr = _ls_val_from(_ls_trial_scalars(base, w_dir, p_dir), fq)
+        trials, fq = red(_ls_trial_scalars(base, w_dir, p_dir), fq)
+        vals, shr = _ls_val_from(trials, fq)
         k_star = ladder_pick(vals, value_ref)
         applied = ~skip
         tau_eff = torch.where(applied, _pick(ladder, k_star), zero)
@@ -396,7 +452,7 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
         box = torch.clamp(pre, lo, hi)
         res_t = prim_t - (box + shr_cols(_pick(shr, k_star)) * (pre - box))
         rf = torch.where(applied, res_t, base["res0"])
-        return x, u, wt + step_c * rf, signed_champion(rf, nx), tau_rep
+        return x, u, wt + step_c * rf, champion(rf), tau_rep
 
     def fbe_line_search(sp, base, lbfgs_dir, value_ref, dval):
         """computeLineSearchLbfgsUpdate (src/SmpcController.cu:1250-1320)."""
@@ -440,10 +496,10 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
             new_carry = dict(carry, y=y_new, y_prev=carry["y"],
                              yvec_prev=yvec, w=y_new, x=sol["x"],
                              u=sol["u"], v=sol["v"])
-            return new_carry, (signed_champion(res, nx), zero, zero)
-        value = (key_sums(w * res).sum() +
-                 0.5 * step_c * key_sums(res * res).sum() + value_g +
-                 smooth_econ(sp, sol["u"]))
+            return new_carry, (champion(res), zero, zero)
+        wr, rr, fe = red(key_sums(w * res), key_sums(res * res),
+                         smooth_econ(sp, sol["u"]))
+        value = wr.sum() + 0.5 * step_c * rr.sum() + value_g + fe
         lb, coef, (gs_vec, gy_vec, gg) = lbfgs_update_and_direction(
             carry["lbfgs"], carry["y"], carry["y_prev"], yvec,
             carry["yvec_prev"])
@@ -479,6 +535,10 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
                 "lbfgs": lb0}
 
     def run(step, y0=None):
+        if mesh is not None:
+            step = SS.shard_step(kc, step)
+            if y0 is not None:
+                y0 = {k: mesh.shard(y0[k]) for k in ("xi", "psi")}
         for k, shp in (("beta", (N, ns, nv)), ("uhat", (N, ns, nu)),
                        ("e", (N, ns, nx)), ("alpha_price", (N, ns, nu)),
                        ("x0", (nx,)), ("prev_u", (nu,)),
@@ -495,6 +555,8 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
         carry = init_carry(y0)
         K = int(max_iterations)
         traces = torch.zeros(3, K, dtype=f32, device=dev)
+        if mesh is not None:
+            return sharded(sp, carry, traces)
         eager = K if dev.type != "cuda" else 1
         for it in range(eager):
             carry, rec = one_iteration(sp, carry, it)
@@ -507,6 +569,28 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
                 "v": carry["v"],
                 "y": {"xi": y[..., :2 * nx].contiguous(),
                       "psi": y[..., 2 * nx:].contiguous()},
+                "primal_infeasibility": traces[0], "value_fbe": traces[1],
+                "tau": traces[2],
+                "iterations": torch.full((), K, dtype=torch.int32,
+                                         device=dev)}
+
+    def sharded(sp, carry, traces):
+        """Every iteration on the rank's block, eagerly; the champions
+        reduced once; the outputs gathered to the global layout."""
+        K = int(max_iterations)
+        cparts = torch.empty(K, 4, dtype=f32, device=dev)
+        for it in range(K):
+            carry, rec = one_iteration(sp, carry, it)
+            cparts[it] = rec[0]
+            traces[1:, it] = torch.stack(rec[1:])
+        traces[0] = SS.champions(mesh.pmax(cparts))
+        y = carry["y"]
+        return {"control": SS.root_control(kc, carry["u"], mesh),
+                "x": mesh.all_gather(carry["x"]),
+                "u": mesh.all_gather(carry["u"]),
+                "v": mesh.all_gather(carry["v"]),
+                "y": {"xi": mesh.all_gather(y[..., :2 * nx]),
+                      "psi": mesh.all_gather(y[..., 2 * nx:])},
                 "primal_infeasibility": traces[0], "value_fbe": traces[1],
                 "tau": traces[2],
                 "iterations": torch.full((), K, dtype=torch.int32,

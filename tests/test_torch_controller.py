@@ -241,11 +241,15 @@ def test_device_and_backend_requests_raise():
 
 
 def test_unported_options_raise():
-    """Multi-GPU solves, a stream precision that is not measured and a
-    streaming FBE/NAMA history storage other than float32 or bfloat16
-    raise; single-device FBE controllers, one instance or a batch, build,
-    with either history storage, and an unknown algorithm raises."""
+    """The plain multi-GPU solves (a mesh with backend 'torch'; the
+    sharded streaming solves are tests/test_torch_stream_sharded.py's), a
+    mesh that is not a ``parallel.Mesh``, a stream precision that is not
+    measured and a streaming FBE/NAMA history storage other than float32
+    or bfloat16 raise; single-device FBE controllers, one instance or a
+    batch, build, with either history storage, and an unknown algorithm
+    raises."""
     from rapidnet_tpu_torch import BatchedSmpcController, SmpcController
+    from rapidnet_tpu_torch.parallel import Mesh
     from rapidnet_tpu_torch.model.config import ALGORITHM_FBE
     cfg, net, tree, fc = _problem("rapidnet_tpu_torch")
     kw = dict(network=net, tree=tree, forecaster=fc, device="cpu")
@@ -260,6 +264,8 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="unknown algorithm"):
         SmpcController(bad, **kw)
     with pytest.raises(NotImplementedError, match="item 12"):
+        SmpcController(cfg, mesh=Mesh(0, 2, "cpu"), backend="torch", **kw)
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         SmpcController(cfg, mesh=object(), **kw)
     with pytest.raises(ValueError, match="stream_precision"):
         SmpcController(cfg, stream_precision="default", **kw)

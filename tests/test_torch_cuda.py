@@ -972,3 +972,147 @@ def test_leak_census_counts_what_tensors_hold(cuda_device):
     t = torch.empty(11206656 // 4, device=cuda_device)
     assert ctrl.device_bytes_in_use() - base == t.numel() * 4
     assert torch.cuda.memory_allocated(cuda_device) - held >= t.numel() * 4
+
+
+@pytest.mark.cuda
+def test_leak_census_waits_for_other_streams(cuda_device):
+    """A dead tensor that another stream used (as a gloo collective's
+    copy stream uses the mesh's tensors) counts nothing once that
+    stream's work is done, though the allocator frees it only when it
+    next looks: the census looks."""
+    from rapidnet_tpu_torch import SmpcController
+    from rapidnet_tpu_torch.model.config import synthetic_config
+    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
+    from rapidnet_tpu_torch.model.network import synthetic_network
+    from rapidnet_tpu_torch.model.scenario_tree import generate_tree
+
+    net = synthetic_network(nx=4, nu=7, nd=3, ne=2, seed=7)
+    tree = generate_tree(N=4, branching=[2], nd=3, nu=7, seed=7)
+    fc = synthetic_forecaster(N=4, nd=3, nu=7, sim_horizon=3, seed=7)
+    ctrl = SmpcController(synthetic_config(net, tree), network=net,
+                          tree=tree, forecaster=fc)
+    base = ctrl.device_bytes_in_use()
+    t = torch.ones(1 << 20, device=cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        t.mul_(2.0)
+    t.record_stream(side)
+    del t
+    assert ctrl.device_bytes_in_use() == base
+
+
+# ------------------------------------------------- two ranks on one card
+
+
+MESH_RANKS = 2
+
+
+def _mesh_rank(rank, init, job, results):
+    """One rank of a gloo group on card 0 (a spawned process)."""
+    import datetime
+    import traceback
+    try:
+        from rapidnet_tpu_torch.parallel import distributed, make_mesh
+        torch.cuda.set_device(0)
+        distributed.initialize(backend="gloo", init_method=init, rank=rank,
+                               world_size=MESH_RANKS,
+                               timeout=datetime.timedelta(seconds=60))
+        mesh = make_mesh(MESH_RANKS, devices=["cuda:0"] * MESH_RANKS)
+        results.put((rank, job(mesh)))
+        mesh.barrier()
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+
+
+def _on_two_ranks(job, timeout=300.0):
+    """``job(mesh)`` on two spawned ranks sharing card 0 over gloo (NCCL
+    refuses two ranks on one card); their results, or a failure."""
+    import multiprocessing as mp
+    import os
+    import tempfile
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = "file://" + os.path.join(tempfile.mkdtemp(), "store")
+    procs = [ctx.Process(target=_mesh_rank, args=(r, init, job, results))
+             for r in range(MESH_RANKS)]
+    out = {}
+    try:
+        for p in procs:
+            p.start()
+        for _ in range(MESH_RANKS):
+            rank, res = results.get(timeout=timeout)
+            assert not isinstance(res, str), f"rank {rank} failed:\n{res}"
+            out[rank] = res
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.terminate()
+    return [out[r] for r in range(MESH_RANKS)]
+
+
+def _sharded_passes(mesh):
+    """One K1a pass, one partial parent block and one sharded S1 pass in
+    each variant on this rank's block of the [3, 2, 2] tree (a cross stage
+    below the top one at two ranks), kernels against the plain halves on
+    the card, from the state after 5 plain iterations from tanks above
+    their box; returns the launches counted."""
+    from rapidnet_tpu_torch.ops import apg_stream as S
+    from rapidnet_tpu_torch.ops import apg_stream_sharded as SS
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+
+    fa, prefix, step, kw = _stream_problem(mesh.device)
+    kc1 = S.stream_constants(fa, prefix_stages=prefix, max_iterations=ITERS)
+    ps = S.plain_iterations(kc1, step, iterations=5, **kw)
+    kc = SS.make_apg_stream_sharded(mesh, fa, prefix_stages=prefix,
+                                    **kw).consts
+    assert kc["s_hi"] == 2 and 1 in kc["low"]
+    sl = kc["slots"]
+    stl = SS.shard_step(kc, step)
+    sc = torch.stack([kc["lams"][4], kc["lams"][5],
+                      torch.ones((), device=mesh.device)] +
+                     [torch.tensor(s, device=mesh.device)
+                      for s in STREAM_SHRINKS])
+
+    def state():
+        st = SS.new_state(kc, stl, None, ITERS)
+        for k in ("xi", "psi"):
+            st[f"pre_{k}"].copy_(ps["pre"][k][:, sl])
+            st[f"y_{k}"].copy_(ps["y"][k][:, sl])
+            st[f"z_{k}"].copy_(ps["z"][k][:, sl])
+        st["sc"].copy_(sc)
+        return st
+
+    n0 = {f: f.launches for f in (SS.k1a_call, SS.partial_parents,
+                                  SQ.s1a_call)}
+    st_k, st_p = state(), state()
+    ext_k, par_k = SS.k1a_call(kc, stl, st_k, **kw)
+    ext_p, par_p = SS.k1a_plain(kc, stl, st_p, **kw)
+    hi = slice(kc["s_hi"], None)
+    for k in ("y_xi", "y_psi", "z_xi", "z_psi", "v"):
+        _close(st_k[k][hi], st_p[k][hi])
+    _close(ext_k, ext_p)
+    _close(par_k, par_p)
+    last = st_k["carry"][(len(kc["ranges"]) - 1) & 1]
+    _close(SS.partial_parents(kc, last), SS.partial_parents_plain(kc, last))
+    w = torch.cat([ps["y"]["xi"], ps["y"]["psi"]], dim=-1)[:, sl].contiguous()
+    for beta in (stl["beta"], None):
+        _close(SQ.s1a_call(kc, w, mesh, beta),
+               SQ.s1a_plain(kc, w, mesh, beta))
+    return {f.__name__: f.launches - n for f, n in n0.items()}
+
+
+@pytest.mark.cuda
+def test_sharded_passes_match_plain_on_two_ranks(cuda_device):
+    """The sharded kernels on two ranks sharing the card: K1a (K1 over
+    the shard's stage ranges and the partial parent block), the partial
+    parent block alone, and the sharded S1 pass (its all-reduce and
+    root-side stages included) in both variants, each against its plain
+    halves on the same card within 1e-4 of the largest magnitude."""
+    for counts in _on_two_ranks(_sharded_passes):
+        assert counts == {"k1a_call": 1, "partial_parents": 4,
+                          "s1a_call": 2}, counts
