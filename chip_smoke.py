@@ -38,7 +38,9 @@ x0 * (1 + 0.02 N(0, 1)) (numpy seed 7, as bench.py:133-136):
     offsets) to the single solve (compiled without them), bit for bit;
     with ``--reference-kernel DIR`` (the ``csrc`` directory of an earlier
     checkout) also the single solve to that source's kernel (and, in 12a
-    and 16, the FBE, NAMA and streaming APG solves to its kernels);
+    and 16, the FBE, NAMA and streaming APG solves to its kernels, in 15
+    one K1 and one K2 pass; and in 18 it times the streaming solve on
+    that source's kernels in turns with these);
 7.  runs 3-step batched closed loops through
     ``BatchedSmpcController(device="cuda")`` with a shared forecaster,
     cold and warm-started: one kernel call per step, finite controls and
@@ -174,17 +176,19 @@ config 5, L-BFGS buffer 5, 500 iterations:
     control within 1e-1 * max(|f32|, 1) of the float32 one (the
     deviation printed); and on the Barcelona problem TRACK between the
     streaming solve and the whole-solve QN kernel;
-21. per algorithm, 4-step loops through ``SmpcController(device="cuda")``
+21. per algorithm, 3-step loops (STREAM_QN_LOOP_STEPS, cut from 4 to fit
+    the time limit) through ``SmpcController(device="cuda")``
     with backends ``auto`` (it must route to the streaming solve),
     ``stream`` and ``stream`` with ``stream_lbfgs_dtype="bfloat16"``: the
     S1, S2, dots and combine wrapper calls of every solve and no other
     kernel, finite controls and KPIs, ``auto`` and ``stream`` equal bit
     for bit; then a 2-step loop through ``torch`` (the plain solve), FBE,
     its gap to the streaming loop printed;
-22. timing per algorithm and history storage: the median wall ms of 7
-    solves (inputs staged), the host's enqueue ms, the peak device memory
-    above what was held, the device µs per iteration of S1, S2, the dots,
-    combine and the PyTorch glue with the idle share
+22. timing per algorithm and history storage: the median wall ms of 3
+    solves (STREAM_QN_REPEATS, cut from 7; inputs staged), the host's
+    enqueue ms, the peak device memory above what was held, the device µs
+    per iteration of S1, S2, the dots, combine and the PyTorch glue with
+    the idle share
     (``torch.profiler``, a PROFILE_ITER-iteration solve), the bound; and
     each kernel's ms per call at the main path's shapes beside its plain
     version's and its bound.
@@ -230,6 +234,41 @@ every phase; rank 0 prints:
     (rank 1 idle) beside its plain half's and its bound, the peak memory
     of each rank.
 
+Then this slice's kernels and its main path:
+
+28. the fused streaming APG kernel (``apg_stream_fused``: one
+    cooperative launch an iteration, ``fused_kernel`` of
+    ``csrc/apg_stream.cu``) on phase 15's config-5 problem: one fused
+    iteration (``fused_call``) from phase 15's stressed state against
+    ``fused_iteration_plain`` (``k1_plain`` then ``k2_plain``) within
+    PASS_FACTOR * max(|plain|, 1); the 500-iteration solve against the
+    two-kernel solve (the same stage bodies in the same order: bit for
+    bit, else within SAME_FACTOR * max(|ref|, 1)) and against
+    ``apg.make_apg`` by phase 16's rule; a warm start against the
+    two-kernel warm start; two calls equal bit for bit; the device
+    kernels of a PROFILE_ITER-iteration solve by ``torch.profiler`` (one
+    ``fused_kernel`` an iteration, no K1 or K2) and the idle share; the
+    median ms of 7 solves with the two-kernel solve timed in turns beside
+    it, the peak memory, the bound;
+29. the whole-solve FBE/NAMA kernel with its L-BFGS history in bf16
+    (``lbfgs_dtype="bfloat16"``, the knob's main path
+    ``make_qn_kernel``/``make_qn_kernel_batch``) at Barcelona scale, per
+    algorithm: the first iteration (no history yet) equal to the float32
+    history's; TRACK (as 9a) against the plain version with the same bf16
+    round trip, at least QN_SHORT; at 500 iterations the control within
+    0.1 * max(|f32|, 1) of the float32 history's (the JAX test's bound),
+    the residual tail within 10 times the float32 history's, the physical
+    bounds, bit-equal repeats; instance 0 of a B = 32 call bit for bit
+    against the single solve (12a's rule); single solves timed in turns
+    with the float32 history, B = 32 solves/s, memory, the bound; the
+    plain version timed over QN_TRACK_MAX iterations;
+30. the main path of this slice: the port's config ladder
+    (``rapidnet_tpu_torch.bench_ladder --repeats 2``, rows 1-5 of
+    BASELINE.md, written to ladder_out/LADDER_chip_smoke.json), every
+    count zeroed just before it: every row without an error and
+    launching its route's wrapper (the fused row the fused kernel); its
+    document is printed on a line of its own.
+
 Each phase prints its own line.  The last lines are the card's name and
 power limit, one JSON line describing each kernel (with its bound: the
 larger of its FP32 operations over 67 TFLOP/s and its bytes, each input
@@ -241,6 +280,7 @@ the result line, as does a machine without a CUDA GPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import gc
@@ -296,6 +336,10 @@ QN_SHORT = {"fbe": 3, "nama": 2}   # the JAX package's strict horizons between
                                    # its streaming and XLA QN solves
                                    # (tests/test_qn_stream.py:47-84)
 PLAIN_LOOP_STEPS = 2  # phase 21's plain FBE loop at config 5
+STREAM_QN_LOOP_STEPS = 3   # phase 21's streaming QN loops (cut from 4 to
+                           # fit the time limit)
+STREAM_QN_REPEATS = 3      # phase 22's timed solves per algorithm and
+                           # history storage (cut from REPEATS = 7)
 PROFILE_ITER = 50     # phase 22's profiled solves
 PLAIN_INSTANCES = 4   # phase 12b-c: the instances held to the plain batch
 BATCH_LOOP_STEPS = 3
@@ -529,7 +573,9 @@ def wrappers():
     return {"apg_solve": K.apg_solve, "apg_solve_batch": K.apg_solve_batch,
             "qn_solve": Q.qn_solve, "qn_solve_batch": Q.qn_solve_batch,
             "apg_stream": S.apg_stream, "apg_stream.k1": S.k1_call,
-            "apg_stream.k2": S.k2_call, "stream_qn.s1": SQ.s1_call,
+            "apg_stream.k2": S.k2_call,
+            "apg_stream_fused": S.apg_stream_fused,
+            "apg_stream.fused": S.fused_call, "stream_qn.s1": SQ.s1_call,
             "stream_qn.s2": SQ.s2_call, "lbfgs.dots": LB.dots,
             "lbfgs.combine": LB.combine,
             "apg_stream_sharded.k1a": SS.k1a_call,
@@ -1441,6 +1487,19 @@ def close_or_witness(name, kern, plain, witness):
         return float((kern.double() - plain.double()).abs().max())
 
 
+@contextlib.contextmanager
+def reference_kernel(ref_libs, name):
+    """Within the block the wrappers launch ``name`` from the reference
+    source's library (--reference-kernel) instead of the checkout's."""
+    from rapidnet_tpu_torch.ops import build
+    load = build.load
+    build.load = lambda n: ref_libs[n] if n == name else load(n)
+    try:
+        yield
+    finally:
+        build.load = load
+
+
 def kernel_times(run, n_it, names):
     """Device µs per iteration of each kernel in ``names`` over one
     ``run()``, by ``torch.profiler``; None where the trace holds no
@@ -1545,6 +1604,23 @@ def stream_phases(ref_libs, device, kc_b, step_b, hyper_b):
     print(f"[stream] 15: one K1 and one K2 pass hold their plain halves; "
           f"largest deviation {ratio:.6g} x max(|plain|, 1) (bound "
           f"{PASS_FACTOR:g})")
+    if ref_libs:
+        with reference_kernel(ref_libs, "apg_stream"):
+            ykr, zkr, vkr, chkr = S.k1_call(kc, step_hot, ps["pre"], ps["y"],
+                                            ps["z"], sc, **hyper)
+            k2r = S.k2_call(kc, step_hot, vp, yp, zp, sc, **hyper)
+        same = (all(torch.equal(a[k], b[k]) for a, b in ((ykr, yk), (zkr, zk))
+                    for k in ("xi", "psi")) and torch.equal(vkr, vk) and
+                torch.equal(chkr, chk) and all(
+                    torch.equal(a, b) for a, b in
+                    ((k2r[0], xk), (k2r[1], uk), (k2r[2]["xi"], prek["xi"]),
+                     (k2r[2]["psi"], prek["psi"]), (k2r[3], d1k),
+                     (k2r[4], d2k))))
+        print(f"[stream] 15: K1 and K2 equal the reference kernels' "
+              f"(apg_stream.cu of --reference-kernel) bit for bit: {same}")
+        del ykr, zkr, vkr, k2r
+        if not same:
+            raise SmokeFailure("15: a K1 or K2 pass changed")
     del ps, yk, zk, vk, yp, zp, vp, xk, uk, prek, xp, up, prep
 
     # 16. the 500-iteration solve against the plain APG solve
@@ -1584,14 +1660,8 @@ def stream_phases(ref_libs, device, kc_b, step_b, hyper_b):
     if not same:
         raise SmokeFailure("the streaming kernels do not repeat themselves")
     if ref_libs:
-        from rapidnet_tpu_torch.ops import build
-        load = build.load
-        build.load = lambda name: (ref_libs[name] if name == "apg_stream"
-                                   else load(name))
-        try:
+        with reference_kernel(ref_libs, "apg_stream"):
             ref = S.apg_stream(kc, step, None, **hyper)
-        finally:
-            build.load = load
         same = outputs_equal(ref, kern, ("x", "u", "v", "control",
                                          "primal_infeasibility"))
         print(f"[stream] 16: the streaming solve equals the reference "
@@ -1693,6 +1763,25 @@ def stream_phases(ref_libs, device, kc_b, step_b, hyper_b):
     print(f"[bound] stream: {bound[2] / 1e9:.3f} GFLOP, {bound[3] / 1e6:.3f} "
           f"MB: {bound[0]:.6f} ms, set by {bound[1]}; the state streamed "
           f"once per iteration: {bound[5] / 1e9:.3f} GB, {bound[4]:.6f} ms")
+    if ref_libs:
+        # the reference source's kernels and these in turns (reference,
+        # these, these, reference), 3 solves each
+        ab = {"reference": [], "these": []}
+        for which in ("reference", "these", "these", "reference"):
+            ctx = (reference_kernel(ref_libs, "apg_stream")
+                   if which == "reference" else contextlib.nullcontext())
+            with ctx:
+                ab[which] += [timed(lambda: S.apg_stream(
+                    kc, step, None, **hyper))[0] for _ in range(3)]
+                per = kernel_times(
+                    lambda: S.apg_stream(kc, step, None, **hyper), MAX_ITER,
+                    ("k1_kernel", "k2_kernel", "scalars_kernel"))
+            print(f"[timing] stream, {which} kernels: "
+                  f"{', '.join(f'{t:.3f}' for t in ab[which][-3:])} ms; "
+                  f"device us per iteration {per}")
+        print(f"[timing] stream solve, median of 6: these kernels "
+              f"{np.median(ab['these']):.3f} ms, the reference source's "
+              f"{np.median(ab['reference']):.3f} ms")
     entry = {"name": "apg_stream", "route": "cuda",
              "source": "rapidnet_tpu_torch/csrc/apg_stream.cu",
              "replaces": "rapidnet_tpu/ops/pallas_stream.py:251",
@@ -1842,10 +1931,10 @@ def history_work(E, rows, M, size, dots):
     return 2 * (2 * M + 1) * E, 2 * M * E * size + 8 * E + 4 * (2 * M + 1)
 
 
-def tracking(tag, kern, plain, min_track):
+def tracking(tag, kern, plain, min_track, label="stream_qn"):
     """9a's TRACK between two solves of n iterations (kern(n),
     plain(n)): the traces within the JAX bounds, then control and u;
-    at least ``min_track``."""
+    at least ``min_track``.  ``label`` tags the printed line."""
     k_s, p_s = kern(QN_TRACK_MAX), plain(QN_TRACK_MAX)
     traced = qn_horizon(k_s, p_s, QN_TRACK_MAX)
     track = traced
@@ -1855,7 +1944,7 @@ def tracking(tag, kern, plain, min_track):
         if agree:
             break
         track -= 1
-    print(f"[stream_qn] {tag}: TRACK {track} (traces within the JAX "
+    print(f"[{label}] {tag}: TRACK {track} (traces within the JAX "
           f"bounds over {traced} of {QN_TRACK_MAX} iterations, control "
           f"and u after the first {track})")
     if track < min_track:
@@ -2040,7 +2129,7 @@ def stream_qn_phases(device, problem, kq_b, kc_b, step_b, hyper_b):
     launches = {}
     loop_controls = {}
 
-    def loop(short, backend, steps=STREAM_LOOP_STEPS, **kw):
+    def loop(short, backend, steps=STREAM_QN_LOOP_STEPS, **kw):
         c = copy.deepcopy(cfg)
         c.algorithm = QN_ALGORITHMS[short]
         ctrl = SmpcController(c, network=net, tree=tree,
@@ -2098,7 +2187,7 @@ def stream_qn_phases(device, problem, kq_b, kc_b, step_b, hyper_b):
     # profiler, the idle share, peak memory, the bound; each kernel's
     # time per call at the main path's shapes beside its plain version's
     staged = [make_step(x) for x in perturbed(
-        cfg.current_x, np.random.default_rng(7), REPEATS)]
+        cfg.current_x, np.random.default_rng(7), STREAM_QN_REPEATS)]
     fq = {}
     for short, algorithm in QN_ALGORITHMS.items():
         for dtype in ("float32", "bfloat16"):
@@ -2121,7 +2210,8 @@ def stream_qn_phases(device, problem, kq_b, kc_b, step_b, hyper_b):
             fq[(short, dtype)] = (med, prof, peak)
             print(f"[timing] stream {short} {dtype} history, {MAX_ITER} "
                   f"iterations at config 5: median {med:.3f} ms of "
-                  f"{REPEATS} ({', '.join(f'{t:.3f}' for t in times)}), "
+                  f"{STREAM_QN_REPEATS} "
+                  f"({', '.join(f'{t:.3f}' for t in times)}), "
                   f"{med * 1e3 / MAX_ITER:.3f} us per iteration; host "
                   f"enqueue {', '.join(f'{t:.3f}' for t in enqueue)} ms; "
                   f"peak {peak / 2**20:.3f} MiB above the "
@@ -2882,13 +2972,386 @@ def run_mesh_phases():
     return entries
 
 
+def fused_streamed_bytes(kc, iterations):
+    """The bytes the fused iteration streams when its state does not stay
+    on chip, every tree node once per iteration: K1's stages read the
+    pre-images, y, z and beta and write y', z', v and w; K2's read w,
+    uhat and e and write x, u and the pre-images (v stays in shared
+    memory).  ``stream_bound``'s last figure is the two kernels'."""
+    from rapidnet_tpu_torch.ops import apg_stream as S
+    _, _, nx, nu, nv = S._dims(kc)
+    nodes = int((kc["rep"] > 0).sum())
+    dual = 2 * nx + nu
+    return iterations * nodes * 4 * (2 * (3 * dual + nv) + (dual + nu + nx)
+                                     + (nx + nu + dual))
+
+
+def fused_phases(problem, stream_plain_ms):
+    """Phase 28, the fused streaming APG kernel at config 5 on phase 15's
+    problem (``problem``, as ``stream_phases`` returns it);
+    ``stream_plain_ms``: phase 18's time of ``apg_stream_plain``, which is
+    the fused kernel's plain solve too.  Returns its JSON entry; its
+    launches are counted on the main path, phase 30."""
+    import re
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from rapidnet_tpu_torch.ops import apg_stream as S
+    from rapidnet_tpu_torch.solver import apg as apg_mod
+
+    cfg, net, tree, fa, make_step, kc, prefix, hyper = problem
+    if not S.fused_fits(tree.N, tree.ns, net.nx, net.nu,
+                        fa["invWbar"].shape[0]):
+        raise SmokeFailure("28: config 5 should be within the fused "
+                           "kernel's limits")
+    # 28a. one fused iteration against k1_plain -> k2_plain, from phase
+    # 15's stressed state and shrinks
+    step_hot = make_step((1.2 * net.xmax).astype(np.float32))
+    ps = S.plain_iterations(kc, step_hot, iterations=PASS_ITER, **hyper)
+    lams = kc["lams"]
+    sc = (lams[PASS_ITER - 1], lams[PASS_ITER], 1.0) + PASS_SHRINKS
+    state = {"pre": ps["pre"], "y": ps["y"], "z": ps["z"]}
+    got = S.fused_call(kc, step_hot, state, sc, **hyper)
+    ref = S.fused_iteration_plain(kc, step_hot, state, sc, **hyper)
+    ratio = 0.0
+    for name, g, r in ([(f"{a}.{k}", got[a][k], ref[a][k])
+                        for a in ("y", "z", "pre") for k in ("xi", "psi")] +
+                       [(k, got[k], ref[k]) for k in
+                        ("v", "champion", "x", "u", "d1sq", "d2sq")]):
+        err = check_close(f"28.iteration.{name}", g, r, PASS_FACTOR)
+        ratio = max(ratio, err / max(float(r.abs().max()), 1.0))
+    print(f"[fused] 28: one fused iteration (one cooperative launch) holds "
+          f"k1_plain -> k2_plain; largest deviation {ratio:.6g} x "
+          f"max(|plain|, 1) (bound {PASS_FACTOR:g})")
+    del ps, state, got, ref
+
+    # 28b. 500 iterations against the two-kernel solve (the same stage
+    # bodies in the same order: bit for bit, else within SAME_FACTOR) and
+    # against the plain APG solve by phase 16's rule
+    step = make_step(cfg.current_x)
+    keys = ("x", "u", "v", "control", "primal_infeasibility")
+    fused = S.apg_stream_fused(kc, step, None, **hyper)
+    two = S.apg_stream(kc, step, None, **hyper)
+    same = outputs_equal(fused, two, keys)
+    print(f"[fused] 28: {MAX_ITER} iterations, one cooperative launch each "
+          f"replayed from a captured graph, equal to the two-kernel solve "
+          f"bit for bit: {same}")
+    if not same:
+        for k in keys:
+            check_close(f"28.two_kernel.{k}", fused[k], two[k], SAME_FACTOR)
+    run_plain = apg_mod.make_apg(prefix_stages=prefix, **hyper)
+    plain = run_plain(fa, step)
+    f64 = {}
+
+    def witness():
+        if "out" not in f64:
+            f64["out"] = run_plain(as_f64(fa), as_f64(step))
+        return f64["out"]
+
+    errs = {k: close_or_witness(f"28.{k}", fused[k], plain[k],
+                                lambda k=k: witness()[k])
+            for k in ("control", "u", "x", "v", "primal_infeasibility")}
+    # 28c. a warm start (phase 16 holds the two-kernel one to the plain
+    # solve's), and repeats
+    warm = S.apg_stream_fused(kc, step, plain["y"], **hyper)
+    warm_two = S.apg_stream(kc, step, plain["y"], **hyper)
+    same_w = outputs_equal(warm, warm_two, keys)
+    if not same_w:
+        for k in keys:
+            check_close(f"28.warm.{k}", warm[k], warm_two[k], SAME_FACTOR)
+    rep = outputs_equal(S.apg_stream_fused(kc, step, None, **hyper), fused,
+                        keys)
+    print(f"[fused] 28: held to the plain solve by phase 16's rule; a warm "
+          f"start equals the two-kernel warm start bit for bit: {same_w}; "
+          f"two calls equal bit for bit: {rep}")
+    if not rep:
+        raise SmokeFailure("28: the fused kernel does not repeat itself")
+    del fused, two, plain, warm, warm_two, f64
+
+    # 28d. the device kernels of a PROFILE_ITER-iteration solve and the
+    # idle share, by the profiler
+    kc_p = S.stream_constants(fa, prefix_stages=prefix,
+                              max_iterations=PROFILE_ITER)
+    hyper_p = dict(hyper, max_iterations=PROFILE_ITER)
+    S.apg_stream_fused(kc_p, step, None, **hyper_p)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        S.apg_stream_fused(kc_p, step, None, **hyper_p)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    idle = None
+    if events:
+        kernels = {}
+        for e in events:
+            m = re.search(r"(\w+_kernel)\(", e.name)
+            name = m.group(1) if m else e.name[:40]
+            n, t = kernels.get(name, (0, 0.0))
+            kernels[name] = (n + 1, t + e.time_range.end -
+                             e.time_range.start)
+        busy, span = busy_span([(e.time_range.start, e.time_range.end)
+                                for e in events])
+        idle = 1.0 - busy / span
+        n_fused, t_fused = kernels.get("fused_kernel", (0, 0.0))
+        print(f"[fused] 28: a {PROFILE_ITER}-iteration solve's device work "
+              f"as the profiler recorded it (count, total us): " +
+              ", ".join(f"{k} {n} {t:.3f}"
+                        for k, (n, t) in sorted(kernels.items())) +
+              f"; {n_fused} of the {PROFILE_ITER} fused launches recorded, "
+              f"{t_fused / max(n_fused, 1):.3f} us each; idle share "
+              f"{idle:.4f} of the recorded {span / 1e3:.3f} ms")
+        if not n_fused or any(k in kernels
+                              for k in ("k1_kernel", "k2_kernel")):
+            raise SmokeFailure(f"28: the profiled solve ran {kernels}, not "
+                               "the fused kernel alone")
+    else:
+        print("[fused] 28: the profiler trace holds no device time (not "
+              "measured)")
+
+    # 28e. timing, the two-kernel solve in turns beside it; memory; bound
+    staged = [make_step(x) for x in perturbed(
+        cfg.current_x, np.random.default_rng(7), REPEATS)]
+    times, twos = [], []
+    for i, st in enumerate(staged):
+        for fused_turn in ((True, False) if i % 2 else (False, True)):
+            fn = S.apg_stream_fused if fused_turn else S.apg_stream
+            ms, _, out = timed(lambda: fn(kc, st, None, **hyper))
+            (times if fused_turn else twos).append(ms)
+            if not bool(torch.isfinite(out["control"]).all()):
+                raise SmokeFailure("28: non-finite control")
+    med, med_two = float(np.median(times)), float(np.median(twos))
+    torch.cuda.synchronize()
+    held_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = S.apg_stream_fused(kc, step, None, **hyper)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    bound = stream_bound(kc, step, out, MAX_ITER)
+    streamed = fused_streamed_bytes(kc, MAX_ITER)
+    print(f"[timing] fused {MAX_ITER}-iteration solve at config 5: median "
+          f"{med:.3f} ms of {REPEATS} ({', '.join(f'{t:.3f}' for t in times)})"
+          f", {med * 1e3 / MAX_ITER:.3f} us per iteration; the two-kernel "
+          f"solve in turns: median {med_two:.3f} ms "
+          f"({', '.join(f'{t:.3f}' for t in twos)}); plain version (phase "
+          f"18) {stream_plain_ms:.3f} ms")
+    print(f"[memory] fused solve: peak {peak / 2**20:.3f} MiB allocated, "
+          f"{(peak - held_bytes) / 2**20:.3f} MiB above the "
+          f"{held_bytes / 2**20:.3f} MiB held before it")
+    print(f"[bound] fused: {bound[2] / 1e9:.3f} GFLOP, {bound[3] / 1e6:.3f} "
+          f"MB: {bound[0]:.6f} ms, set by {bound[1]}; its state streamed "
+          f"once per iteration: {streamed / 1e9:.3f} GB, "
+          f"{streamed / HBM_BYTES_PER_S * 1e3:.6f} ms (the two kernels': "
+          f"{bound[5] / 1e9:.3f} GB, {bound[4]:.6f} ms)")
+    return {"name": "apg_stream_fused", "route": "cuda",
+            "source": "rapidnet_tpu_torch/csrc/apg_stream.cu",
+            "replaces": "rapidnet_tpu/ops/pallas_stream.py:686",
+            "launches": 0, "max_abs_err": errs["u"], "ms": med,
+            "plain_ms": stream_plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
+
+
+def bf16_history_phases(cfg, fa, make_step, make_batch, hyper, prefix):
+    """Phase 29, the whole-solve FBE/NAMA kernel with its L-BFGS history
+    in bf16 at Barcelona scale, per algorithm.  The knob's main path is
+    the wrapper factories with ``lbfgs_dtype="bfloat16"``
+    (``make_qn_kernel``, ``make_qn_kernel_batch``), whose launches are
+    counted; the float32 history's solves it is compared with run before
+    the counts are zeroed.  Returns the JSON entries."""
+    import numpy as np
+    import torch
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    bs = int(cfg.lbfgs_buffer_size)
+    kq = Q.kernel_constants(fa, prefix_stages=prefix)
+    step = make_step(cfg.current_x)
+    steps_b = make_batch(perturbed(cfg.current_x, np.random.default_rng(7)))
+    staged = [make_step(x) for x in perturbed(
+        cfg.current_x, np.random.default_rng(7), REPEATS)]
+    lo, hi = fa["umin_phys"], fa["umax_phys"]
+    entries = []
+    for short, algorithm in QN_ALGORITHMS.items():
+        qkw = dict(hyper, algorithm=algorithm, lbfgs_buffer_size=bs)
+
+        def f32(n=MAX_ITER, st=step):
+            return Q.qn_solve(kq, st, None, **dict(qkw, max_iterations=n))
+
+        run_1 = Q.make_qn_kernel(fa, prefix_stages=prefix,
+                                 lbfgs_dtype="bfloat16", **qkw)
+
+        def kern(n=MAX_ITER, st=step):
+            if n == MAX_ITER:
+                return run_1(st)
+            return Q.make_qn_kernel(fa, prefix_stages=prefix,
+                                    lbfgs_dtype="bfloat16",
+                                    **dict(qkw, max_iterations=n))(st)
+
+        def plain(n):
+            return Q.qn_solve_plain(kq, step, None, **dict(
+                qkw, max_iterations=n, lbfgs_dtype="bfloat16"))
+
+        f32_1, f32_full = f32(1), f32()
+        zero_counts()
+        # 29a. the first iteration uses no history
+        one = kern(1)
+        equal1 = bool(torch.equal(one["primal_infeasibility"],
+                                  f32_1["primal_infeasibility"]))
+        check_allclose(f"29.{short}.first", one["primal_infeasibility"],
+                       f32_1["primal_infeasibility"], 1e-6, 0.0)
+        print(f"[bf16] 29.{short}: the first iteration equals the float32 "
+              f"history's bit for bit: {equal1}")
+        # 29b. TRACK against the plain version with the same bf16 round
+        # trip
+        err_u = tracking(f"29.{short}", kern, plain, QN_SHORT[short],
+                         label="bf16")
+        plain_ms = timed(lambda: plain(QN_TRACK_MAX))[0]
+        # 29c. 500 iterations: against the float32 history (the JAX
+        # test's bound), the tail, the bounds, repeats
+        full, again = kern(), kern()
+        same = all(torch.equal(again[k], full[k]) for k in
+                   ("x", "u", "iterations", "line_search_trials",
+                    "lbfgs_skips") + QN_TRACES) and all(
+            torch.equal(again["y"][k], full["y"][k]) for k in ("xi", "psi"))
+        a, b = f32_full["control"], full["control"]
+        dev = float((b - a).abs().max()) / max(float(a.abs().max()), 1.0)
+        tail = {n: float(np.median(o["primal_infeasibility"].abs().cpu()
+                                   .numpy()[-20:]))
+                for n, o in (("bf16", full), ("f32", f32_full))}
+        inside = bool(((b >= lo - 1e-5) & (b <= hi + 1e-5)).all())
+        print(f"[bf16] 29.{short}: {MAX_ITER} iterations: control within "
+              f"{dev:.6g} x max(|f32|, 1) of the float32 history's (bound "
+              f"0.1); median |infeasibility| of the last 20: bf16 "
+              f"{tail['bf16']:.6g}, f32 {tail['f32']:.6g}; control within "
+              f"the physical bounds: {inside}; two calls equal bit for "
+              f"bit: {same}; line-search trials "
+              f"{int(full['line_search_trials'])} (f32 "
+              f"{int(f32_full['line_search_trials'])})")
+        if not (dev < 0.1 and inside and same and
+                tail["bf16"] < 10 * max(tail["f32"], 1e-6)):
+            raise SmokeFailure(f"29.{short}: the bf16 history's solve fails "
+                               f"a check above")
+        # 29d. B = 32: instance 0 against the single solve (phase 12a's
+        # rule)
+        run_b = Q.make_qn_kernel_batch(fa, prefix_stages=prefix,
+                                       lbfgs_dtype="bfloat16", **qkw)
+        out_b = run_b(steps_b)
+        _, eq = compare_instances(f"29.{short}.B={BATCH}", out_b,
+                                  [kern(st=instance(steps_b, 0))], QN_KEYS,
+                                  QN_INT_KEYS)
+        print(f"[bf16] 29.{short}: instance 0 of a B = {BATCH} call equals "
+              f"the single solve bit for bit: {eq}")
+        counts = {k: fn.launches for k, fn in wrappers().items()
+                  if fn.launches}
+        if set(counts) != {"qn_solve", "qn_solve_batch"}:
+            raise SmokeFailure(f"29.{short}: the main path launched "
+                               f"{counts}")
+        n_main = sum(counts.values())
+        # 29e. timing: single solves in turns with the float32 history,
+        # then B = 32; peak memory of one solve of each
+        times = {"bf16": [], "f32": []}
+        for i, st in enumerate(staged):
+            for dt in (("bf16", "f32") if i % 2 else ("f32", "bf16")):
+                fn = (lambda st=st: kern(st=st)) if dt == "bf16" else \
+                    (lambda st=st: f32(st=st))
+                times[dt].append(timed(fn)[0])
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        peak = {}
+        for dt, fn in (("bf16", kern), ("f32", f32)):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak[dt] = (torch.cuda.max_memory_allocated() - held) / 2**20
+        med_b, _, _ = batch_timing(f"29.{short} bf16 history", run_b,
+                                   lambda: steps_b)
+        bound = qn_solve_bound(kq, step, full, algorithm, prefix)
+        D = sum(full["y"][k].numel() for k in ("xi", "psi"))
+        hist = {dt: 2 * (bs + 1) * D * size
+                for dt, size in (("f32", 4), ("bf16", 2))}
+        print(f"[timing] 29.{short} single {MAX_ITER}-iteration solves in "
+              f"turns: bf16 history median {med['bf16']:.3f} ms "
+              f"({', '.join(f'{t:.3f}' for t in times['bf16'])}), float32 "
+              f"{med['f32']:.3f} ms "
+              f"({', '.join(f'{t:.3f}' for t in times['f32'])}); B = "
+              f"{BATCH} bf16 {med_b:.3f} ms ({BATCH * 1e3 / med_b:.3f} "
+              f"solves/s); plain bf16 version {plain_ms:.3f} ms over "
+              f"{QN_TRACK_MAX} iterations")
+        print(f"[memory] 29.{short} single solve above what was held: bf16 "
+              f"{peak['bf16']:.3f} MiB, f32 {peak['f32']:.3f} MiB; the "
+              f"history {hist['bf16'] / 2**20:.3f} MiB against "
+              f"{hist['f32'] / 2**20:.3f} MiB")
+        print(f"[bound] 29.{short}: {bound[2] / 1e9:.3f} GFLOP, "
+              f"{bound[3] / 1e6:.3f} MB: {bound[0]:.6f} ms, set by "
+              f"{bound[1]} (the history is the kernel's own state, not an "
+              f"input or output)")
+        entries.append(
+            {"name": f"qn_solve_bf16_{short}", "route": "cuda",
+             "source": "rapidnet_tpu_torch/csrc/qn_solve.cu",
+             "replaces": "rapidnet_tpu/ops/pallas_qn.py:94",
+             "launches": n_main, "max_abs_err": err_u, "ms": med["bf16"],
+             "plain_ms": plain_ms, "plain_iterations": QN_TRACK_MAX,
+             "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": None})
+    return entries
+
+
+LADDER_OUT = "ladder_out/LADDER_chip_smoke.json"
+# the wrapper each ladder row must launch (bench_ladder.solver's routes;
+# the bf16z row runs the plain solve)
+LADDER_WRAPPERS = {
+    "1_toy_deterministic_H8": "apg_solve",
+    "2_binary_tree_H12": "apg_solve",
+    "3_barcelona_subset_100node_H24": "apg_solve",
+    "4_barcelona_556node_H24": "apg_solve",
+    "4_barcelona_556node_H24_batch16": "apg_solve_batch",
+    "5_1024scenario_H24": "apg_stream",
+    "5_1024scenario_H24_bf16z": None,
+    "5_1024scenario_H24_stream": "apg_stream",
+    "5_1024scenario_H24_stream_fused": "apg_stream_fused",
+    "5h_512scenario_H24_stream_halfwidth": "apg_stream",
+    "5h_512scenario_H24_fbe_stream_halfwidth": "stream_qn.s1",
+}
+
+
+def ladder_phase():
+    """Phase 30, the main path of this slice: the port's config ladder
+    (``python -m rapidnet_tpu_torch.bench_ladder --repeats 2``), every
+    launch count zeroed just before it.  Every row must run without an
+    error and launch its route's wrapper (the fused row the fused
+    kernel).  Returns the wrappers' counts."""
+    from rapidnet_tpu_torch import bench_ladder as L
+
+    zero_counts()
+    rc = L.main(["--repeats", "2", "--out", LADDER_OUT])
+    counts = {k: fn.launches for k, fn in wrappers().items() if fn.launches}
+    doc = json.loads(Path(LADDER_OUT).read_text())
+    rows = {r["config"]: r for r in doc["rows"]}
+    print(json.dumps({"ladder": doc}))
+    print(f"[ladder] 30: exit {rc}, {len(rows)} rows on {doc['device']}; "
+          f"the wrappers' launches {json.dumps(counts)}")
+    if rc != 0 or set(rows) != set(LADDER_WRAPPERS):
+        raise SmokeFailure(f"30: the ladder exited {rc} with rows "
+                           f"{sorted(rows)}")
+    for name, wrapper in LADDER_WRAPPERS.items():
+        row = rows[name]
+        launched = row["launches"]
+        ok = (not launched) if wrapper is None else launched.get(wrapper, 0)
+        if "error" in row or not ok:
+            raise SmokeFailure(f"30: row {name}: {json.dumps(row)}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reference-kernel", default=None, metavar="DIR",
                     help="the csrc directory of an earlier checkout: "
-                         "phases 6c, 12a and 16 also hold the single APG, "
-                         "FBE and NAMA solves and the streaming APG solve "
-                         "to its kernels, bit for bit")
+                         "phases 6c, 12a, 15 and 16 also hold the single "
+                         "APG, FBE and NAMA solves, one K1 and one K2 pass "
+                         "and the streaming APG solve to its kernels, bit "
+                         "for bit, and phase 18 times its streaming solve "
+                         "in turns with this checkout's")
     args = ap.parse_args()
     import torch
 
@@ -2965,6 +3428,7 @@ def main() -> int:
     step_b = make_step(cfg.current_x)
     entry, problem5 = stream_phases(ref_libs, device, kc, step_b, hyper)
     entries.append(entry)
+    stream_plain_ms = entry["plain_ms"]
     lap("15-18")
     from rapidnet_tpu_torch.ops import qn_solve as Q
     entries += stream_qn_phases(device, problem5,
@@ -2973,6 +3437,14 @@ def main() -> int:
     lap("19-22")
     entries += run_mesh_phases()
     lap("23-27")
+    fused = fused_phases(problem5, stream_plain_ms)
+    lap("28")
+    entries += bf16_history_phases(cfg, fa, make_step, make_batch, hyper,
+                                   prefix)
+    lap("29")
+    fused["launches"] = ladder_phase().get("apg_stream_fused", 0)
+    entries.append(fused)
+    lap("30")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -10,8 +10,10 @@ whole APG solve (``ops/apg_solve.py``, ``csrc/apg_solve.cu``), the whole
 FBE/NAMA solve (``ops/qn_solve.py``, ``csrc/qn_solve.cu``), each also
 running B independent solves in one call for ``BatchedSmpcController``,
 and, for trees past the whole-solve kernels' shared-memory limits, the
-streaming APG iteration (``ops/apg_stream.py``, ``csrc/apg_stream.cu``)
-and the streaming FBE/NAMA solve (``solver/qn_stream.py``) over its oracle
+streaming APG iteration (``ops/apg_stream.py``, ``csrc/apg_stream.cu``:
+two kernels an iteration, or one cooperative launch, the fused kernel
+of the config ladder's fused row, ``bench_ladder.py``) and the
+streaming FBE/NAMA solve (``solver/qn_stream.py``) over its oracle
 sweeps (``ops/stream_qn.py``, ``csrc/stream_qn.cu``) and L-BFGS history
 passes (``ops/lbfgs.py``, ``csrc/lbfgs.cu``).  Those streaming solves
 also run scenario-sharded, one process per shard on torch.distributed

@@ -26,9 +26,10 @@
 //
 // What bounds it on the card.  At the Barcelona-scale problem (N = 24
 // stages, ns = 25 scenario slots, nx = 63, nu = 114, nv = 97, a curvature
-// buffer of 5) the state is ~14 dual-sized buffers of 144k floats plus
-// the 2 x 6 history columns: ~15 MB, far above a block's shared memory and
-// inside the 50 MB L2.  Three tree sweeps per iteration hold most of the
+// buffer of 5) the state is ~14 dual-sized buffers of 144k floats (~8
+// MB) plus the 2 x 6 history columns (~6.9 MB in float32, ~3.5 MB in
+// bf16): ~15 MB, far above a block's shared memory and inside the 50 MB
+// L2.  Three tree sweeps per iteration hold most of the
 // operations (~54 MFLOP each); everything else is elementwise work and
 // reductions over the dual space, whose every dot and norm couples the
 // whole tree.  So, as in apg_solve.cu, every piece of the iteration is a
@@ -98,10 +99,19 @@
 // Products are this file's own FP32 FMA loops (no cuBLAS, no tensor
 // cores, no TF32): the JAX package computes them at Precision.HIGHEST.
 //
+// The history's storage (History<H>): float32 (qn_solve, qn_solve_batch)
+// or bf16 (qn_solve_bf16, qn_solve_batch_bf16), the TPU kernel's
+// lbfgs_dtype (pallas_qn.py:99, :128).  A bf16 pair is rounded before its
+// dots and rho, stored rounded, and widened on read (:335-359, :383);
+// all arithmetic stays float32, column 0 stays zero, and the launches per
+// iteration are the same.  Only the history's element type differs, so
+// the float32 entries compile to what they were.
+//
 // Layout: every per-row array is row-major (R, d) with row r = s*ns + i
 // (stage s, slot i).  A dual-space buffer is flat, [xi (R, 2nx) | psi
 // (R, nu)]; the history holds bs + 1 such columns.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -137,8 +147,12 @@ struct Args {
   const float *beta, *uhat, *e, *alpha, *x0, *pdu, *pu;
   // dual-space state
   float *y, *yp, *yvp, *w, *rs, *yv, *dd, *wd, *df;
-  // primal state and sweep scratch, the curvature history
-  float *x, *u, *hx, *hu, *t, *a, *ms, *my;
+  // primal state and sweep scratch
+  float *x, *u, *hx, *hu, *t, *a;
+  // the curvature history, bs + 1 columns of D each: float or bf16
+  // (History<H>), hsize bytes an element
+  void *ms, *my;
+  int hsize;
   // per-block partials
   float *norm_part, *val_part, *dot_part, *pp, *champ_part;
   float *sc, *tr_inf, *tr_val, *tr_tau;
@@ -167,8 +181,9 @@ __device__ __forceinline__ Args instance(Args p, int b) {
     p.x += b * R * p.nx; p.hx += b * R * p.nx; p.t += b * R * p.nx;
     p.u += b * R * p.nu; p.hu += b * R * p.nu;
     p.a += b * R * p.nv;
-    p.ms += b * (p.bs + 1) * D;
-    p.my += b * (p.bs + 1) * D;
+    const size_t hist = (size_t)b * (p.bs + 1) * D * p.hsize;
+    p.ms = static_cast<char*>(p.ms) + hist;
+    p.my = static_cast<char*>(p.my) + hist;
     p.norm_part += (size_t)b * p.ns * 2;
     p.val_part += (size_t)b * p.ns * 4;
     p.dot_part += (size_t)b * p.ns * 4;
@@ -647,12 +662,44 @@ __device__ float fbe_value(const Args& p) {
   return wr + 0.5f * p.step * rr + vg + sm + ec;
 }
 
+// The history's storage type H: float, or bf16 (the TPU kernel's
+// lbfgs_dtype, pallas_qn.py:128).  A curvature pair is rounded to H
+// before its dots, rho and the accept test (pallas_qn.py:335-340), so the
+// stored column and its rho agree; every sum and product stays float,
+// and a column is widened as it is read (:383).
+template <class H>
+struct History;
+template <>
+struct History<float> {
+  __device__ static float round(float v) { return v; }
+  __device__ static float store(float v) { return v; }
+  __device__ static float load(float v) { return v; }
+};
+template <>
+struct History<__nv_bfloat16> {
+  __device__ static float round(float v) {
+    return __bfloat162float(__float2bfloat16(v));
+  }
+  __device__ static __nv_bfloat16 store(float v) {
+    return __float2bfloat16(v);
+  }
+  __device__ static float load(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+};
+
+// Column col of a history buffer.
+template <class H>
+__device__ __forceinline__ H* column(void* base, int col, size_t D) {
+  return static_cast<H*>(base) + (size_t)col * D;
+}
+
 // One block per slot: yvec (FBE: -(r + step H(r)), from H(r) in hx, hu;
 // NAMA: -r), the two-loop's start dd = -yvec, and this slot's partials of
 // <yvec, yvec>, <s, yd>, <yd, yd> and <s, s> for the curvature pair
-// s = y - y_prev, yd = yvec - yvec_prev.  Instance blockIdx.y, as in
-// every slot phase below.
-template <bool BATCHED>
+// s = y - y_prev, yd = yvec - yvec_prev, each rounded to the history's
+// storage.  Instance blockIdx.y, as in every slot phase below.
+template <class H, bool BATCHED>
 __global__ void __launch_bounds__(EW_THREADS)
 lbfgs_dots_kernel(Args pb, int is_fbe) {
   const Args p = instance<BATCHED>(pb, blockIdx.y);
@@ -672,8 +719,8 @@ lbfgs_dots_kernel(Args pb, int is_fbe) {
     }
     p.yv[o] = v;
     p.dd[o] = -v;
-    const float s = p.y[o] - p.yp[o];
-    const float yd = v - p.yvp[o];
+    const float s = History<H>::round(p.y[o] - p.yp[o]);
+    const float yd = History<H>::round(v - p.yvp[o]);
     const float rp = p.rep[r];
     gg += rp * v * v;
     sy += rp * s * yd;
@@ -744,7 +791,7 @@ __device__ __forceinline__ int loop_column(int q, int bs, int col, int mem,
 
 // One block per slot: the accepted pair into its column, and the partial
 // of the first two-loop step's dot <s_col, dd>.
-template <bool BATCHED>
+template <class H, bool BATCHED>
 __global__ void __launch_bounds__(EW_THREADS)
 lbfgs_store_kernel(Args pb) {
   const Args p = instance<BATCHED>(pb, blockIdx.y);
@@ -752,15 +799,15 @@ lbfgs_store_kernel(Args pb) {
   __shared__ float red[EW_THREADS];
   const int i = blockIdx.x, col = p.st[I_COL], mem = p.st[I_MEM];
   const bool accept = p.st[I_ACCEPT];
-  float* ms = p.ms + (size_t)col * p.D;
-  float* my = p.my + (size_t)col * p.D;
+  H* ms = column<H>(p.ms, col, p.D);
+  H* my = column<H>(p.my, col, p.D);
   float part = 0.f;
   for_slot_dual(p, i, [&](size_t o, size_t r, int, size_t) {
     if (accept) {
-      ms[o] = p.y[o] - p.yp[o];
-      my[o] = p.yv[o] - p.yvp[o];
+      ms[o] = History<H>::store(p.y[o] - p.yp[o]);
+      my[o] = History<H>::store(p.yv[o] - p.yvp[o]);
     }
-    if (mem > 0) part += p.rep[r] * ms[o] * p.dd[o];
+    if (mem > 0) part += p.rep[r] * History<H>::load(ms[o]) * p.dd[o];
   });
   part = block_reduce<EW_THREADS>(part, red, Add());
   if (threadIdx.x == 0) p.pp[i] = part;
@@ -774,7 +821,7 @@ lbfgs_store_kernel(Args pb) {
 // next step's dot into pp[(q + 1) & 1] or, after the last step, of the
 // line search's direction value (FBE: <yvec, dd>; NAMA: <r, dd>, whose
 // search direction wd = dd - step r is formed here).
-template <bool BATCHED>
+template <class H, bool BATCHED>
 __global__ void __launch_bounds__(EW_THREADS)
 two_loop_kernel(Args pb, int q, int is_fbe) {
   const Args p = instance<BATCHED>(pb, blockIdx.y);
@@ -805,23 +852,23 @@ two_loop_kernel(Args pb, int q, int is_fbe) {
   }
   __syncthreads();
   const float coef = coef_s;
-  const float* M = (q < bs ? p.my : p.ms) + (size_t)icol * p.D;
+  const H* M = column<H>(q < bs ? p.my : p.ms, icol, p.D);
   const float hess = p.sc[S_HESS];
   bool nact = false;
-  const float* V = nullptr;     // the next step's other factor
+  const H* V = nullptr;         // the next step's other factor
   if (q + 1 < 2 * bs) {
     const int ncol = loop_column(q + 1, bs, col, mem, &nact);
-    V = (q + 1 < bs ? p.ms : p.my) + (size_t)ncol * p.D;
+    V = column<H>(q + 1 < bs ? p.ms : p.my, ncol, p.D);
   }
   const bool last = q == 2 * bs - 1, nama = !is_fbe;
   const float step = p.step;
   float part = 0.f;
   for_slot_dual(p, i, [&](size_t o, size_t r, int, size_t) {
     float d = p.dd[o];
-    if (act) d = d + coef * M[o];
+    if (act) d = d + coef * History<H>::load(M[o]);
     if (q == bs - 1) d = hess * d;
     p.dd[o] = d;
-    if (nact) part += p.rep[r] * V[o] * d;
+    if (nact) part += p.rep[r] * History<H>::load(V[o]) * d;
     if (last) {
       if (nama) {
         const float res = p.rs[o];
@@ -1081,8 +1128,8 @@ cudaError_t enqueue_sweep(const Args& p, const Plan& pl, cudaStream_t st,
 // One iteration's launches on `st`; qn = false for the first iteration,
 // which has no curvature pair and no line search (pallas_qn.py:302).
 // The direction and output pointers are instance 0's; each phase moves
-// them to its own instance.
-template <bool BATCHED>
+// them to its own instance.  H: the history's storage.
+template <class H, bool BATCHED>
 cudaError_t enqueue_iteration(const Args& p, const Plan& pl, cudaStream_t st,
                               bool qn, bool is_fbe) {
   const dim3 S = pl.slots;
@@ -1093,12 +1140,13 @@ cudaError_t enqueue_iteration(const Args& p, const Plan& pl, cudaStream_t st,
   if (is_fbe)
     QN_TRY(enqueue_sweep<BATCHED>(p, pl, st, false, p.rs, p.hx, p.hu,
                                   nullptr));
-  QN_TRY(launch(lbfgs_dots_kernel<BATCHED>, S, T, 0, st, p, (int)is_fbe));
+  QN_TRY(launch(lbfgs_dots_kernel<H, BATCHED>, S, T, 0, st, p,
+                (int)is_fbe));
   if (qn) {
     QN_TRY(launch(lbfgs_update_kernel<BATCHED>, SB, ST, 0, st, p));
-    QN_TRY(launch(lbfgs_store_kernel<BATCHED>, S, T, 0, st, p));
+    QN_TRY(launch(lbfgs_store_kernel<H, BATCHED>, S, T, 0, st, p));
     for (int q = 0; q < 2 * p.bs; ++q)
-      QN_TRY(launch(two_loop_kernel<BATCHED>, S, T, 0, st, p, q,
+      QN_TRY(launch(two_loop_kernel<H, BATCHED>, S, T, 0, st, p, q,
                     (int)is_fbe));
     if (is_fbe) {
       QN_TRY(enqueue_sweep<BATCHED>(p, pl, st, false, p.dd, p.hx, p.hu,
@@ -1124,7 +1172,7 @@ cudaError_t enqueue_iteration(const Args& p, const Plan& pl, cudaStream_t st,
 
 // Iterations 1 .. max_it - 1 as one captured graph of one iteration,
 // launched once per iteration on `st`.
-template <bool BATCHED>
+template <class H, bool BATCHED>
 cudaError_t run_graph(const Args& p, const Plan& pl, cudaStream_t st,
                       int max_it, bool is_fbe) {
   cudaStream_t cs;
@@ -1133,7 +1181,7 @@ cudaError_t run_graph(const Args& p, const Plan& pl, cudaStream_t st,
       cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
   if (err == cudaSuccess) {
     const cudaError_t enq =
-        enqueue_iteration<BATCHED>(p, pl, cs, true, is_fbe);
+        enqueue_iteration<H, BATCHED>(p, pl, cs, true, is_fbe);
     cudaGraph_t graph = nullptr;
     err = cudaStreamEndCapture(cs, &graph);
     if (enq != cudaSuccess) err = enq;
@@ -1153,7 +1201,7 @@ cudaError_t run_graph(const Args& p, const Plan& pl, cudaStream_t st,
 
 // The whole call: shared-memory limits, the history's zero columns, the
 // scalars, the first iteration and the graph of the rest.
-template <bool BATCHED>
+template <class H, bool BATCHED>
 cudaError_t run_solve(const Args& p, cudaStream_t st, int max_it,
                       bool is_fbe) {
   const int ns = p.ns, nx = p.nx, nu = p.nu, nv = p.nv;
@@ -1187,37 +1235,54 @@ cudaError_t run_solve(const Args& p, cudaStream_t st, int max_it,
   // two-loop's visit to it after the wrap is a no-op
   // (solver/quasi_newton.py)
   for (int b = 0; b < p.B; ++b) {
-    const size_t col0 = (size_t)b * (p.bs + 1) * p.D;
-    QN_TRY(cudaMemsetAsync(p.ms + col0, 0, sizeof(float) * p.D, st));
-    QN_TRY(cudaMemsetAsync(p.my + col0, 0, sizeof(float) * p.D, st));
+    const size_t col0 = (size_t)b * (p.bs + 1) * p.D * sizeof(H);
+    QN_TRY(cudaMemsetAsync(static_cast<char*>(p.ms) + col0, 0,
+                           sizeof(H) * p.D, st));
+    QN_TRY(cudaMemsetAsync(static_cast<char*>(p.my) + col0, 0,
+                           sizeof(H) * p.D, st));
   }
   QN_TRY(launch(init_kernel<BATCHED>, pl.scalar_blocks, pl.scalar_threads,
                 0, st, p));
   if (max_it < 1) return cudaSuccess;
-  QN_TRY(enqueue_iteration<BATCHED>(p, pl, st, false, is_fbe));
-  return run_graph<BATCHED>(p, pl, st, max_it, is_fbe);
+  QN_TRY((enqueue_iteration<H, BATCHED>(p, pl, st, false, is_fbe)));
+  return run_graph<H, BATCHED>(p, pl, st, max_it, is_fbe);
 }
 
+// The arguments of every C entry before the batch's (the history ms and
+// my as float or bf16, by the entry) and after it.
+#define QN_HEAD_ARGS                                                        \
+  const float *d1, const float *d2, const float *g, const float *nhp,       \
+      const float *rep, const float *prob, const float *xmin,               \
+      const float *xmax, const float *xs, const float *umin,                \
+      const float *umax, const float *L, const float *BbT,                  \
+      const float *iWT, const float *LT, const float *BT, const float *Cs,  \
+      const float *WT, const float *beta, const float *uhat,                \
+      const float *e, const float *alpha, const float *x0,                  \
+      const float *pdu, const float *pu, float *y, float *yp, float *yvp,   \
+      float *w, float *rs, float *yv, float *dd, float *wd, float *df,      \
+      float *x, float *u, float *hx, float *hu, float *t, float *a,         \
+      void *ms, void *my, float *norm_part, float *val_part,                \
+      float *dot_part, float *pp, float *champ_part, float *sc,             \
+      float *tr_inf, float *tr_val, float *tr_tau, int *st
+#define QN_HEAD_NAMES                                                       \
+  d1, d2, g, nhp, rep, prob, xmin, xmax, xs, umin, umax, L, BbT, iWT, LT,   \
+      BT, Cs, WT, beta, uhat, e, alpha, x0, pdu, pu, y, yp, yvp, w, rs, yv, \
+      dd, wd, df, x, u, hx, hu, t, a, ms, my, norm_part, val_part,          \
+      dot_part, pp, champ_part, sc, tr_inf, tr_val, tr_tau, st
+#define QN_TAIL_ARGS                                                        \
+  int N, int ns, int nx, int nu, int nv, int fp, int max_it, int bs,        \
+      int is_fbe, float c, float step, float t1c, float t2c, float pstate,  \
+      float psafety, float xs_upper, int tol_mode, float tol, void *stream
+#define QN_TAIL_NAMES                                                       \
+  N, ns, nx, nu, nv, fp, max_it, bs, is_fbe, c, step, t1c, t2c, pstate,     \
+      psafety, xs_upper, tol_mode, tol, stream
+
 // The solve of qn_solve_batch below, compiled with the per-instance
-// offsets (BATCHED = true) or without them (the single solve, B = 1).
-template <bool BATCHED>
-int solve(
-    const float* d1, const float* d2, const float* g, const float* nhp,
-    const float* rep, const float* prob, const float* xmin,
-    const float* xmax, const float* xs, const float* umin, const float* umax,
-    const float* L, const float* BbT, const float* iWT, const float* LT,
-    const float* BT, const float* Cs, const float* WT, const float* beta,
-    const float* uhat, const float* e, const float* alpha, const float* x0,
-    const float* pdu, const float* pu, float* y, float* yp, float* yvp,
-    float* w, float* rs, float* yv, float* dd, float* wd, float* df,
-    float* x, float* u, float* hx, float* hu, float* t, float* a, float* ms,
-    float* my, float* norm_part, float* val_part, float* dot_part,
-    float* pp, float* champ_part, float* sc, float* tr_inf, float* tr_val,
-    float* tr_tau, int* st, int B, long long uhat_bs, long long e_bs,
-    long long alpha_bs, int N, int ns, int nx, int nu, int nv, int fp,
-    int max_it, int bs, int is_fbe, float c, float step,
-    float t1c, float t2c, float pstate, float psafety, float xs_upper,
-    int tol_mode, float tol, void* stream) {
+// offsets (BATCHED = true) or without them (the single solve, B = 1),
+// with the history stored as H.
+template <class H, bool BATCHED>
+int solve(QN_HEAD_ARGS, int B, long long uhat_bs, long long e_bs,
+          long long alpha_bs, QN_TAIL_ARGS) {
   if (bs < 1 || max_it < 0) return cudaErrorInvalidValue;
   if (B < 1 || B > 65535) return cudaErrorInvalidValue;   // grid.y limit
   Args p;
@@ -1244,12 +1309,13 @@ int solve(
   p.wd = is_fbe ? dd : wd;
   p.x = x; p.u = u; p.hx = hx; p.hu = hu; p.t = t; p.a = a; p.ms = ms;
   p.my = my;
+  p.hsize = sizeof(H);
   p.norm_part = norm_part; p.val_part = val_part; p.dot_part = dot_part;
   p.pp = pp; p.champ_part = champ_part; p.sc = sc; p.tr_inf = tr_inf;
   p.tr_val = tr_val; p.tr_tau = tr_tau; p.st = st;
 
   cudaStream_t cst = static_cast<cudaStream_t>(stream);
-  return run_solve<BATCHED>(p, cst, max_it, is_fbe != 0);
+  return run_solve<H, BATCHED>(p, cst, max_it, is_fbe != 0);
 }
 
 }  // namespace
@@ -1263,60 +1329,33 @@ int solve(
 // (B, max_it), and reads x, u, y, the traces and, per instance, st[1]
 // (the iteration count), st[4] (the rejected curvature pairs) and st[9]
 // (the line-search trials that ran) of st (B, 10) after the stream has
-// run.  Returns a cudaError_t (0 on success).
-extern "C" int qn_solve_batch(
-    const float* d1, const float* d2, const float* g, const float* nhp,
-    const float* rep, const float* prob, const float* xmin,
-    const float* xmax, const float* xs, const float* umin, const float* umax,
-    const float* L, const float* BbT, const float* iWT, const float* LT,
-    const float* BT, const float* Cs, const float* WT, const float* beta,
-    const float* uhat, const float* e, const float* alpha, const float* x0,
-    const float* pdu, const float* pu, float* y, float* yp, float* yvp,
-    float* w, float* rs, float* yv, float* dd, float* wd, float* df,
-    float* x, float* u, float* hx, float* hu, float* t, float* a, float* ms,
-    float* my, float* norm_part, float* val_part, float* dot_part,
-    float* pp, float* champ_part, float* sc, float* tr_inf, float* tr_val,
-    float* tr_tau, int* st, int B, long long uhat_bs, long long e_bs,
-    long long alpha_bs, int N, int ns, int nx, int nu, int nv, int fp,
-    int max_it, int bs, int is_fbe, float c, float step,
-    float t1c, float t2c, float pstate, float psafety, float xs_upper,
-    int tol_mode, float tol, void* stream) {
-  return solve<true>(
-      d1, d2, g, nhp, rep, prob, xmin, xmax, xs, umin, umax, L, BbT, iWT,
-      LT, BT, Cs, WT, beta, uhat, e, alpha, x0, pdu, pu, y, yp, yvp, w, rs,
-      yv, dd, wd, df, x, u, hx, hu, t, a, ms, my, norm_part, val_part,
-      dot_part, pp, champ_part, sc, tr_inf, tr_val, tr_tau, st, B, uhat_bs,
-      e_bs, alpha_bs, N, ns, nx, nu, nv, fp, max_it, bs, is_fbe, c, step,
-      t1c, t2c, pstate, psafety, xs_upper, tol_mode, tol, stream);
+// run.  The history ms, my (B, bs + 1, D) is float here and bf16 in
+// qn_solve_batch_bf16.  Returns a cudaError_t (0 on success).
+extern "C" int qn_solve_batch(QN_HEAD_ARGS, int B, long long uhat_bs,
+                              long long e_bs, long long alpha_bs,
+                              QN_TAIL_ARGS) {
+  return solve<float, true>(QN_HEAD_NAMES, B, uhat_bs, e_bs, alpha_bs,
+                            QN_TAIL_NAMES);
+}
+
+extern "C" int qn_solve_batch_bf16(QN_HEAD_ARGS, int B, long long uhat_bs,
+                                   long long e_bs, long long alpha_bs,
+                                   QN_TAIL_ARGS) {
+  return solve<__nv_bfloat16, true>(QN_HEAD_NAMES, B, uhat_bs, e_bs,
+                                    alpha_bs, QN_TAIL_NAMES);
 }
 
 // The single solve: B = 1 of the batched solve compiled without the
 // per-instance offsets, with the argument list the single-solve wrapper
 // has always called.  The batched entry keeps them at B = 1 too, so a
 // batch of one holds the batched compilation to this one.
-extern "C" int qn_solve(
-    const float* d1, const float* d2, const float* g, const float* nhp,
-    const float* rep, const float* prob, const float* xmin,
-    const float* xmax, const float* xs, const float* umin, const float* umax,
-    const float* L, const float* BbT, const float* iWT, const float* LT,
-    const float* BT, const float* Cs, const float* WT, const float* beta,
-    const float* uhat, const float* e, const float* alpha, const float* x0,
-    const float* pdu, const float* pu, float* y, float* yp, float* yvp,
-    float* w, float* rs, float* yv, float* dd, float* wd, float* df,
-    float* x, float* u, float* hx, float* hu, float* t, float* a, float* ms,
-    float* my, float* norm_part, float* val_part, float* dot_part,
-    float* pp, float* champ_part, float* sc, float* tr_inf, float* tr_val,
-    float* tr_tau, int* st, int N, int ns, int nx, int nu, int nv, int fp,
-    int max_it, int bs, int is_fbe, float c, float step,
-    float t1c, float t2c, float pstate, float psafety, float xs_upper,
-    int tol_mode, float tol, void* stream) {
-  return solve<false>(
-      d1, d2, g, nhp, rep, prob, xmin, xmax, xs, umin, umax, L, BbT, iWT,
-      LT, BT, Cs, WT, beta, uhat, e, alpha, x0, pdu, pu, y, yp, yvp, w, rs,
-      yv, dd, wd, df, x, u, hx, hu, t, a, ms, my, norm_part, val_part,
-      dot_part, pp, champ_part, sc, tr_inf, tr_val, tr_tau, st, 1, 0, 0, 0,
-      N, ns, nx, nu, nv, fp, max_it, bs, is_fbe, c, step, t1c, t2c, pstate,
-      psafety, xs_upper, tol_mode, tol, stream);
+extern "C" int qn_solve(QN_HEAD_ARGS, QN_TAIL_ARGS) {
+  return solve<float, false>(QN_HEAD_NAMES, 1, 0, 0, 0, QN_TAIL_NAMES);
+}
+
+extern "C" int qn_solve_bf16(QN_HEAD_ARGS, QN_TAIL_ARGS) {
+  return solve<__nv_bfloat16, false>(QN_HEAD_NAMES, 1, 0, 0, 0,
+                                     QN_TAIL_NAMES);
 }
 
 // Kernel launches of one iteration after the first (the graph's nodes),

@@ -38,14 +38,30 @@ contract is ``solver/apg.make_apg``'s: control (projected on the physical
 bounds), x, u, v, y {xi, psi}, primal_infeasibility and iterations.
 
 ``apg_stream`` is the wrapper: CPU tensors run ``apg_stream_plain``; CUDA
-tensors launch the kernels or raise.  On an H100 80GB HBM3 (700 W) a
-500-iteration solve at config 5 took ~745 ms (1.49 ms per iteration:
-K1 ~970 µs, K2 ~500 µs), against 3.0-5.0 s for the plain version
-(chip_smoke.py phase 18, profile_solve.py --stream; PERF.md sections
-5 and 6).  ``apg_stream.launches`` counts its
+tensors launch the kernels or raise.  Their times on an H100, and the
+plain version's, are in PERF.md sections 5 and 6 (chip_smoke.py phases
+18 and 28, profile_solve.py --stream).  ``apg_stream.launches`` counts its
 solves; ``k1_call`` and ``k2_call`` (one K1 or one K2 pass on the card,
 to hold each to its plain half) count theirs.  The fixed budget only: a
 tolerance raises, as ``backend='stream'`` does in the JAX package.
+
+The fused iteration (``apg_stream_fused``, ``make_apg_stream_fused``) is
+the counterpart of ``pallas_stream.py::make_apg_stream_fused`` (:686):
+the same iteration as one cooperative launch of ``fused_kernel`` in the
+same source, the stage bodies of K1 and K2 in one kernel with a grid
+barrier at each prefix handoff, w and v kept on chip between the
+phases.  It computes the function the two-kernel iteration computes, so
+its plain version is ``fused_iteration_plain`` (``k1_plain`` then
+``k2_plain`` with the same scalars) and its plain solve is
+``apg_stream_plain``.  ``fused_fits`` states its limits (v's tiles in a
+block's shared memory; every block resident at once: one tile of slots
+a block, at most one block per SM guaranteed); ``fused_call`` runs one
+fused iteration on the card from a
+given state and scalars, to hold it to ``fused_iteration_plain``.
+No controller routes to it: ``backend="stream"`` stays the two-kernel
+path, as in the JAX package, whose only caller of the fused kernel is
+its config ladder (``bench_ladder.py:563-577``); the port's is
+``rapidnet_tpu_torch/bench_ladder.py``.
 """
 
 from __future__ import annotations
@@ -71,6 +87,10 @@ STEP_KEYS = ("beta", "uhat", "e", "x0", "pdu")
 STATE_KEYS = ("y_xi", "y_psi", "z_xi", "z_psi", "pre_xi", "pre_psi", "v",
               "x", "u", "carry", "norm_part", "champ_part", "sc", "trace")
 MODES = {"solve": 0, "k1": 1, "k2": 2}
+FUSED_MODES = {"solve": 0, "iteration": 1}
+MAX_FUSED_RANGES = 32    # K1 ranges the fused kernel takes (MAX_RANGES in
+                         # the source, whose entry refuses more)
+FUSED_PRECISIONS = ("highest",)
 TOLERANCE_MESSAGE = (
     "backend='stream' does not support tolerance-based early "
     "termination; use backend='cuda' (in-kernel early exit) or 'torch'")
@@ -97,6 +117,32 @@ def smem(N: int, ns: int, nx: int, nu: int, nv: int) -> int:
     the larger of the K1 and K2 tiles (``apg_stream_smem`` in the
     source, checked at every launch)."""
     return 4 * TILE * max(nx + nv + nu, 2 * nu + nx + nv)
+
+
+def fused_smem(N: int, ns: int, nx: int, nu: int, nv: int) -> int:
+    """Shared memory (bytes) of the fused kernel: the (N, nv, TILE) tiles
+    of v it keeps on chip beside the larger of K1's work and K2's
+    without its v tile (``apg_stream_fused_smem`` in the source, checked
+    at every launch)."""
+    return 4 * TILE * (N * nv + max(nx + nv + nu, 2 * nu + nx))
+
+
+def fused_fits(N: int, ns: int, nx: int, nu: int, nv: int,
+               smem_limit: int | None = None,
+               sm_count: int | None = None) -> bool:
+    """Whether the fused kernel takes a tree of these sizes: the
+    streaming kernels' limits (``stream_fits``), its shared memory
+    (``fused_smem``) within ``smem_limit``, and its grid (one block per
+    TILE slots) no larger than the SMs (``sm_count``, default: the
+    current CUDA device's), so that every block can be resident at once
+    whatever its registers.  The launch checks the exact occupancy and
+    refuses a grid that is not resident."""
+    if sm_count is None:
+        sm_count = torch.cuda.get_device_properties(
+            torch.cuda.current_device()).multi_processor_count
+    return (stream_fits(N, ns, nx, nu, nv, smem_limit) and
+            fused_smem(N, ns, nx, nu, nv) <= build.smem_optin(smem_limit)
+            and -(-ns // TILE) <= int(sm_count))
 
 
 def _rank1_rows(fa: dict, sq: torch.Tensor) -> dict:
@@ -350,6 +396,27 @@ def plain_iterations(kc, step, y0=None, *, iterations, inv_step,
             "k1f": k1f, "k2f": k2f, "champions": champs}
 
 
+def fused_iteration_plain(kc, step, state, scalars, *, inv_step,
+                          step_size, xs_upper, **_):
+    """One fused iteration in plain PyTorch: ``k1_plain`` then
+    ``k2_plain`` with the same scalars (lam_prev, lam_i, upd, k1f, k2f),
+    from ``state`` = {"pre", "y", "z"}, each {"xi", "psi"}.  Returns y',
+    z', v, the champion, x, u, the pre-images and the two squared
+    distances."""
+    lam_prev, lam_i, upd, k1f, k2f = scalars
+    c = float(inv_step)
+    y, z, v, champ = k1_plain(
+        kc, step["beta"], state["pre"], state["y"], state["z"],
+        lam_prev=lam_prev, lam_i=lam_i, upd=upd, k1f=k1f, k2f=k2f, c=c,
+        step=step_size, xs_upper=xs_upper)
+    x, u, pre, d1sq, d2sq = k2_plain(
+        kc, v, step["uhat"], step["e"], step["x0"],
+        step["prev_u"] - step["prev_uhat"], y, z, lam_i=lam_i, c=c,
+        xs_upper=xs_upper)
+    return {"y": y, "z": z, "v": v, "champion": champ, "x": x, "u": u,
+            "pre": pre, "d1sq": d1sq, "d2sq": d2sq}
+
+
 def _check_budget(max_iterations, tolerance):
     if tolerance is not None:
         raise ValueError(TOLERANCE_MESSAGE)
@@ -430,14 +497,15 @@ def _check_inputs(kc, step, y0, max_iterations):
     return dev
 
 
-def _entry(lib):
-    """The C entry ``apg_stream``, declared."""
-    fn = lib.apg_stream
+def _entry(lib, fused=False):
+    """The C entry ``apg_stream`` (or ``apg_stream_fused``, which takes
+    the scratch w after the counter), declared."""
+    fn = lib.apg_stream_fused if fused else lib.apg_stream
     if fn.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([ptr] * (len(ROW_KEYS) + len(MATRIX_KEYS) +
                                 len(INDEX_KEYS) + len(STEP_KEYS) +
-                                len(STATE_KEYS) + 1) +
+                                len(STATE_KEYS) + 1 + int(fused)) +
                        [i32] * 6 + [ptr, i32] + [f32] * 5 + [i32, ptr])
         fn.restype = i32
         lib.apg_stream_tile.restype = i32
@@ -449,10 +517,11 @@ def _entry(lib):
     return fn
 
 
-def _state(kc, step, y0, max_iterations):
+def _state(kc, step, y0, max_iterations, fused=False):
     """The kernels' state, outputs and scratch on the device: the dual
     pair from ``y0`` (or zero), z and the pre-images zero, as the JAX
-    run starts them."""
+    run starts them; with ``fused``, the fused kernel's scratch w (N,
+    ns, 2nx + nu)."""
     N, ns, nx, nu, nv = _dims(kc)
     dev = kc["sq"].device
     nb = -(-ns // TILE)
@@ -468,7 +537,8 @@ def _state(kc, step, y0, max_iterations):
         y_xi, y_psi = zeros(N, ns, 2 * nx), zeros(N, ns, nu)
     else:
         y_xi, y_psi = y0["xi"].clone(), y0["psi"].clone()
-    return {"y_xi": y_xi, "y_psi": y_psi,
+    extra = {"w": empty(N, ns, 2 * nx + nu)} if fused else {}
+    return {**extra, "y_xi": y_xi, "y_psi": y_psi,
             "z_xi": zeros(N, ns, 2 * nx), "z_psi": zeros(N, ns, nu),
             "pre_xi": zeros(N, ns, 2 * nx), "pre_psi": zeros(N, ns, nu),
             "v": empty(N, ns, nv), "x": empty(N, ns, nx),
@@ -478,10 +548,11 @@ def _state(kc, step, y0, max_iterations):
             "ctr": torch.zeros(1, dtype=torch.int32, device=dev)}
 
 
-def _launch(kc, step, state, mode, *, inv_step, step_size, penalty_state,
-            penalty_safety, xs_upper, max_iterations):
-    """Enqueue ``mode`` ("solve", "k1" or "k2") on the current stream of
-    the constants' device: the argument order of ``apg_stream`` in the
+def _call(kc, step, state, entry, fused, mode, *, inv_step, step_size,
+          penalty_state, penalty_safety, xs_upper, max_iterations):
+    """Enqueue ``mode`` of the C entry ``entry`` on the current stream of
+    the constants' device: the argument order of ``apg_stream`` (and of
+    ``apg_stream_fused``, with the scratch w after the counter) in the
     source.  Raises on a refused launch."""
     N, ns, nx, nu, nv = _dims(kc)
     if not stream_fits(N, ns, nx, nu, nv):
@@ -490,13 +561,17 @@ def _launch(kc, step, state, mode, *, inv_step, step_size, penalty_state,
                          "past stream_fits")
     dev = kc["sq"].device
     lib = build.load("apg_stream")
-    fn = _entry(lib)
+    fn = _entry(lib, fused)
     build.check_smem(lib, "apg_stream", (N, ns, nx, nu, nv),
                      smem(N, ns, nx, nu, nv))
+    if fused:
+        build.check_smem(lib, "apg_stream_fused", (N, ns, nx, nu, nv),
+                         fused_smem(N, ns, nx, nu, nv))
     stepd = dict(step, pdu=(step["prev_u"] - step["prev_uhat"]).contiguous())
     ptrs = ([kc[k].data_ptr() for k in ROW_KEYS + MATRIX_KEYS + INDEX_KEYS]
             + [stepd[k].data_ptr() for k in STEP_KEYS]
-            + [state[k].data_ptr() for k in STATE_KEYS + ("ctr",)])
+            + [state[k].data_ptr() for k in STATE_KEYS + ("ctr",)]
+            + ([state["w"].data_ptr()] if fused else []))
     flat = [v for r in kc["ranges"] for v in r]
     ranges = (ctypes.c_int * len(flat))(*flat)
     c, t1c, t2c = _hyper(inv_step, penalty_state, penalty_safety)
@@ -504,10 +579,46 @@ def _launch(kc, step, state, mode, *, inv_step, step_size, penalty_state,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*ptrs, N, ns, nx, nu, nv, int(max_iterations), ranges,
                  len(kc["ranges"]), c, float(step_size), t1c, t2c,
-                 float(xs_upper), MODES[mode], stream)
+                 float(xs_upper), mode, stream)
     if err != 0:
         msg = lib.apg_stream_error_string(err).decode()
-        raise RuntimeError(f"apg_stream kernel failed: error {err} ({msg})")
+        raise RuntimeError(f"{entry} kernel failed: error {err} ({msg})")
+
+
+def _launch(kc, step, state, mode, **hyper):
+    """``mode`` ("solve", "k1" or "k2") of the two-kernel entry."""
+    _call(kc, step, state, "apg_stream", False, MODES[mode], **hyper)
+
+
+def _launch_fused(kc, step, state, mode, **hyper):
+    """``mode`` ("solve" or "iteration") of the fused entry."""
+    _check_fused(kc)
+    _call(kc, step, state, "apg_stream_fused", True, FUSED_MODES[mode],
+          **hyper)
+
+
+def _check_fused(kc, smem_limit=None, sm_count=None):
+    """Raise where the fused kernel does not take the tree: past
+    ``fused_fits``, or more K1 ranges than it carries."""
+    N, ns, nx, nu, nv = _dims(kc)
+    if not fused_fits(N, ns, nx, nu, nv, smem_limit, sm_count):
+        raise ValueError(f"the fused kernel does not take this tree (N {N}, "
+                         f"ns {ns}, nx {nx}, nu {nu}, nv {nv}): past "
+                         "fused_fits")
+    if len(kc["ranges"]) > MAX_FUSED_RANGES:
+        raise ValueError(f"{len(kc['ranges'])} ranges of stages: the fused "
+                         f"kernel takes at most {MAX_FUSED_RANGES}")
+
+
+def _outputs(kc, state, max_iterations):
+    """A solve's outputs from the kernels' state."""
+    lo, hi = ss.root_control_bounds(kc["fa"])
+    return {"control": torch.clamp(state["u"][0, 0], lo, hi),
+            "x": state["x"], "u": state["u"], "v": state["v"],
+            "y": {"xi": state["y_xi"], "psi": state["y_psi"]},
+            "primal_infeasibility": state["trace"],
+            "iterations": torch.tensor(max_iterations, dtype=torch.int32,
+                                       device=state["u"].device)}
 
 
 def apg_stream(kc, step, y0=None, *, inv_step, step_size, penalty_state,
@@ -529,16 +640,38 @@ def apg_stream(kc, step, y0=None, *, inv_step, step_size, penalty_state,
     state = _state(kc, step, y0, max_iterations)
     apg_stream.launches += 1
     _launch(kc, step, state, "solve", **hyper)
-    lo, hi = ss.root_control_bounds(kc["fa"])
-    return {"control": torch.clamp(state["u"][0, 0], lo, hi),
-            "x": state["x"], "u": state["u"], "v": state["v"],
-            "y": {"xi": state["y_xi"], "psi": state["y_psi"]},
-            "primal_infeasibility": state["trace"],
-            "iterations": torch.tensor(max_iterations, dtype=torch.int32,
-                                       device=dev)}
+    return _outputs(kc, state, max_iterations)
 
 
 apg_stream.launches = 0
+
+
+def apg_stream_fused(kc, step, y0=None, *, inv_step, step_size,
+                     penalty_state, penalty_safety, xs_upper,
+                     max_iterations, tolerance=None):
+    """One streaming APG solve of ``max_iterations`` fused iterations
+    (one cooperative launch each), with ``apg_stream``'s outputs.
+
+    CPU tensors run the plain version (``apg_stream_plain``); CUDA
+    tensors launch the fused kernel or raise.
+    """
+    hyper = dict(inv_step=inv_step, step_size=step_size,
+                 penalty_state=penalty_state, penalty_safety=penalty_safety,
+                 xs_upper=xs_upper, max_iterations=max_iterations)
+    _check_budget(max_iterations, tolerance)
+    dev = _check_inputs(kc, step, y0, max_iterations)
+    if dev.type == "cpu":
+        return apg_stream_plain(kc, step, y0, **hyper)
+    if dev.type != "cuda":
+        raise ValueError(f"apg_stream_fused runs on cpu or cuda, not "
+                         f"{dev.type}")
+    state = _state(kc, step, y0, max_iterations, fused=True)
+    apg_stream_fused.launches += 1
+    _launch_fused(kc, step, state, "solve", **hyper)
+    return _outputs(kc, state, max_iterations)
+
+
+apg_stream_fused.launches = 0
 
 
 def _single_pass(kc, step, scalars, hyper, mode, fill):
@@ -547,13 +680,24 @@ def _single_pass(kc, step, scalars, hyper, mode, fill):
     dev = _check_inputs(kc, step, None, hyper["max_iterations"])
     if dev.type != "cuda":
         raise ValueError(f"the single {mode} pass runs on cuda only")
-    state = _state(kc, step, None, hyper["max_iterations"])
+    fused = mode == "iteration"
+    state = _state(kc, step, None, hyper["max_iterations"], fused=fused)
     state["sc"][:] = torch.stack([torch.as_tensor(s, dtype=torch.float32,
                                                    device=dev).reshape(())
                                    for s in scalars])
     fill(state)
-    _launch(kc, step, state, mode, **hyper)
+    (_launch_fused if fused else _launch)(kc, step, state, mode, **hyper)
     return state
+
+
+def _champion_of(kc, st):
+    """The champion from K1's per-block partials of every range."""
+    n = len(kc["ranges"]) * -(-kc["sq"].shape[1] // TILE)
+    part = st["champ_part"][:n]
+    hx, lx = part[:, 0].max(), part[:, 1].min()
+    hp, lp = part[:, 2].max(), part[:, 3].min()
+    return torch.maximum(torch.where(hx > -lx, hx, lx),
+                         torch.where(hp > -lp, hp, lp))
 
 
 def k1_call(kc, step, pre, y, z, scalars, **hyper):
@@ -570,14 +714,9 @@ def k1_call(kc, step, pre, y, z, scalars, **hyper):
 
     k1_call.launches += 1
     st = _single_pass(kc, step, scalars, hyper, "k1", fill)
-    n = len(kc["ranges"]) * -(-kc["sq"].shape[1] // TILE)
-    part = st["champ_part"][:n]
-    hx, lx = part[:, 0].max(), part[:, 1].min()
-    hp, lp = part[:, 2].max(), part[:, 3].min()
-    champ = torch.maximum(torch.where(hx > -lx, hx, lx),
-                          torch.where(hp > -lp, hp, lp))
     return ({"xi": st["y_xi"], "psi": st["y_psi"]},
-            {"xi": st["z_xi"], "psi": st["z_psi"]}, st["v"], champ)
+            {"xi": st["z_xi"], "psi": st["z_psi"]}, st["v"],
+            _champion_of(kc, st))
 
 
 k1_call.launches = 0
@@ -601,6 +740,57 @@ def k2_call(kc, step, v, y, z, scalars, **hyper):
 
 
 k2_call.launches = 0
+
+
+def fused_call(kc, step, state, scalars, **hyper):
+    """One fused iteration of the kernel on CUDA tensors, from ``state``
+    = {"pre", "y", "z"} with ``scalars`` = (lam_prev, lam_i, upd, k1f,
+    k2f).  Returns ``fused_iteration_plain``'s dict; the champion and the
+    squared distances are combined from the kernel's per-block
+    partials."""
+    def fill(st):
+        for k in ("xi", "psi"):
+            st[f"pre_{k}"].copy_(state["pre"][k])
+            st[f"y_{k}"].copy_(state["y"][k])
+            st[f"z_{k}"].copy_(state["z"][k])
+
+    fused_call.launches += 1
+    st = _single_pass(kc, step, scalars, hyper, "iteration", fill)
+    return {"y": {"xi": st["y_xi"], "psi": st["y_psi"]},
+            "z": {"xi": st["z_xi"], "psi": st["z_psi"]}, "v": st["v"],
+            "champion": _champion_of(kc, st), "x": st["x"], "u": st["u"],
+            "pre": {"xi": st["pre_xi"], "psi": st["pre_psi"]},
+            "d1sq": st["norm_part"][:, 0].sum(),
+            "d2sq": st["norm_part"][:, 1].sum()}
+
+
+fused_call.launches = 0
+
+
+def make_apg_stream_fused(fa: dict, *, prefix_stages: tuple, inv_step,
+                          step_size, penalty_state, penalty_safety,
+                          xs_upper, max_iterations, precision="highest",
+                          tolerance=None, consts=None):
+    """The fused streaming solve (``make_apg_stream_fused``'s
+    counterpart): builds the constants once (or takes ``consts`` from
+    ``stream_constants``) and returns run(step, y0=None).  ``precision``
+    takes only "highest" (the products run in full float32, as the
+    port's streaming path does); a tolerance raises."""
+    if precision not in FUSED_PRECISIONS:
+        raise ValueError(f"precision must be 'highest' (the fused kernel's "
+                         f"products run in full float32), got "
+                         f"'{precision}'")
+    _check_budget(max_iterations, tolerance)
+    kc = consts if consts is not None else stream_constants(
+        fa, prefix_stages=prefix_stages, max_iterations=max_iterations)
+    hyper = dict(inv_step=inv_step, step_size=step_size,
+                 penalty_state=penalty_state, penalty_safety=penalty_safety,
+                 xs_upper=xs_upper, max_iterations=max_iterations)
+
+    def run(step, y0=None):
+        return apg_stream_fused(kc, step, y0, **hyper)
+
+    return run
 
 
 def make_apg_stream_kernel(fa: dict, *, prefix_stages: tuple, inv_step,

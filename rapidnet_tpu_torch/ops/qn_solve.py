@@ -35,8 +35,16 @@ output; the TPU kernel's padded ``{"xi1", "xi2", "psi"}`` is not ported.
 The kernel's sweeps are those of ``csrc/apg_solve.cu``, with the same
 shared-memory limits on the tree (N <= 152 stages, ns <= 181 scenarios
 at the Barcelona-scale widths; ``fits``); a larger tree's launch is
-refused and the wrapper raises.  The history is float32 (the TPU
-kernel's bf16 ``lbfgs_dtype`` is not on this path).
+refused and the wrapper raises.
+
+``lbfgs_dtype`` is the history's storage, "float32" (default) or
+"bfloat16", the TPU kernel's ``lbfgs_dtype`` (``pallas_qn.py:99``): the
+bf16 entries of the same source (``qn_solve_bf16``,
+``qn_solve_batch_bf16``) round each curvature pair to bf16 before its
+dots and rho, store it so and widen it on read; the plain version
+applies the same round trip (``make_solver``'s private
+``_lbfgs_storage``).  No controller of either package passes it: it is
+a knob of these wrappers, as of ``make_qn_pallas``.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from rapidnet_tpu_torch.ops import build
 from rapidnet_tpu_torch.solver import apg as apg_mod
 from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
 from rapidnet_tpu_torch.solver import solve_step as ss
+from rapidnet_tpu_torch.solver.qn_stream import lbfgs_storage
 
 ROW_KEYS = ("d1", "d2", "g", "nhp", "rep", "prob", "xmin", "xmax", "xs",
             "umin", "umax")
@@ -153,53 +162,68 @@ def _check_batch_inputs(kc, steps, y0):
     return B, strides, dev
 
 
-def qn_solve_plain(kc, step, y0=None, **hyper):
+def _plain_storage(lbfgs_dtype):
+    """``make_solver``'s ``_lbfgs_storage`` for a history dtype: None for
+    float32 (the pair as computed), else the dtype it is rounded to."""
+    nb = lbfgs_storage(lbfgs_dtype)
+    return None if nb == torch.float32 else nb
+
+
+def qn_solve_plain(kc, step, y0=None, *, lbfgs_dtype="float32", **hyper):
     """The plain PyTorch version: ``solver/quasi_newton.py``'s solve, on
     any device (``hyper``: ``make_solver``'s settings but the prefix
-    stages)."""
-    run = qn_mod.make_solver(prefix_stages=kc["prefix_stages"], **hyper)
+    stages), with the history's bf16 round trip where asked."""
+    run = qn_mod.make_solver(prefix_stages=kc["prefix_stages"],
+                             _lbfgs_storage=_plain_storage(lbfgs_dtype),
+                             **hyper)
     out = run(kc["fa"], step, y0)
     del out["v"]
     return out
 
 
-def qn_solve_batch_plain(kc, steps, y0=None, **hyper):
+def qn_solve_batch_plain(kc, steps, y0=None, *, lbfgs_dtype="float32",
+                         **hyper):
     """The plain batched version: ``quasi_newton.make_solver_batch``, the
     instances solved one after another, on any device."""
-    run = qn_mod.make_solver_batch(prefix_stages=kc["prefix_stages"],
-                                   **hyper)
+    run = qn_mod.make_solver_batch(
+        prefix_stages=kc["prefix_stages"],
+        _lbfgs_storage=_plain_storage(lbfgs_dtype), **hyper)
     out = run(kc["fa"], steps, y0)
     del out["v"]
     return out
 
 
 def _hyper(algorithm, inv_step, step_size, penalty_state, penalty_safety,
-           xs_upper, max_iterations, lbfgs_buffer_size, tolerance):
+           xs_upper, max_iterations, lbfgs_buffer_size, tolerance,
+           lbfgs_dtype):
     """The solve's settings as keyword arguments, checked."""
     _check_algorithm(algorithm)
     if int(lbfgs_buffer_size) < 1:
         raise ValueError("lbfgs_buffer_size must be at least 1")
+    lbfgs_storage(lbfgs_dtype)
     return dict(algorithm=algorithm, inv_step=inv_step,
                 step_size=step_size, penalty_state=penalty_state,
                 penalty_safety=penalty_safety, xs_upper=xs_upper,
                 max_iterations=max_iterations,
-                lbfgs_buffer_size=lbfgs_buffer_size, tolerance=tolerance)
+                lbfgs_buffer_size=lbfgs_buffer_size, tolerance=tolerance,
+                lbfgs_dtype=lbfgs_dtype)
 
 
 def qn_solve(kc, step, y0=None, *, algorithm, inv_step, step_size,
              penalty_state, penalty_safety, xs_upper, max_iterations,
-             lbfgs_buffer_size, tolerance=None):
+             lbfgs_buffer_size, tolerance=None, lbfgs_dtype="float32"):
     """One whole FBE or NAMA solve.  Returns control, x, u, y, the traces
     ``primal_infeasibility``, ``value_fbe`` and ``tau`` (zero past the
     exit), ``iterations``, ``line_search_trials`` (the trials the line
     searches ran, all iterations together) and ``lbfgs_skips`` (the
-    curvature pairs the buffer rejected).
+    curvature pairs the buffer rejected).  ``lbfgs_dtype``: the
+    history's storage, "float32" or "bfloat16".
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
     hyper = _hyper(algorithm, inv_step, step_size, penalty_state,
                    penalty_safety, xs_upper, max_iterations,
-                   lbfgs_buffer_size, tolerance)
+                   lbfgs_buffer_size, tolerance, lbfgs_dtype)
     dev = _check_inputs(kc, step, y0)
     if dev.type == "cpu":
         return qn_solve_plain(kc, step, y0, **hyper)
@@ -221,7 +245,7 @@ qn_solve.launches = 0
 
 def qn_solve_batch(kc, steps, y0=None, *, algorithm, inv_step, step_size,
                    penalty_state, penalty_safety, xs_upper, max_iterations,
-                   lbfgs_buffer_size, tolerance=None):
+                   lbfgs_buffer_size, tolerance=None, lbfgs_dtype="float32"):
     """B independent whole FBE or NAMA solves in one call.
 
     Every leaf of ``steps`` (and of ``y0``) carries a leading batch axis,
@@ -229,12 +253,13 @@ def qn_solve_batch(kc, steps, y0=None, *, algorithm, inv_step, step_size,
     ``expand``-ed views of one array (batch stride 0).  Returns control
     (B, nu), x, u, y, the three traces (B, max_iterations), and
     ``iterations``, ``line_search_trials`` and ``lbfgs_skips`` (B,).
+    ``lbfgs_dtype`` as in ``qn_solve``.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
     hyper = _hyper(algorithm, inv_step, step_size, penalty_state,
                    penalty_safety, xs_upper, max_iterations,
-                   lbfgs_buffer_size, tolerance)
+                   lbfgs_buffer_size, tolerance, lbfgs_dtype)
     B, strides, dev = _check_batch_inputs(kc, steps, y0)
     if dev.type == "cpu":
         return qn_solve_batch_plain(kc, steps, y0, **hyper)
@@ -265,9 +290,11 @@ def _load(kc) -> ctypes.CDLL:
     return lib
 
 
-def _entry(lib, batched: bool):
-    """The C entry ``qn_solve_batch`` or ``qn_solve``, declared."""
-    fn = lib.qn_solve_batch if batched else lib.qn_solve
+def _entry(lib, batched: bool, bf16: bool = False):
+    """The C entry ``qn_solve_batch`` or ``qn_solve`` (``_bf16``: the
+    history stored in bf16), declared."""
+    fn = getattr(lib, ("qn_solve_batch" if batched else "qn_solve") +
+                 ("_bf16" if bf16 else ""))
     if fn.argtypes is None:
         ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_longlong, ctypes.c_float)
@@ -293,7 +320,8 @@ def launches_per_iteration(algorithm, lbfgs_buffer_size, fp) -> int:
 
 def _launch(lib, stream, kc, step, y0, *, batch, strides=(0, 0, 0),
             algorithm, inv_step, step_size, penalty_state, penalty_safety,
-            xs_upper, max_iterations, lbfgs_buffer_size, tolerance):
+            xs_upper, max_iterations, lbfgs_buffer_size, tolerance,
+            lbfgs_dtype="float32"):
     """Allocate the outputs and scratch, then run the kernel on
     ``stream`` (the argument order of ``qn_solve`` in the source).
 
@@ -312,6 +340,8 @@ def _launch(lib, stream, kc, step, y0, *, batch, strides=(0, 0, 0),
     XI = R * 2 * nx
     D = XI + R * nu
     lead = () if batch is None else (batch,)
+    nb = lbfgs_storage(lbfgs_dtype)
+    bf16 = nb == torch.bfloat16
 
     def empty(*shape):
         return torch.empty(lead + shape, dtype=torch.float32, device=dev)
@@ -334,7 +364,8 @@ def _launch(lib, stream, kc, step, y0, *, batch, strides=(0, 0, 0),
         "t": empty(N, ns, nx), "a": empty(N, ns, nv),
         # column 0 is zeroed by the kernel; the others are written before
         # they are read
-        "ms": empty(bs + 1, D), "my": empty(bs + 1, D),
+        "ms": torch.empty(lead + (bs + 1, D), dtype=nb, device=dev),
+        "my": torch.empty(lead + (bs + 1, D), dtype=nb, device=dev),
         "norm_part": empty(ns, 2), "val_part": empty(ns, 4),
         "dot_part": empty(ns, 4), "pp": empty(2, ns),
         "champ_part": empty(ns, 6),
@@ -358,9 +389,9 @@ def _launch(lib, stream, kc, step, y0, *, batch, strides=(0, 0, 0),
              int(tolerance is not None),
              float(tolerance) if tolerance is not None else 0.0, stream)
     if batch is None:
-        err = _entry(lib, False)(*ptrs, *hyper)
+        err = _entry(lib, False, bf16)(*ptrs, *hyper)
     else:
-        err = _entry(lib, True)(*ptrs, batch, *strides, *hyper)
+        err = _entry(lib, True, bf16)(*ptrs, batch, *strides, *hyper)
     if err != 0:
         msg = lib.qn_solve_error_string(err).decode()
         raise RuntimeError(f"qn_solve kernel failed: error {err} ({msg})")
@@ -377,16 +408,18 @@ def _launch(lib, stream, kc, step, y0, *, batch, strides=(0, 0, 0),
 
 def make_qn_kernel(fa: dict, *, algorithm, prefix_stages: tuple,
                    lbfgs_buffer_size, inv_step, step_size, penalty_state,
-                   penalty_safety, xs_upper, max_iterations, tolerance=None):
+                   penalty_safety, xs_upper, max_iterations, tolerance=None,
+                   lbfgs_dtype="float32"):
     """The single-solve wrapper (``make_qn_pallas``'s counterpart, the
     contract of ``apg_solve.make_apg_kernel``).
 
     Builds the kernel constants once and returns run(step, y0=None),
     with ``y0`` the previous solve's unpadded ``out["y"]``.
+    ``lbfgs_dtype``: the history's storage, "float32" or "bfloat16".
     """
     hyper = _hyper(algorithm, inv_step, step_size, penalty_state,
                    penalty_safety, xs_upper, max_iterations,
-                   lbfgs_buffer_size, tolerance)
+                   lbfgs_buffer_size, tolerance, lbfgs_dtype)
     kc = kernel_constants(fa, prefix_stages=prefix_stages)
 
     def run(step, y0=None):
@@ -398,16 +431,18 @@ def make_qn_kernel(fa: dict, *, algorithm, prefix_stages: tuple,
 def make_qn_kernel_batch(fa: dict, *, algorithm, prefix_stages: tuple,
                          lbfgs_buffer_size, inv_step, step_size,
                          penalty_state, penalty_safety, xs_upper,
-                         max_iterations, tolerance=None):
+                         max_iterations, tolerance=None,
+                         lbfgs_dtype="float32"):
     """The batched wrapper (``make_qn_pallas_batch``'s counterpart, the
     contract of ``apg_solve.make_apg_kernel_batch``).
 
     Builds the kernel constants once and returns run(steps, y0=None),
     every leaf of ``steps`` and ``y0`` with a leading batch axis.
+    ``lbfgs_dtype`` as in ``make_qn_kernel``.
     """
     hyper = _hyper(algorithm, inv_step, step_size, penalty_state,
                    penalty_safety, xs_upper, max_iterations,
-                   lbfgs_buffer_size, tolerance)
+                   lbfgs_buffer_size, tolerance, lbfgs_dtype)
     kc = kernel_constants(fa, prefix_stages=prefix_stages)
 
     def run(steps, y0=None):

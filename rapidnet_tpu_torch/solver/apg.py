@@ -83,7 +83,8 @@ def apg_oracle(fa, step, w_xi, w_psi, *, prefix_stages, inv_step,
 
 def make_apg(*, prefix_stages: tuple, inv_step: float, step_size: float,
              penalty_state: float, penalty_safety: float, xs_upper: float,
-             max_iterations: int, tolerance: float | None = None):
+             max_iterations: int, tolerance: float | None = None,
+             dual_dtype=torch.float32):
     """Build the APG solve function.
 
     Returns fn(fa, step, y0=None) -> dict with the final control (the
@@ -92,6 +93,11 @@ def make_apg(*, prefix_stages: tuple, inv_step: float, step_size: float,
     (zero-padded past the termination point when ``tolerance`` is set).
     A leading batch axis on ``step`` and ``y0`` runs B instances at once
     (``make_apg_batch``).
+
+    ``dual_dtype``: the storage of the Nesterov difference z = y - y_prev
+    (``rapidnet_tpu/solver/apg.py:77``, ``:115-116``, ``:133``);
+    ``torch.bfloat16`` stores it in half the bytes, the config ladder's
+    bf16z row.  y and all arithmetic stay float32.
     """
     oracle_kw = dict(prefix_stages=prefix_stages, inv_step=inv_step,
                      step_size=step_size, penalty_state=penalty_state,
@@ -111,8 +117,7 @@ def make_apg(*, prefix_stages: tuple, inv_step: float, step_size: float,
         if y0 is None:
             y0 = {"xi": zeros(N, ns, 2 * nx), "psi": zeros(N, ns, nu)}
         y = {"xi": y0["xi"], "psi": y0["psi"]}
-        z = {"xi": torch.zeros_like(y["xi"]),
-             "psi": torch.zeros_like(y["psi"])}
+        z = {k: torch.zeros_like(v, dtype=dual_dtype) for k, v in y.items()}
         x, u, v = zeros(N, ns, nx), zeros(N, ns, nu), zeros(N, ns, nv)
         # instances still iterating, and their iteration counts
         active = torch.ones(lead, dtype=torch.bool, device=x.device)
@@ -122,12 +127,12 @@ def make_apg(*, prefix_stages: tuple, inv_step: float, step_size: float,
             lam = float(lams[it])
             # w = (1+lam) y - lam y_prev = y + lam z  (dual
             # extrapolation, src/SmpcController.cu:544-552)
-            w_xi = y["xi"] + lam * z["xi"]
-            w_psi = y["psi"] + lam * z["psi"]
+            w_xi = y["xi"] + lam * z["xi"].to(y["xi"].dtype)
+            w_psi = y["psi"] + lam * z["psi"].to(y["psi"].dtype)
             o = apg_oracle(fa, step, w_xi, w_psi, **oracle_kw)
             new = {"y_xi": o["y_xi"], "y_psi": o["y_psi"],
-                   "z_xi": o["y_xi"] - y["xi"],
-                   "z_psi": o["y_psi"] - y["psi"],
+                   "z_xi": (o["y_xi"] - y["xi"]).to(dual_dtype),
+                   "z_psi": (o["y_psi"] - y["psi"]).to(dual_dtype),
                    "x": o["x"], "u": o["u"], "v": o["v"]}
             signed = ss.signed_max_abs(o["res_xi"], o["res_psi"])
             if tolerance is not None:

@@ -102,17 +102,23 @@ def empty_lbfgs(fa, N, ns, buffer_size):
 
 
 def lbfgs_update_and_direction(fa, lb, y, y_prev, yvec, yvec_prev, *,
-                               buffer_size):
+                               buffer_size, storage=None):
     """L-BFGS buffer update + two-loop recursion.
 
     Reference: updateLbfgsBuffer (src/SmpcController.cu:1103-1177) and
     twoLoopRecursionLbfgs (:1182-1232).  ``lb`` is ``empty_lbfgs``'s
     dict (col, mem and skips Python ints); it is not modified.  Returns
-    the updated buffer and the direction.
+    the updated buffer and the direction.  ``storage``: a dtype the
+    history is stored in (None: as computed); the pair is rounded to it
+    before its dots, as the whole-solve kernel's bf16 history does
+    (``ops/qn_solve.py``).
     """
     rep = fa["rep"]
     s = {k: y[k] - y_prev[k] for k in DUAL_KEYS}
     yv = {k: yvec[k] - yvec_prev[k] for k in DUAL_KEYS}
+    if storage is not None:
+        s = {k: v.to(storage).to(v.dtype) for k, v in s.items()}
+        yv = {k: v.to(storage).to(v.dtype) for k, v in yv.items()}
     norm_grad = torch.sqrt(dual_dot(yvec, yvec, rep))
     inv_rho = dual_dot(s, yv, rep)
     norm_y2 = dual_dot(yv, yv, rep)
@@ -246,7 +252,7 @@ def make_solver(*, algorithm: str, prefix_stages: tuple, inv_step: float,
                 max_iterations: int, lbfgs_buffer_size: int,
                 tolerance: float | None = None,
                 trace_control: bool = False,
-                trace_magnitude: bool = False):
+                trace_magnitude: bool = False, _lbfgs_storage=None):
     """Build the FBE or NAMA solve function fn(fa, step, y0=None).
 
     * ``y0``: optional dual warm start {"xi", "psi"} (the previous
@@ -259,6 +265,9 @@ def make_solver(*, algorithm: str, prefix_stages: tuple, inv_step: float,
     * ``trace_magnitude``: also return ``residual_magnitude``, the true
       residual magnitude that ``tolerance`` tests, after every iteration
       (zero past the exit).
+    * ``_lbfgs_storage``: private, the plain version of the whole-solve
+      kernel's history storage (``ops/qn_solve.qn_solve_plain``); the
+      JAX ``make_solver`` has no such knob.
 
     Returns control (the stage-0 u projected onto the physical bounds),
     x, u, v, y, and the per-iteration traces primal_infeasibility,
@@ -299,7 +308,8 @@ def make_solver(*, algorithm: str, prefix_stages: tuple, inv_step: float,
                               step_size=step_size)
             lb, lbfgs_dir = lbfgs_update_and_direction(
                 fa, lb, carry["y"], carry["y_prev"], yvec,
-                carry["yvec_prev"], buffer_size=lbfgs_buffer_size)
+                carry["yvec_prev"], buffer_size=lbfgs_buffer_size,
+                storage=_lbfgs_storage)
             ls_kw = dict(prefix_stages=prefix_stages,
                          prox_kwargs=prox_kwargs, step_size=step_size)
             if is_fbe:

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card: the whole-solve kernels, APG single and
-batched, FBE and NAMA single and batched, the streaming APG kernels, and
+batched, FBE and NAMA single and batched (float32 and bf16 history), the
+streaming APG kernels (two kernels an iteration, or the fused one), and
 the streaming FBE/NAMA sweeps and history passes.
 
 These tests need a CUDA GPU and skip without one.  They import neither
@@ -1116,3 +1117,88 @@ def test_sharded_passes_match_plain_on_two_ranks(cuda_device):
     for counts in _on_two_ranks(_sharded_passes):
         assert counts == {"k1a_call": 1, "partial_parents": 4,
                           "s1a_call": 2}, counts
+
+
+@pytest.mark.cuda
+def test_fused_iteration_matches_plain(cuda_device):
+    """One fused iteration (one cooperative launch) against K1's and
+    K2's plain halves with the same scalars."""
+    from rapidnet_tpu_torch.ops import apg_stream as S
+
+    fa, prefix, step, kw = _stream_problem(cuda_device)
+    kc = S.stream_constants(fa, prefix_stages=prefix, max_iterations=ITERS)
+    st = S.plain_iterations(kc, step, iterations=5, **kw)
+    sc = (kc["lams"][4], kc["lams"][5], 1.0) + STREAM_SHRINKS
+    state = {"pre": st["pre"], "y": st["y"], "z": st["z"]}
+    n0 = S.fused_call.launches
+    got = S.fused_call(kc, step, state, sc, **kw)
+    assert S.fused_call.launches == n0 + 1
+    ref = S.fused_iteration_plain(kc, step, state, sc, **kw)
+    for a in ("y", "z", "pre"):
+        for k in ("xi", "psi"):
+            _close(got[a][k], ref[a][k])
+    for k in ("v", "champion", "x", "u", "d1sq", "d2sq"):
+        _close(got[k], ref[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branching,N", [((3, 2, 2), 8), ((3, 3, 3), 6),
+                                         ((16, 16), 4)])
+def test_fused_solve_equals_the_two_kernel_solve(cuda_device, branching, N):
+    """The fused kernel runs K1's and K2's stage bodies in their order:
+    its solve equals the two-kernel solve bit for bit, cold and
+    warm-started, and repeats itself."""
+    from rapidnet_tpu_torch.ops import apg_stream as S
+
+    fa, prefix, step, kw = _stream_problem(cuda_device, branching=branching,
+                                           N=N)
+    kc = S.stream_constants(fa, prefix_stages=prefix, max_iterations=ITERS)
+    n0 = S.apg_stream_fused.launches
+    y0 = S.apg_stream_plain(kc, step, None, **kw)["y"]
+    for warm in (None, y0):
+        got = S.apg_stream_fused(kc, step, warm, **kw)
+        ref = S.apg_stream(kc, step, warm, **kw)
+        again = S.apg_stream_fused(kc, step, warm, **kw)
+        for out in (ref, again):
+            for k in ("control", "u", "x", "v", "primal_infeasibility"):
+                assert torch.equal(got[k], out[k]), k
+            for k in ("xi", "psi"):
+                assert torch.equal(got["y"][k], out["y"][k]), k
+    assert S.apg_stream_fused.launches == n0 + 4
+
+
+@pytest.mark.cuda
+def test_fused_smem_matches_the_source(cuda_device):
+    from rapidnet_tpu_torch.ops import apg_stream, build
+
+    lib = build.load("apg_stream")
+    for dims in [(24, 1024, 63, 114, 97), (24, 512, 63, 114, 97),
+                 (8, 12, 4, 7, 5), (80, 64, 63, 114, 97)]:
+        build.check_smem(lib, "apg_stream_fused", dims,
+                         apg_stream.fused_smem(*dims))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", QN_ALGORITHMS)
+def test_qn_bf16_history(cuda_device, algorithm):
+    """The bf16 history: the first iteration (no history yet) equals the
+    float32 history's, the kernel tracks its plain version over QN_TRACK
+    iterations by the bounds above, and a batch of one equals the
+    single solve bit for bit."""
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    kc, step, kw = _qn_problem(cuda_device, **QN_CASES["nominal"])
+    bf16 = dict(kw, algorithm=algorithm, lbfgs_dtype="bfloat16")
+    one = Q.qn_solve(kc, step, None, **dict(bf16, max_iterations=1))
+    one32 = Q.qn_solve(kc, step, None, algorithm=algorithm,
+                       **dict(kw, max_iterations=1))
+    assert torch.equal(one["primal_infeasibility"],
+                       one32["primal_infeasibility"])
+    got = Q.qn_solve(kc, step, None, **bf16)
+    ref = Q.qn_solve_plain(kc, step, None, **bf16)
+    _qn_close(got, ref, stressed=False)
+    steps = {k: v[None] for k, v in step.items()}
+    b1 = Q.qn_solve_batch(kc, steps, None, **bf16)
+    for k in ("control", "u", "x", "primal_infeasibility", "value_fbe",
+              "tau"):
+        assert torch.equal(b1[k][0], got[k]), k
