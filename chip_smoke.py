@@ -37,9 +37,12 @@ x0 * (1 + 0.02 N(0, 1)) (numpy seed 7, as bench.py:133-136):
 6c. holds the batched entry at B = 1 (compiled with the per-instance
     offsets) to the single solve (compiled without them), bit for bit;
     with ``--reference-kernel DIR`` (the ``csrc`` directory of an earlier
-    checkout) also the single solve to that source's kernel (and, in 12a
-    and 16, the FBE, NAMA and streaming APG solves to its kernels, in 15
-    one K1 and one K2 pass; and in 18 it times the streaming solve on
+    checkout) also the single solve to that source's kernel (and, in 16,
+    the streaming APG solve to its kernels, in 15 one K1 and one K2
+    pass; in 12a the single FBE and NAMA solves to its ``qn_solve.cu``
+    by 9a's TRACK rule and 9b's tail rule, since this source's flat
+    passes sum the dual space in another order; and in 11, 14 and 18 it
+    times the QN solves, the B = 32 QN calls and the streaming solve on
     that source's kernels in turns with these);
 7.  runs 3-step batched closed loops through
     ``BatchedSmpcController(device="cuda")`` with a shared forecaster,
@@ -93,7 +96,11 @@ the two algorithms, at the same problem with an L-BFGS buffer of 5
 11. timing: the median wall ms of 7 kernel solves (inputs staged,
     synchronised around each; the plain version's time is 9b's), the
     host's enqueue ms, the launches per iteration and the bound (its
-    line-search trials as the kernel counted them).
+    line-search trials as the kernel counted them); with
+    ``--reference-kernel DIR``, DIR's ``qn_solve.cu`` and this one in
+    turns (reference, these, these, reference; QN_AB_SOLVES solves a
+    turn), both medians, and each one's device µs an iteration per phase
+    kernel over a PROFILE_ITER-iteration solve (``torch.profiler``).
 
 Then the batched FBE/NAMA kernel (the batch axis of ``csrc/qn_solve.cu``)
 at B = 32, the states of phase 6, buffer 5, for each algorithm:
@@ -104,8 +111,12 @@ at B = 32, the states of phase 6, buffer 5, for each algorithm:
      three traces, iterations, line-search trials, rejected pairs; the
      largest difference printed); the batched entry at B = 1 (compiled
      with the batch axis) equal to the single solve (compiled without
-     it); with ``--reference-kernel DIR`` the single solve
-     equal to the kernel of DIR's ``qn_solve.cu`` at 500 iterations;
+     it); with ``--reference-kernel DIR`` the single solve held to the
+     kernel of DIR's ``qn_solve.cu`` by 9a's rules (TRACK >= buffer size
+     + QN_TRACK_SPARE, equal trial and rejection counts over it) and
+     9b's tail rule at 500 iterations, the largest control difference
+     at 500 printed (the two sources sum the dual space in another
+     order, so they are not bit-equal);
 12b. instances 0-3 of a batched call against the plain batched version
      with 9a's rules: TRACK >= buffer size + QN_TRACK_SPARE, the counts of
      line-search trials and rejected pairs equal over TRACK, the ring
@@ -128,7 +139,9 @@ at B = 32, the states of phase 6, buffer 5, for each algorithm:
      QN_TRACK_MAX iterations (its JSON entry says how many instances and
      iterations: all 32 at 500 would take many minutes) and the bound
      (the instances' operations, each with its own trial count, against
-     the bytes).
+     the bytes); with ``--reference-kernel DIR``, DIR's batched calls and
+     these in turns (QN_AB_CALLS a turn), both medians and each one's
+     per-phase device µs an iteration as in 11.
 
 Then the streaming APG kernels (``csrc/apg_stream.cu``) at BASELINE
 config 5 (bench_ladder.py:47: the same widths and horizon over branching
@@ -247,7 +260,10 @@ Then this slice's kernels and its main path:
     ``apg.make_apg`` by phase 16's rule; a warm start against the
     two-kernel warm start; two calls equal bit for bit; the device
     kernels of a PROFILE_ITER-iteration solve by ``torch.profiler`` (one
-    ``fused_kernel`` an iteration, no K1 or K2) and the idle share; the
+    ``fused_kernel`` an iteration, no K1 or K2; up to PROFILE_TRIES
+    solves traced until one records a launch of either, since a trace
+    may hold none of the graph-replayed cooperative launches) and the
+    idle share; the
     median ms of 7 solves with the two-kernel solve timed in turns beside
     it, the peak memory, the bound;
 29. the whole-solve FBE/NAMA kernel with its L-BFGS history in bf16
@@ -341,7 +357,10 @@ STREAM_QN_LOOP_STEPS = 3   # phase 21's streaming QN loops (cut from 4 to
 STREAM_QN_REPEATS = 3      # phase 22's timed solves per algorithm and
                            # history storage (cut from REPEATS = 7)
 PROFILE_ITER = 50     # phase 22's profiled solves
+PROFILE_TRIES = 3     # phase 28's traced solves at most
 PLAIN_INSTANCES = 4   # phase 12b-c: the instances held to the plain batch
+QN_AB_SOLVES = 3      # phase 11 with --reference-kernel: solves a turn
+QN_AB_CALLS = 2       # phase 14 with --reference-kernel: B = 32 calls a turn
 BATCH_LOOP_STEPS = 3
 APG_KEYS = ("control", "u", "x", "primal_infeasibility", "y.xi", "y.psi")
 QN_KEYS = APG_KEYS + ("value_fbe", "tau")
@@ -517,6 +536,85 @@ def solutions_agree(kern, plain):
     u_atol = QN_U_FACTOR * max(float(plain["u"].abs().max()), 1.0)
     return (within(kern["control"], plain["control"], 1e-3, 1e-4) and
             within(kern["u"], plain["u"], 0.0, u_atol)), u_atol
+
+
+def reference_qn(ref_libs, kq, steps, qkw, batch=None):
+    """One solve (``batch`` None) or batched call of the reference
+    source's ``qn_solve.cu`` (--reference-kernel) on these inputs,
+    through this checkout's ``qn_solve._launch``: its argument list is
+    the reference's, and at these sizes its buffers hold the
+    reference's (no pads in the dual layout, partial buffers at least
+    the reference's per-slot ones).  Returns the wrapper's outputs."""
+    import torch
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+    from rapidnet_tpu_torch.solver import solve_step as ss
+    N, ns, nx, nu, _ = Q._dims(kq)
+    lay, per = Q.layout(N, ns, nx, nu), Q.partials(N, ns, nx, nu, 1)
+    slots = {"norm_part": 2, "val_part": 4, "dot_part": 4, "pp": 2,
+             "champ_part": 6}
+    if (lay["XP"] != lay["XI"] or lay["D"] != lay["XI"] + lay["PS"] or
+            any(per[k] < n * ns for k, n in slots.items())):
+        raise SmokeFailure("the reference kernel's buffers do not fit this "
+                           "checkout's layout at these sizes")
+    strides = (0, 0, 0)
+    if batch is not None:
+        strides = Q._check_batch_inputs(kq, steps, None)[1]
+    with torch.cuda.device(kq["fa"]["d1"].device):
+        out = Q._launch(ref_libs["qn_solve"],
+                        torch.cuda.current_stream().cuda_stream, kq, steps,
+                        None, batch=batch, strides=strides,
+                        **dict(qkw, tolerance=None))
+    lo, hi = ss.root_control_bounds(kq["fa"])
+    out["control"] = torch.clamp(
+        out["u"][0, 0] if batch is None else out["u"][:, 0, 0], lo, hi)
+    return out
+
+
+def phase_us(run, n_it):
+    """Device µs per iteration of every kernel of one ``run()`` of n_it
+    iterations, by base name (template arguments merged), by
+    ``torch.profiler``; None where the trace holds no device time."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.key_averages():
+        dt = getattr(e, "device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "cuda_time_total", 0)
+        name = re.search(r"\w+_kernel", e.key)
+        if dt > 0 and name:
+            us[name.group()] = us.get(name.group(), 0.0) + dt / n_it
+    return dict(sorted(us.items(), key=lambda kv: -kv[1])) or None
+
+
+def in_turns(tag, runs, per_turn):
+    """Wall ms of ``runs['reference']`` and ``runs['these']`` in turns
+    (reference, these, these, reference; per_turn calls a turn, each
+    synchronised around it) and each one's per-phase device µs an
+    iteration over a PROFILE_ITER-iteration call (``runs[k](n)`` runs n
+    iterations); prints both and returns the two medians."""
+    import numpy as np
+    times = {"reference": [], "these": []}
+    for which in ("reference", "these", "these", "reference"):
+        for _ in range(per_turn):
+            times[which].append(timed(lambda: runs[which](MAX_ITER))[0])
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"[timing] {tag} in turns: these {med['these']:.3f} ms "
+          f"({', '.join(f'{t:.3f}' for t in times['these'])}), the "
+          f"reference source's {med['reference']:.3f} ms "
+          f"({', '.join(f'{t:.3f}' for t in times['reference'])})")
+    for which in ("reference", "these"):
+        us = phase_us(lambda: runs[which](PROFILE_ITER), PROFILE_ITER)
+        shown = ("no device time in the trace" if us is None else
+                 ", ".join(f"{k} {v:.3f}" for k, v in us.items()))
+        print(f"[phase] {tag} {which}: device us an iteration over "
+              f"{PROFILE_ITER} iterations: {shown}")
+    return med
 
 
 def qn_solve_bound(kq, step, out, algorithm, prefix_stages):
@@ -706,9 +804,11 @@ def batch_timing(tag, run, make_steps):
     return med, steps, out
 
 
-def qn_phases(cfg, net, tree, fa, make_step, hyper, prefix, apg_kpis):
+def qn_phases(ref_libs, cfg, net, tree, fa, make_step, hyper, prefix,
+              apg_kpis):
     """Phases 9a-11 for FBE and NAMA; returns their JSON entries and, per
-    algorithm, 9c's tolerance (the batch's phase 12c reuses it)."""
+    algorithm, 9c's tolerance (the batch's phase 12c reuses it).
+    ``ref_libs``: the reference sources' libraries, or None."""
     import numpy as np
     import torch
     from rapidnet_tpu_torch.ops import qn_solve as Q
@@ -924,15 +1024,73 @@ def qn_phases(cfg, net, tree, fa, make_step, hyper, prefix, apg_kpis):
               f"{bound[3] / 1e6:.3f} MB: {bound[0]:.6f} ms, set by "
               f"{bound[1]}; {bound[4]} line-search trials in "
               f"{MAX_ITER - 1} searches (the kernel's count)")
+        ref_ms = None
+        if ref_libs:
+            ref_ms = in_turns(f"11.{short} single solve", {
+                "reference": lambda n: reference_qn(
+                    ref_libs, kq, staged[0], dict(qkw, max_iterations=n)),
+                "these": lambda n: kern(n, step=staged[0])},
+                QN_AB_SOLVES)["reference"]
         entries.append(
             {"name": f"qn_solve_{short}", "route": "cuda",
              "source": "rapidnet_tpu_torch/csrc/qn_solve.cu",
              "replaces": "rapidnet_tpu/ops/pallas_qn.py:94",
              "launches": loop_launches, "max_abs_err": err_u, "ms": med,
              "plain_ms": plain_ms, "bound_ms": bound[0],
-             "bound_by": bound[1], "library_ms": None})
+             "bound_by": bound[1], "library_ms": None,
+             "reference_ms": ref_ms})
         tols[short] = tol
     return entries, tols
+
+
+def reference_track(short, kq, step, single, qkw, ref_libs, kern_1,
+                    track_min):
+    """Phase 12a with --reference-kernel: the single solve of ``step``
+    against the reference source's by 9a's rules (TRACK at least
+    ``track_min``, equal counts of trials and rejected pairs over it, the
+    ring wrapped) and, at MAX_ITER iterations (``single``), 9b's tail
+    rule; the largest control difference printed."""
+    import numpy as np
+
+    def ref(n):
+        return reference_qn(ref_libs, kq, step, dict(qkw, max_iterations=n))
+
+    k_s, r_s = kern_1(step, QN_TRACK_MAX), ref(QN_TRACK_MAX)
+    traced = qn_horizon(k_s, r_s, QN_TRACK_MAX)
+    track = traced
+    while track >= track_min:
+        k_t, r_t = kern_1(step, track), ref(track)
+        if solutions_agree(k_t, r_t)[0]:
+            break
+        track -= 1
+    counts = {k: (int(k_t[k]), int(r_t[k]))
+              for k in ("line_search_trials", "lbfgs_skips")}
+    r_full = ref(MAX_ITER)
+    tails = [float(np.median(o["primal_infeasibility"].abs().cpu()
+                             .numpy()[-20:])) for o in (single, r_full)]
+    gap = float((single["control"] - r_full["control"]).abs().max())
+    print(f"[qn_batch] 12a.{short}: the single solve against the "
+          f"reference kernel (qn_solve.cu of --reference-kernel): TRACK "
+          f"{track} (traces over {traced} of {QN_TRACK_MAX}); over it "
+          f"trials {counts['line_search_trials']}, rejected pairs "
+          f"{counts['lbfgs_skips']} (these, reference); at {MAX_ITER} "
+          f"iterations median |infeasibility| of the last 20: these "
+          f"{tails[0]:.6g}, reference {tails[1]:.6g}; largest control "
+          f"difference {gap:.6g}; bit for bit: "
+          f"{outputs_equal(single, r_full, ('x', 'u') + QN_TRACES + QN_INT_KEYS)}")
+    if track < track_min:
+        raise SmokeFailure(f"{short}: the single solve tracks the "
+                           f"reference kernel over {track} iterations, "
+                           f"fewer than {track_min}")
+    if any(a != b for a, b in counts.values()):
+        raise SmokeFailure(f"{short}: the counts of trials and rejected "
+                           f"pairs differ from the reference kernel's")
+    if not track - 1 - counts["lbfgs_skips"][1] > int(qkw["lbfgs_buffer_size"]):
+        raise SmokeFailure(f"{short}: the L-BFGS ring did not wrap within "
+                           f"the {track} iterations held")
+    if not tails[0] < 10 * max(tails[1], 1e-6):
+        raise SmokeFailure(f"{short}: residual tail {tails[0]:.6g} above "
+                           f"10 x the reference kernel's {tails[1]:.6g}")
 
 
 def outputs_equal(got, ref, keys):
@@ -1006,19 +1164,8 @@ def qn_batch_phases(ref_libs, cfg, net, tree, fa, make_batch, hyper, prefix,
             raise SmokeFailure(f"{short}: B = 1 differs from the single "
                                "solve")
         if ref_libs:
-            with torch.cuda.device(fa["d1"].device):
-                r1 = Q._launch(ref_libs["qn_solve"],
-                               torch.cuda.current_stream().cuda_stream, kq,
-                               instance(steps_sh, 0), None, batch=None,
-                               **dict(qkw, max_iterations=MAX_ITER,
-                                      tolerance=None))
-            same = outputs_equal(r1, s1, ("x", "u") + QN_TRACES +
-                                 QN_INT_KEYS)
-            print(f"[qn_batch] 12a.{short}: single solve equals the "
-                  f"reference kernel (qn_solve.cu of --reference-kernel) "
-                  f"bit for bit: {same}")
-            if not same:
-                raise SmokeFailure(f"{short}: the single solve changed")
+            reference_track(short, kq, instance(steps_sh, 0), s1, qkw,
+                            ref_libs, kern_1, track_min)
 
         # 12b. instances 0 .. P-1 against the plain batch, 9a's rules
         k_s, p_s = kern_b(steps_sh, QN_TRACK_MAX), plain_b(steps_sh,
@@ -1116,6 +1263,14 @@ def qn_batch_phases(ref_libs, cfg, net, tree, fa, make_batch, hyper, prefix,
               f"first, whatever B; plain batch of instances 0-{P - 1}, "
               f"{QN_TRACK_MAX} iterations: {plain_ms:.3f} ms "
               f"({plain_ms / P:.3f} ms per instance)")
+        ref_ms = None
+        if ref_libs:
+            ref_ms = in_turns(f"14.{short} B = {BATCH}", {
+                "reference": lambda n: reference_qn(
+                    ref_libs, kq, steps_r, dict(qkw, max_iterations=n),
+                    batch=BATCH),
+                "these": lambda n: kern_b(steps_r, n)},
+                QN_AB_CALLS)["reference"]
         bound = qn_solve_bound(kq, steps_r, out, algorithm, prefix)
         print(f"[bound] {short} batched: {bound[2] / 1e9:.3f} GFLOP, "
               f"{bound[3] / 1e6:.3f} MB: {bound[0]:.6f} ms, set by "
@@ -1129,7 +1284,7 @@ def qn_batch_phases(ref_libs, cfg, net, tree, fa, make_batch, hyper, prefix,
              "plain_ms": plain_ms, "plain_instances": P,
              "plain_iterations": QN_TRACK_MAX,
              "bound_ms": bound[0], "bound_by": bound[1],
-             "library_ms": None})
+             "library_ms": None, "reference_ms": ref_ms})
     return entries
 
 
@@ -1502,25 +1657,10 @@ def reference_kernel(ref_libs, name):
 
 def kernel_times(run, n_it, names):
     """Device µs per iteration of each kernel in ``names`` over one
-    ``run()``, by ``torch.profiler``; None where the trace holds no
-    device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    totals = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        dt = getattr(e, "device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "cuda_time_total", 0)
-        for n in names:
-            if f"{n}(" in e.key or e.key == n:
-                totals[n] += dt
-    if not any(totals.values()):
-        return None
-    return {n: t / n_it for n, t in totals.items()}
+    ``run()`` (``phase_us``); None where the trace holds no device
+    time."""
+    us = phase_us(run, n_it)
+    return None if us is None else {n: us.get(n, 0.0) for n in names}
 
 
 def stream_phases(ref_libs, device, kc_b, step_b, hyper_b):
@@ -3076,14 +3216,16 @@ def fused_phases(problem, stream_plain_ms):
     hyper_p = dict(hyper, max_iterations=PROFILE_ITER)
     S.apg_stream_fused(kc_p, step, None, **hyper_p)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        S.apg_stream_fused(kc_p, step, None, **hyper_p)
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    idle = None
-    if events:
+    # the profiler records a varying share of the graph-replayed
+    # cooperative launches, some runs none of them: up to PROFILE_TRIES
+    # solves are traced until one records a fused launch
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            S.apg_stream_fused(kc_p, step, None, **hyper_p)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")]
         kernels = {}
         for e in events:
             m = re.search(r"(\w+_kernel)\(", e.name)
@@ -3091,6 +3233,11 @@ def fused_phases(problem, stream_plain_ms):
             n, t = kernels.get(name, (0, 0.0))
             kernels[name] = (n + 1, t + e.time_range.end -
                              e.time_range.start)
+        if any(k in kernels for k in ("fused_kernel", "k1_kernel",
+                                      "k2_kernel")):
+            break
+    idle = None
+    if events:
         busy, span = busy_span([(e.time_range.start, e.time_range.end)
                                 for e in events])
         idle = 1.0 - busy / span
@@ -3347,11 +3494,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reference-kernel", default=None, metavar="DIR",
                     help="the csrc directory of an earlier checkout: "
-                         "phases 6c, 12a, 15 and 16 also hold the single "
-                         "APG, FBE and NAMA solves, one K1 and one K2 pass "
-                         "and the streaming APG solve to its kernels, bit "
-                         "for bit, and phase 18 times its streaming solve "
-                         "in turns with this checkout's")
+                         "phases 6c, 15 and 16 also hold the single APG "
+                         "solve, one K1 and one K2 pass and the streaming "
+                         "APG solve to its kernels bit for bit, 12a the "
+                         "single FBE and NAMA solves by TRACK and tail, "
+                         "and phases 11, 14 and 18 time its QN solves, "
+                         "B = 32 QN calls and streaming solve in turns "
+                         "with this checkout's")
     args = ap.parse_args()
     import torch
 
@@ -3418,8 +3567,8 @@ def main() -> int:
     entries, apg_kpis = apg_phases(ref_libs, device, cfg, net, tree, fa,
                                    make_step, make_batch, prefix, hyper, kc)
     lap("3-8")
-    qn_entries, tols = qn_phases(cfg, net, tree, fa, make_step, hyper,
-                                  prefix, apg_kpis)
+    qn_entries, tols = qn_phases(ref_libs, cfg, net, tree, fa, make_step,
+                                  hyper, prefix, apg_kpis)
     entries += qn_entries
     lap("9-11")
     entries += qn_batch_phases(ref_libs, cfg, net, tree, fa, make_batch,

@@ -20,11 +20,10 @@ per-instance array; ``uhat``, ``e`` and ``alpha_price`` may be
 ``expand``-ed views of one array (batch stride 0, the shared forecast).
 Its plain version solves the instances one after another
 (``quasi_newton.make_solver_batch``).  On an H100 80GB HBM3 (700 W) a
-call of 32 500-iteration solves at Barcelona scale took 1811.651 ms
-(FBE, 17.7 solves/s) and 1894.852 ms (NAMA, 16.9 solves/s), 6.1 and 5.9
-times the rate of single solves, with 408 MiB of device memory above
-what was held before it (chip_smoke.py phase 14; PERF.md sections 5
-and 6).
+call of 32 500-iteration solves at Barcelona scale takes ~1.05 s (FBE)
+and ~1.1 s (NAMA), ~0.58 of the time of the per-slot kernel design that
+preceded the flat passes (chip_smoke.py phase 14, in turns; PERF.md
+sections 5 and 6).
 
 ``qn_solve.launches`` and ``qn_solve_batch.launches`` count kernel calls
 (one per solve, one per batched solve) and nothing else.  The dual pair
@@ -35,7 +34,15 @@ output; the TPU kernel's padded ``{"xi1", "xi2", "psi"}`` is not ported.
 The kernel's sweeps are those of ``csrc/apg_solve.cu``, with the same
 shared-memory limits on the tree (N <= 152 stages, ns <= 181 scenarios
 at the Barcelona-scale widths; ``fits``); a larger tree's launch is
-refused and the wrapper raises.
+refused and the wrapper raises.  Its dual-space passes are flat: each
+instance's buffer, ``[xi | pad | psi | pad]`` (``layout``: no pads at the
+Barcelona-scale sizes), is cut into P chunks of FLAT_THREADS 4-float
+vectors and its rows of u into G tiles for the FBE value's smoothing
+product, both functions of the sizes alone, never of B, so an instance
+of a batch repeats its single solve bit for bit.  ``partials`` sizes the
+per-chunk partial buffers; every launch holds it to the source's
+``qn_solve_partials`` (``check_partials``) as it holds ``smem`` to
+``qn_solve_smem``.
 
 ``lbfgs_dtype`` is the history's storage, "float32" (default) or
 "bfloat16", the TPU kernel's ``lbfgs_dtype`` (``pallas_qn.py:99``): the
@@ -69,25 +76,69 @@ STATE_KEYS = ("y", "yp", "yvp", "w", "rs", "yv", "dd", "wd", "df", "x", "u",
               "hx", "hu", "t", "a", "ms", "my", "norm_part", "val_part",
               "dot_part", "pp", "champ_part", "sc", "tr_inf", "tr_val",
               "tr_tau", "st")
+PARTIAL_KEYS = ("norm_part", "val_part", "dot_part", "pp", "champ_part")
 N_INT_SCALARS = 10      # the int scalars of csrc/qn_solve.cu (I_COUNT)
 N_FLOAT_SCALARS = 4     # the float scalars before rho and alpha (S_RHO)
+# csrc/qn_solve.cu's flat passes and smoothing product (FLAT_THREADS,
+# TILE_ROWS, TILE_COLS, SMOOTH_THREADS, SMOOTH_SMEM_CAP)
+FLAT_THREADS = 256
+TILE_ROWS, TILE_COLS = 4, 8
+SMOOTH_THREADS = 128
+SMOOTH_SMEM_CAP = 96 * 1024
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def layout(N: int, ns: int, nx: int, nu: int) -> dict:
+    """An instance's flat dual buffer, its chunks and its smoothing tiles
+    (``layout`` in csrc/qn_solve.cu), functions of the problem's sizes
+    alone: xi (XI floats) from 0, psi (PS) from XP, D in all (each part
+    padded to a multiple of 4 floats); P chunks of FLAT_THREADS 4-float
+    vectors; G tiles of TM rows of u; the smoothing product's shared
+    memory (bytes)."""
+    R = N * ns
+    XI, PS = R * 2 * nx, R * nu
+    XP = _round4(XI)
+    D = XP + _round4(PS)
+    P = -(-(D // 4) // FLAT_THREADS)
+    NCP = -(-nu // TILE_COLS) * TILE_COLS
+    TM = TILE_ROWS * max(1, SMOOTH_THREADS // (NCP // TILE_COLS))
+    per_k = 4 * (NCP + TM)
+    KS = min(nu, max(1, SMOOTH_SMEM_CAP // per_k))
+    return {"XI": XI, "XP": XP, "PS": PS, "D": D, "P": P,
+            "G": -(-R // TM), "smooth_smem": per_k * KS}
+
+
+def partials(N: int, ns: int, nx: int, nu: int, B: int) -> dict:
+    """Floats of each per-chunk partial buffer for B instances
+    (``qn_solve_partials`` in the source, held to it at every launch):
+    per instance 2P norm, 2P + 2G value (the residual's chunks, then the
+    smoothing tiles), 4P dot, 2P two-loop and 6P champion floats."""
+    lay = layout(N, ns, nx, nu)
+    P, G = lay["P"], lay["G"]
+    per = {"norm_part": 2 * P, "val_part": 2 * P + 2 * G,
+           "dot_part": 4 * P, "pp": 2 * P, "champ_part": 6 * P}
+    return {k: B * n for k, n in per.items()}
 
 
 def fits(N: int, ns: int, nx: int, nu: int, nv: int,
          smem_limit: int | None = None) -> bool:
     """Whether the whole-solve FBE/NAMA kernel takes a tree of these
     sizes: the sweeps' shared memory (``apg_solve.sweep_smem``) and the
-    residual-and-value phase's (nu stage rows) within ``smem_limit``
-    (default: the current CUDA device's opt-in limit per block), the
-    formulas of ``run_solve`` in csrc/qn_solve.cu."""
+    smoothing product's (W' and du' slabs, at most SMOOTH_SMEM_CAP)
+    within ``smem_limit`` (default: the current CUDA device's opt-in
+    limit per block), the formulas of ``run_solve`` in
+    csrc/qn_solve.cu."""
     return smem(N, ns, nx, nu, nv) <= build.smem_optin(smem_limit)
 
 
 def smem(N: int, ns: int, nx: int, nu: int, nv: int) -> int:
     """The most shared memory (bytes) a launch at these sizes asks for
     (``qn_solve_smem`` in the source, checked at every launch)."""
-    RS = -(-N // apg_k.ROW_GROUP) * apg_k.ROW_GROUP
-    return max(apg_k.smem(N, ns, nx, nu, nv), 4 * nu * RS)
+    return max(apg_k.smem(N, ns, nx, nu, nv),
+               layout(N, ns, nx, nu)["smooth_smem"])
 
 
 def kernel_constants(fa: dict, *, prefix_stages: tuple) -> dict:
@@ -230,6 +281,7 @@ def qn_solve(kc, step, y0=None, *, algorithm, inv_step, step_size,
     if dev.type != "cuda":
         raise ValueError(f"qn_solve runs on cpu or cuda, not {dev.type}")
     lib = _load(kc)
+    check_partials(lib, _dims(kc), 1)
     # the C host function launches on the current device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -267,6 +319,7 @@ def qn_solve_batch(kc, steps, y0=None, *, algorithm, inv_step, step_size,
         raise ValueError(f"qn_solve_batch runs on cpu or cuda, not "
                          f"{dev.type}")
     lib = _load(kc)
+    check_partials(lib, _dims(kc), B)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         qn_solve_batch.launches += 1
@@ -280,14 +333,36 @@ def qn_solve_batch(kc, steps, y0=None, *, algorithm, inv_step, step_size,
 qn_solve_batch.launches = 0
 
 
+def _dims(kc) -> tuple:
+    """The problem's sizes (N, ns, nx, nu, nv)."""
+    fa = kc["fa"]
+    return (*fa["d1"].shape, fa["g"].shape[-1], fa["invWbar"].shape[0])
+
+
 def _load(kc) -> ctypes.CDLL:
     """``csrc/qn_solve.cu``, built and loaded, with the shared memory its
     launch asks for at these constants' sizes held to ``smem``."""
-    fa = kc["fa"]
-    dims = (*fa["d1"].shape, fa["g"].shape[-1], fa["invWbar"].shape[0])
+    dims = _dims(kc)
     lib = build.load("qn_solve")
     build.check_smem(lib, "qn_solve", dims, smem(*dims))
     return lib
+
+
+def check_partials(lib: ctypes.CDLL, dims: tuple, B: int) -> None:
+    """Raise when the source sizes the partial buffers of B instances at
+    ``dims`` (N, ns, nx, nu, nv) otherwise than ``partials`` does: one
+    formula, held to the source's ``qn_solve_partials`` at every
+    launch."""
+    fn = lib.qn_solve_partials
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = None
+    got = (ctypes.c_longlong * len(PARTIAL_KEYS))()
+    fn(*dims[:4], B, ctypes.addressof(got))
+    want = partials(*dims[:4], B)
+    if list(got) != [want[k] for k in PARTIAL_KEYS]:
+        raise RuntimeError(f"csrc/qn_solve.cu sizes the partials of {B} "
+                           f"instances at {dims} as {list(got)}; "
+                           f"ops/qn_solve.py as {want}")
 
 
 def _entry(lib, batched: bool, bf16: bool = False):
@@ -336,9 +411,8 @@ def _launch(lib, stream, kc, step, y0, *, batch, strides=(0, 0, 0),
     nv = fa["invWbar"].shape[0]
     dev = fa["d1"].device
     bs = int(lbfgs_buffer_size)
-    R = N * ns
-    XI = R * 2 * nx
-    D = XI + R * nu
+    lay = layout(N, ns, nx, nu)
+    XI, XP, PS, D = lay["XI"], lay["XP"], lay["PS"], lay["D"]
     lead = () if batch is None else (batch,)
     nb = lbfgs_storage(lbfgs_dtype)
     bf16 = nb == torch.bfloat16
@@ -349,12 +423,13 @@ def _launch(lib, stream, kc, step, y0, *, batch, strides=(0, 0, 0),
     def zeros(*shape):
         return torch.zeros(lead + shape, dtype=torch.float32, device=dev)
 
-    # the dual-space buffers are flat, [xi (R, 2nx) | psi (R, nu)] per
-    # instance
+    # the dual-space buffers are flat, [xi (R, 2nx) | pad | psi (R, nu)
+    # | pad] per instance (``layout``), the pads zero
     y = zeros(D)
     if y0 is not None:
         y[..., :XI] = y0["xi"].reshape(*lead, -1)
-        y[..., XI:] = y0["psi"].reshape(*lead, -1)
+        y[..., XP:XP + PS] = y0["psi"].reshape(*lead, -1)
+    part = partials(N, ns, nx, nu, 1)
     state = {
         "y": y, "yp": y.clone(), "yvp": zeros(D),
         **{k: empty(D) for k in ("w", "rs", "yv", "dd", "wd", "df")},
@@ -366,9 +441,7 @@ def _launch(lib, stream, kc, step, y0, *, batch, strides=(0, 0, 0),
         # they are read
         "ms": torch.empty(lead + (bs + 1, D), dtype=nb, device=dev),
         "my": torch.empty(lead + (bs + 1, D), dtype=nb, device=dev),
-        "norm_part": empty(ns, 2), "val_part": empty(ns, 4),
-        "dot_part": empty(ns, 4), "pp": empty(2, ns),
-        "champ_part": empty(ns, 6),
+        **{k: empty(part[k]) for k in PARTIAL_KEYS},
         "sc": empty(N_FLOAT_SCALARS + 2 * (bs + 1)),
         "tr_inf": zeros(max_iterations), "tr_val": zeros(max_iterations),
         "tr_tau": zeros(max_iterations),
@@ -398,7 +471,7 @@ def _launch(lib, stream, kc, step, y0, *, batch, strides=(0, 0, 0),
     st = state["st"]
     return {"x": state["x"], "u": state["u"],
             "y": {"xi": y[..., :XI].view(*lead, N, ns, 2 * nx),
-                  "psi": y[..., XI:].view(*lead, N, ns, nu)},
+                  "psi": y[..., XP:XP + PS].view(*lead, N, ns, nu)},
             "primal_infeasibility": state["tr_inf"],
             "value_fbe": state["tr_val"], "tau": state["tr_tau"],
             "iterations": st[..., 1],

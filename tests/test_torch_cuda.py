@@ -307,6 +307,9 @@ QN_BS = 5           # the config's lbfgs_buffer_size
 # iterations at a buffer of 3, which hold 4 iterations past the wrap;
 # from the nominal state they part sooner.
 QN_WRAP_BS, QN_WRAP = 3, 8
+# a kernel may stray from a float64 witness at most this many times as
+# far as the plain float32 version does (chip_smoke.py's APG rule)
+WITNESS_FACTOR = 4.0
 QN_CASES = {"nominal": dict(step_size=1e-3, x0_scale=None),
             "stressed": dict(step_size=1e-3, x0_scale=1.2)}
 
@@ -373,6 +376,49 @@ def test_qn_kernel_tracks_plain_across_the_lbfgs_wrap(cuda_device,
     assert int(got["lbfgs_skips"]) == skips
     _qn_close(got, ref, stressed=True, n=QN_WRAP)
     assert int(got["line_search_trials"]) == int(ref["line_search_trials"])
+
+
+def _float64(d):
+    """A dict of tensors (nested dicts too) with its floats in float64."""
+    return {k: _float64(v) if isinstance(v, dict) else
+            v.double() if torch.is_tensor(v) and v.is_floating_point()
+            else v for k, v in d.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", QN_ALGORITHMS)
+def test_qn_kernel_across_the_wrap_against_a_float64_witness(cuda_device,
+                                                             algorithm):
+    """Over the wrap test's iterations (stressed state, buffer
+    QN_WRAP_BS) the kernel keeps to a float64 witness (the plain version
+    in float64): its traces within the JAX bounds of the witness's, as
+    the plain float32 version's are required to be of each other, or no
+    farther from the witness than WITNESS_FACTOR times the plain float32
+    version is.  Over these iterations two float32 solves that sum in
+    other orders part by rounding alone; the witness says which keeps to
+    the exact trajectory.  The three infeasibility traces are printed."""
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    kc, step, kw = _qn_problem(cuda_device, **QN_CASES["stressed"],
+                               max_iterations=QN_WRAP)
+    kw["lbfgs_buffer_size"] = QN_WRAP_BS
+    got = Q.qn_solve(kc, step, None, algorithm=algorithm, **kw)
+    ref = Q.qn_solve_plain(kc, step, None, algorithm=algorithm, **kw)
+    wit = Q.qn_solve_plain(dict(kc, fa=_float64(kc["fa"])), _float64(step),
+                           None, algorithm=algorithm, **kw)
+    for name, out in (("kernel", got), ("plain float32", ref),
+                      ("float64 witness", wit)):
+        print(f"{algorithm} {name}: infeasibility "
+              f"{_np(out['primal_infeasibility']).tolist()}")
+    w = {k: _np(wit[k]) for k in ("tau", "value_fbe",
+                                  "primal_infeasibility")}
+    vscale = max(float(np.abs(w["value_fbe"]).max()), 1.0)
+    for k, rtol, atol in (("tau", 1e-4, 1e-6),
+                          ("value_fbe", 2e-3, 2e-4 * vscale),
+                          ("primal_infeasibility", 2e-3, 1e-4)):
+        d_k = np.abs(_np(got[k]) - w[k]) / (rtol * np.abs(w[k]) + atol)
+        d_p = np.abs(_np(ref[k]) - w[k]) / (rtol * np.abs(w[k]) + atol)
+        assert d_k.max() <= max(1.0, WITNESS_FACTOR * d_p.max()), k
 
 
 @pytest.mark.cuda
@@ -474,28 +520,53 @@ def _qn_assert_equal(got, ref):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 2, 3, 7])
 @pytest.mark.parametrize("form", ["shared", "stacked"])
 @pytest.mark.parametrize("algorithm", QN_ALGORITHMS)
 def test_qn_batched_kernel_matches_single_kernel(cuda_device, algorithm,
-                                                 form):
+                                                 form, batch, dtype):
     """Each instance of a batched FBE or NAMA call (uhat, e and
     alpha_price shared with batch stride 0, or one instance after
     another) equals the single-solve kernel on that instance's step, bit
-    for bit, over ITERS iterations, in which the L-BFGS ring wraps."""
+    for bit, over ITERS iterations, in which the L-BFGS ring wraps; at
+    batch sizes that fill the flat passes' grid unevenly (their chunks
+    do not depend on B), with the history in float32 and in bf16."""
     from rapidnet_tpu_torch.ops import qn_solve as Q
 
-    kc, steps, kw = _qn_batch(cuda_device, max_iterations=ITERS)
+    kc, steps, kw = _qn_batch(cuda_device, batch=batch,
+                              max_iterations=ITERS)
+    kw = dict(kw, algorithm=algorithm, lbfgs_dtype=dtype)
     if form == "stacked":
         steps = {k: v.contiguous() for k, v in steps.items()}
-    assert (steps["alpha_price"].stride(0) == 0) == (form == "shared")
+    if batch > 1:
+        assert (steps["alpha_price"].stride(0) == 0) == (form == "shared")
     n0 = Q.qn_solve_batch.launches
-    got = Q.qn_solve_batch(kc, steps, None, algorithm=algorithm, **kw)
+    got = Q.qn_solve_batch(kc, steps, None, **kw)
     assert Q.qn_solve_batch.launches == n0 + 1
-    assert got["iterations"].tolist() == [ITERS] * 3
-    for b in range(3):
-        one = Q.qn_solve(kc, _instance(steps, b), None, algorithm=algorithm,
-                         **kw)
+    assert got["iterations"].tolist() == [ITERS] * batch
+    for b in range(batch):
+        one = Q.qn_solve(kc, _instance(steps, b), None, **kw)
         _qn_assert_equal(_instance(got, b), one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", QN_ALGORITHMS)
+def test_qn_batch_of_32_tracks_the_plain_batch(cuda_device, algorithm):
+    """Instances 0-3 of a B = 32 call keep to the plain batch over
+    QN_TRACK iterations (9a's bounds), with the same counts of
+    line-search trials and rejected curvature pairs."""
+    from rapidnet_tpu_torch.ops import qn_solve as Q
+
+    kc, steps, kw = _qn_batch(cuda_device, batch=32)
+    kw["algorithm"] = algorithm
+    got = Q.qn_solve_batch(kc, steps, None, **kw)
+    ref = Q.qn_solve_batch_plain(kc, {k: v[:4] for k, v in steps.items()},
+                                 None, **kw)
+    for b in range(4):
+        _qn_close(_instance(got, b), _instance(ref, b), stressed=False)
+        for k in ("line_search_trials", "lbfgs_skips"):
+            assert int(got[k][b]) == int(ref[k][b]), (b, k)
 
 
 @pytest.mark.cuda
@@ -744,6 +815,20 @@ def test_smem_formulas_match_the_sources(cuda_device):
         lib = build.load(name)
         for dims in shapes:
             build.check_smem(lib, name, dims, mod.smem(*dims))
+
+
+@pytest.mark.cuda
+def test_qn_partials_formula_matches_the_source(cuda_device):
+    """The wrapper's sizing of the QN kernel's partial buffers equals the
+    source's (qn_solve_partials) at the Barcelona-scale, the widest
+    whole-solve and a tiny tree, for batches of 1, 2, 7 and 32."""
+    from rapidnet_tpu_torch.ops import build, qn_solve
+
+    lib = build.load("qn_solve")
+    for dims in [(24, 25, 63, 114, 97), (24, 181, 63, 114, 97),
+                 (152, 25, 63, 114, 97), (6, 4, 4, 7, 5), (8, 12, 4, 7, 5)]:
+        for B in (1, 2, 7, 32):
+            qn_solve.check_partials(lib, dims, B)
 
 
 @pytest.mark.cuda
