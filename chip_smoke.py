@@ -167,7 +167,10 @@ iterations), a tree past the whole-solve kernels' limits:
     around each) and µs per iteration, the device µs per iteration of
     K1, K2, the scalar phase and the tail (``torch.profiler``), the
     plain version's time (``apg_stream_plain``), the peak device memory
-    above what was held, and the bound (``stream_bound``).
+    above what was held, the bound (``stream_bound``), and the variant
+    the source picks for K1, K2 and the fused kernel
+    (``apg_stream.staged``), which must be the staged one (matrices and
+    a stage's operands in shared memory) for all three at config 5.
 
 Then the streaming FBE/NAMA path (``solver/qn_stream.py`` over the sweeps
 of ``csrc/stream_qn.cu`` and the history passes of ``csrc/lbfgs.cu``) at
@@ -1903,6 +1906,12 @@ def stream_phases(ref_libs, device, kc_b, step_b, hyper_b):
     print(f"[bound] stream: {bound[2] / 1e9:.3f} GFLOP, {bound[3] / 1e6:.3f} "
           f"MB: {bound[0]:.6f} ms, set by {bound[1]}; the state streamed "
           f"once per iteration: {bound[5] / 1e9:.3f} GB, {bound[4]:.6f} ms")
+    picked = S.staged(**dims)
+    print(f"[stream] 18: the variants the source picks at config 5 (staged: "
+          f"the matrices and a stage's operands in shared memory): {picked}")
+    if not all(picked.values()):
+        raise SmokeFailure("18: config 5 should take the staged K1, K2 and "
+                           "fused kernels")
     if ref_libs:
         # the reference source's kernels and these in turns (reference,
         # these, these, reference), 3 solves each
@@ -3228,7 +3237,7 @@ def fused_phases(problem, stream_plain_ms):
                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
         kernels = {}
         for e in events:
-            m = re.search(r"(\w+_kernel)\(", e.name)
+            m = re.search(r"(\w+_kernel)[<(]", e.name)
             name = m.group(1) if m else e.name[:40]
             n, t = kernels.get(name, (0, 0.0))
             kernels[name] = (n + 1, t + e.time_range.end -

@@ -2,8 +2,8 @@
 """Where the time of one solve kernel call goes, on one GPU.
 
     python3 profile_solve.py [--algorithm apg|fbe|nama] [--iterations 500]
-                             [--batch B | --stream] [--lbfgs-dtype D]
-                             [--out profile_out]
+                             [--batch B | --stream [--spans]]
+                             [--lbfgs-dtype D] [--out profile_out]
 
 Builds the Barcelona-scale problem of ``chip_smoke.py``, warms the
 algorithm's whole-solve kernel up (APG: ``csrc/apg_solve.cu``; FBE and
@@ -24,7 +24,13 @@ between them):
   solve's glue, by their base names, and their sum as ``glue``);
 * the device's busy time over the span of the traced solve, and the
   idle share;
-* the card's name, power limit and SM clock.
+* the card's name, power limit and SM clock;
+* with ``--stream --spans`` (APG), where a block's stage spends its time:
+  one K1 and one K2 pass of ``csrc/apg_stream.cu``'s instrumented build
+  (``apg_stream.stage_spans``, from the state after two plain
+  iterations), the SM cycles of each part per block and stage (the
+  launches' start and end parts per block and pass) and their µs at
+  the card's maximum SM clock.
 
 It writes the trace (``trace.json``, for chrome://tracing or Perfetto)
 and these numbers (``summary.json``) under ``--out``.
@@ -60,11 +66,16 @@ def main() -> int:
                     choices=["float32", "bfloat16"],
                     help="--stream with FBE or NAMA: the L-BFGS history's "
                          "storage")
+    ap.add_argument("--spans", action="store_true",
+                    help="--stream with APG: the SM cycles of each part of "
+                         "a block's stage (the instrumented build)")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
     algorithm = ALGORITHMS[args.algorithm]
     if args.stream and args.batch:
         ap.error("--stream runs one solve")
+    if args.spans and not (args.stream and algorithm is None):
+        ap.error("--spans times the streaming APG kernels (--stream)")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -212,13 +223,41 @@ def main() -> int:
         print("[device] the trace holds no device time")
 
     smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     summary["card"] = smi.splitlines()[0]
+    if args.spans:
+        mhz = float(summary["card"].split(",")[-1].split()[0])
+        summary["spans"] = stage_split(S, kc, step, hyper, mhz)
     print(summary["card"])
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     return 0
+
+
+def stage_split(S, kc, step, hyper, mhz):
+    """Print and return the per-part split of one K1 and one K2 pass of
+    the instrumented build at ``mhz``, the card's maximum SM clock."""
+    st = S.plain_iterations(kc, step, iterations=2, **hyper)
+    lams = kc["lams"]
+    out = S.stage_spans(kc, step, st["pre"], st["y"], st["z"],
+                        (lams[1], lams[2], 1.0, st["k1f"], st["k2f"]),
+                        **hyper)
+    N, ns = kc["sq"].shape
+    nb = -(-ns // S.TILE)
+    per_pass = {"k1_start": len(kc["ranges"]), "k1_end": len(kc["ranges"]),
+                "k2_end": 1}
+    split = {}
+    for part, cyc in out["cycles"].items():
+        n = per_pass.get(part, N)
+        per = cyc / nb / n
+        split[part] = {"cycles": per, "us": per / mhz,
+                       "per": "launch" if part in per_pass and n > 1 else
+                       "pass" if part in per_pass else "stage"}
+        print(f"[span] {part:9s} {per:10.1f} cycles a block per "
+              f"{split[part]['per']}, {per / mhz:8.3f} us at {mhz:g} MHz "
+              f"(x{n} a pass: {per * n / mhz:8.3f} us)")
+    return split
 
 
 if __name__ == "__main__":

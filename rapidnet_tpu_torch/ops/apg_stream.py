@@ -38,7 +38,16 @@ contract is ``solver/apg.make_apg``'s: control (projected on the physical
 bounds), x, u, v, y {xi, psi}, primal_infeasibility and iterations.
 
 ``apg_stream`` is the wrapper: CPU tensors run ``apg_stream_plain``; CUDA
-tensors launch the kernels or raise.  Their times on an H100, and the
+tensors launch the kernels or raise.  Each kernel has two variants of
+the same stage bodies, which the source's C entry picks from the sizes
+and the device: staged (the shared matrices and each stage's streaming
+operands copied into shared memory by the copy engine) where that fits,
+else unstaged (read from device memory); ``stream_fits`` and
+``fused_fits`` are the unstaged variants' limits, ``staged_smem`` the
+staged ones' shared memory and ``staged`` the pick.  ``stage_spans``
+runs one K1 and one K2 pass of the instrumented build
+(``CLOCK_DEFINES``) and reads the SM cycles of each part of a block's
+stage.  Their times on an H100, and the
 plain version's, are in PERF.md sections 5 and 6 (chip_smoke.py phases
 18 and 28, profile_solve.py --stream).  ``apg_stream.launches`` counts its
 solves; ``k1_call`` and ``k2_call`` (one K1 or one K2 pass on the card,
@@ -75,6 +84,11 @@ from rapidnet_tpu_torch.solver import apg as apg_mod
 from rapidnet_tpu_torch.solver import solve_step as ss
 
 TILE = 8                 # scenario slots per block (csrc/apg_stream.cu)
+KIDS = 8                 # child slots a handoff gather lists at once
+STATIC_SMEM = 4 * (256 + TILE + TILE * (KIDS + 2)) + 16
+                         # the kernels' static shared memory at most: the
+                         # block reduction's buffer, nhp's tile, the
+                         # gather's child lists and two barriers
 MAX_GRID_Y = 65535       # the tail's grid runs the stages on blockIdx.y
 RANK1 = (("d1", "cx1"), ("d2", "cx2"), ("g", "cu"), ("xmin", "bx_min"),
          ("xmax", "bx_max"), ("xs", "bx_s"), ("umin", "bu_min"),
@@ -91,6 +105,12 @@ FUSED_MODES = {"solve": 0, "iteration": 1}
 MAX_FUSED_RANGES = 32    # K1 ranges the fused kernel takes (MAX_RANGES in
                          # the source, whose entry refuses more)
 FUSED_PRECISIONS = ("highest",)
+# the instrumented build (csrc/apg_stream.cu's Part, in its order): the
+# parts of a block's stage whose SM cycles ``stage_spans`` reads
+CLOCK_DEFINES = ("APG_STREAM_CLOCK",)
+SPAN_PARTS = ("k1_start", "x_pass", "u_pass", "BbT", "L", "iWT", "k1_end",
+              "k2_load", "LT", "BT", "pre_x", "pre_u", "k2_end", "k1_wait",
+              "k2_wait")
 TOLERANCE_MESSAGE = (
     "backend='stream' does not support tolerance-based early "
     "termination; use backend='cuda' (in-kernel early exit) or 'torch'")
@@ -125,6 +145,59 @@ def fused_smem(N: int, ns: int, nx: int, nu: int, nv: int) -> int:
     without its v tile (``apg_stream_fused_smem`` in the source, checked
     at every launch)."""
     return 4 * TILE * (N * nv + max(nx + nv + nu, 2 * nu + nx))
+
+
+def _room(n: int) -> int:
+    """Floats a staged segment of n floats takes (``room`` in the
+    source): rounded up to 4, and 4 more to land at its source's offset
+    within 16 bytes."""
+    return -(-n // 4) * 4 + 4 if n else 0
+
+
+def staged_smem(N: int, ns: int, nx: int, nu: int, nv: int) -> tuple:
+    """Dynamic shared memory (bytes) of the staged variants of K1, K2 and
+    the fused kernel (``apg_stream_staged_smem`` in the source, which
+    the card tests hold this to): the work areas, the matrices and the
+    operand buffers, one for K1 and two for K2, one of K1's or two of
+    K2's for the fused kernel.  A launch takes the staged variant where
+    this and the kernel's static shared memory fit the device's opt-in
+    limit, else the unstaged one (``smem``, ``fused_smem``); the source
+    decides (``staged``)."""
+    t = TILE
+    k1_work, k2_work = (nx + nv + nu) * t, (2 * nu + nx + nv) * t
+    k1_mats = _room(nx * nv) + _room(nu * nv) + _room(nv * nv)
+    k2_mats = _room(nv * nu) + _room(nu * nx)
+    rows_x = [nx] * 5
+    k1_buf = sum(map(_room, [2 * nx * t] * 3 + [nu * t] * 3 +
+                     [nv * t, t, t] + rows_x + [nu] * 3))
+
+    def k2_buf(fused):
+        own = ([(2 * nx + nu) * t] if fused else
+               [nv * t] + [2 * nx * t] * 2 + [nu * t] * 2)
+        return sum(map(_room, own + [nu * t, nx * t, t, t] + rows_x + [nu]))
+
+    fused_work = max(k1_work, k2_work - nv * t)
+    return (4 * (k1_work + k1_mats + k1_buf),
+            4 * (k2_work + k2_mats + 2 * k2_buf(False)),
+            4 * (N * nv * t + fused_work + max(k1_mats, k2_mats) +
+                 max(k1_buf, 2 * k2_buf(True))))
+
+
+def staged(N: int, ns: int, nx: int, nu: int, nv: int) -> dict:
+    """Which variant each kernel takes at these sizes on the current CUDA
+    device, as the source's C entries choose it (``apg_stream_staged``):
+    {"k1", "k2", "fused"} -> True where staged (the matrices and a
+    stage's operands in shared memory), False where it reads them from
+    device memory."""
+    lib = build.load("apg_stream")
+    fn = lib.apg_stream_staged
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    mask = fn(N, ns, nx, nu, nv)
+    if mask < 0:
+        raise RuntimeError(f"apg_stream_staged failed: error {-mask}")
+    return {"k1": bool(mask & 1), "k2": bool(mask & 2),
+            "fused": bool(mask & 4)}
 
 
 def fused_fits(N: int, ns: int, nx: int, nu: int, nv: int,
@@ -549,18 +622,20 @@ def _state(kc, step, y0, max_iterations, fused=False):
 
 
 def _call(kc, step, state, entry, fused, mode, *, inv_step, step_size,
-          penalty_state, penalty_safety, xs_upper, max_iterations):
-    """Enqueue ``mode`` of the C entry ``entry`` on the current stream of
-    the constants' device: the argument order of ``apg_stream`` (and of
-    ``apg_stream_fused``, with the scratch w after the counter) in the
-    source.  Raises on a refused launch."""
+          penalty_state, penalty_safety, xs_upper, max_iterations,
+          lib=None):
+    """Enqueue ``mode`` of the C entry ``entry`` of ``lib`` (default: the
+    checkout's build) on the current stream of the constants' device:
+    the argument order of ``apg_stream`` (and of ``apg_stream_fused``,
+    with the scratch w after the counter) in the source.  Raises on a
+    refused launch."""
     N, ns, nx, nu, nv = _dims(kc)
     if not stream_fits(N, ns, nx, nu, nv):
         raise ValueError(f"the streaming kernels do not take this tree "
                          f"(N {N}, ns {ns}, nx {nx}, nu {nu}, nv {nv}): "
                          "past stream_fits")
     dev = kc["sq"].device
-    lib = build.load("apg_stream")
+    lib = lib or build.load("apg_stream")
     fn = _entry(lib, fused)
     build.check_smem(lib, "apg_stream", (N, ns, nx, nu, nv),
                      smem(N, ns, nx, nu, nv))
@@ -674,9 +749,10 @@ def apg_stream_fused(kc, step, y0=None, *, inv_step, step_size,
 apg_stream_fused.launches = 0
 
 
-def _single_pass(kc, step, scalars, hyper, mode, fill):
+def _single_pass(kc, step, scalars, hyper, mode, fill, lib=None):
     """One K1 or K2 pass on the card with the given scalars (lam_prev,
-    lam_i, upd, k1f, k2f) and the state ``fill`` puts in place."""
+    lam_i, upd, k1f, k2f) and the state ``fill`` puts in place, by
+    ``lib`` (default: the checkout's build)."""
     dev = _check_inputs(kc, step, None, hyper["max_iterations"])
     if dev.type != "cuda":
         raise ValueError(f"the single {mode} pass runs on cuda only")
@@ -686,7 +762,8 @@ def _single_pass(kc, step, scalars, hyper, mode, fill):
                                                    device=dev).reshape(())
                                    for s in scalars])
     fill(state)
-    (_launch_fused if fused else _launch)(kc, step, state, mode, **hyper)
+    (_launch_fused if fused else _launch)(kc, step, state, mode, lib=lib,
+                                          **hyper)
     return state
 
 
@@ -700,23 +777,39 @@ def _champion_of(kc, st):
                          torch.where(hp > -lp, hp, lp))
 
 
-def k1_call(kc, step, pre, y, z, scalars, **hyper):
-    """One K1 pass of the kernel on CUDA tensors (every range of stages),
-    from the state ``pre``, ``y``, ``z`` with ``scalars`` = (lam_prev,
-    lam_i, upd, k1f, k2f).  Returns (y', z', v, champion), as
-    ``k1_plain``; the champion is combined from the kernel's per-block
-    partials."""
+def _k1_pass(kc, step, pre, y, z, scalars, hyper, lib=None):
     def fill(st):
         for k in ("xi", "psi"):
             st[f"pre_{k}"].copy_(pre[k])
             st[f"y_{k}"].copy_(y[k])
             st[f"z_{k}"].copy_(z[k])
 
-    k1_call.launches += 1
-    st = _single_pass(kc, step, scalars, hyper, "k1", fill)
+    st = _single_pass(kc, step, scalars, hyper, "k1", fill, lib)
     return ({"xi": st["y_xi"], "psi": st["y_psi"]},
             {"xi": st["z_xi"], "psi": st["z_psi"]}, st["v"],
             _champion_of(kc, st))
+
+
+def _k2_pass(kc, step, v, y, z, scalars, hyper, lib=None):
+    def fill(st):
+        st["v"].copy_(v)
+        for k in ("xi", "psi"):
+            st[f"y_{k}"].copy_(y[k])
+            st[f"z_{k}"].copy_(z[k])
+
+    st = _single_pass(kc, step, scalars, hyper, "k2", fill, lib)
+    return (st["x"], st["u"], {"xi": st["pre_xi"], "psi": st["pre_psi"]},
+            st["norm_part"][:, 0].sum(), st["norm_part"][:, 1].sum())
+
+
+def k1_call(kc, step, pre, y, z, scalars, **hyper):
+    """One K1 pass of the kernel on CUDA tensors (every range of stages),
+    from the state ``pre``, ``y``, ``z`` with ``scalars`` = (lam_prev,
+    lam_i, upd, k1f, k2f).  Returns (y', z', v, champion), as
+    ``k1_plain``; the champion is combined from the kernel's per-block
+    partials."""
+    k1_call.launches += 1
+    return _k1_pass(kc, step, pre, y, z, scalars, hyper)
 
 
 k1_call.launches = 0
@@ -727,19 +820,40 @@ def k2_call(kc, step, v, y, z, scalars, **hyper):
     y, z, with ``scalars`` as ``k1_call``'s.  Returns (x, u, pre, d1sq,
     d2sq), as ``k2_plain``; the sums are the kernel's per-block partials
     added up."""
-    def fill(st):
-        st["v"].copy_(v)
-        for k in ("xi", "psi"):
-            st[f"y_{k}"].copy_(y[k])
-            st[f"z_{k}"].copy_(z[k])
-
     k2_call.launches += 1
-    st = _single_pass(kc, step, scalars, hyper, "k2", fill)
-    return (st["x"], st["u"], {"xi": st["pre_xi"], "psi": st["pre_psi"]},
-            st["norm_part"][:, 0].sum(), st["norm_part"][:, 1].sum())
+    return _k2_pass(kc, step, v, y, z, scalars, hyper)
 
 
 k2_call.launches = 0
+
+
+def stage_spans(kc, step, pre, y, z, scalars, **hyper):
+    """One K1 pass, then one K2 pass from its y', z' and v, of the
+    instrumented build (``CLOCK_DEFINES``) on CUDA tensors, from the
+    state and scalars ``k1_call`` takes.  Returns the two passes'
+    outputs (as ``k1_call``'s and ``k2_call``'s) and, under "cycles",
+    the SM cycles of each part of ``SPAN_PARTS`` summed over the blocks
+    and the launches of its pass.  A measurement, not the product path:
+    its marks add block barriers."""
+    import numpy as np
+    lib = build.load("apg_stream", CLOCK_DEFINES)
+    lib.apg_stream_spans.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.apg_stream_spans.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * len(SPAN_PARTS))()
+
+    def read():
+        err = lib.apg_stream_spans(buf)
+        if err != 0:
+            raise RuntimeError(f"apg_stream_spans failed: error {err}")
+        return np.array(buf[:], dtype=np.int64)
+
+    read()                               # zeroes what came before
+    k1 = _k1_pass(kc, step, pre, y, z, scalars, hyper, lib)
+    c1 = read()
+    k2 = _k2_pass(kc, step, k1[2], k1[0], k1[1], scalars, hyper, lib)
+    cycles = c1 + read()
+    return {"k1": k1, "k2": k2,
+            "cycles": dict(zip(SPAN_PARTS, cycles.tolist()))}
 
 
 def fused_call(kc, step, state, scalars, **hyper):

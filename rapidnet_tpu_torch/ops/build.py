@@ -49,21 +49,27 @@ def _source(name: str, source=None) -> Path:
     return Path(source) if source is not None else CSRC_DIR / f"{name}.cu"
 
 
-def library_path(name: str, source=None) -> Path:
+def _flags(defines: tuple) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, source=None, defines: tuple = ()) -> Path:
     src = _source(name, source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str, source=None) -> Path:
-    """Compile ``csrc/<name>.cu`` (or the file ``source``) unless its
-    library exists; return it."""
-    so = library_path(name, source)
+def build(name: str, source=None, defines: tuple = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (or the file ``source``), with the
+    preprocessor macros ``defines`` set, unless its library exists;
+    return it."""
+    so = library_path(name, source, defines)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name, source))]
+    cmd = [nvcc(), *_flags(defines), "-o", str(tmp),
+           str(_source(name, source))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
@@ -100,6 +106,7 @@ def check_smem(lib: ctypes.CDLL, name: str, dims: tuple, need: int) -> None:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    return ctypes.CDLL(str(build(name)))
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu`` with ``defines``;
+    cached per process."""
+    return ctypes.CDLL(str(build(name, defines=defines)))

@@ -285,6 +285,61 @@ def test_fits_states_the_kernels_limits():
     assert not apg_stream.stream_fits(**CONFIG5, smem_limit=8 * 1024)
 
 
+# The streaming kernels' shared-memory gate before their staged variants,
+# written out: the larger of K1's and K2's work tiles (TILE = 8 slots of
+# floats).  The staged variants ask for more only where it fits the
+# device, so the gate must still take every tree this took.
+def _tile_stream_fits(N, ns, nx, nu, nv, limit):
+    smem = 4 * 8 * max(nx + nv + nu, 2 * nu + nx + nv)
+    return ns >= 1 and 1 <= N <= 65535 and smem <= limit
+
+
+# N 1-80, ns 1-2048, nx / nu / nv up to 3x config 5's
+GATE_GRID = dict(N=(1, 2, 8, 24, 80), ns=(1, 7, 8, 9, 181, 1024, 2048),
+                 nx=(1, 4, 63, 126, 189), nu=(1, 7, 114, 228, 342),
+                 nv=(1, 5, 97, 194, 291))
+
+
+def gate_grid():
+    import itertools
+    keys = tuple(GATE_GRID)
+    for vals in itertools.product(*GATE_GRID.values()):
+        yield dict(zip(keys, vals))
+
+
+@pytest.mark.parametrize("limit", [H100_SMEM, 48 * 1024, 8 * 1024])
+def test_stream_fits_takes_every_tree_the_tile_gate_took(limit):
+    """Over the grid, ``stream_fits`` refuses no tree that the tile
+    gate took, and refuses what it refused (the gate is the unstaged
+    variant's, which every launch can fall back to)."""
+    from rapidnet_tpu_torch.ops import apg_stream as S
+
+    taken = 0
+    for d in gate_grid():
+        before = _tile_stream_fits(**d, limit=limit)
+        assert S.stream_fits(**d, smem_limit=limit) == before, d
+        taken += before
+    assert taken > 0
+
+
+def test_config5_staged_launches_fit_an_h100():
+    """At config 5 the staged K1 and K2 (matrices and two operand
+    buffers) fit a block's 232,448 bytes with their static shared
+    memory, by the formula the source exports
+    (``apg_stream_staged_smem``, mirrored by ``staged_smem``); at twice
+    its widths they do not, and the gate still takes the tree (the
+    unstaged variant)."""
+    from rapidnet_tpu_torch.ops import apg_stream as S
+
+    k1, k2, _ = S.staged_smem(**CONFIG5)
+    assert (k1, k2) == (144304, 137776)
+    assert max(k1, k2) + S.STATIC_SMEM <= H100_SMEM
+    wide = dict(CONFIG5, nx=126, nu=228, nv=194)
+    k1w, k2w, _ = S.staged_smem(**wide)
+    assert min(k1w, k2w) > H100_SMEM
+    assert S.stream_fits(**wide, smem_limit=H100_SMEM)
+
+
 @pytest.mark.parametrize("algorithm,tolerance,ns,route", [
     (APG, None, 25, "kernel"),
     (APG, 1e-3, 25, "kernel"),

@@ -113,6 +113,48 @@ def test_fused_fits_is_a_function_of_shapes():
     assert S.stream_fits(**dict(CONFIG5, N=80), smem_limit=H100_SMEM)
 
 
+def _tile_fused_fits(N, ns, nx, nu, nv, limit, sms):
+    """The fused kernel's gate before its staged variant, written out:
+    the streaming gate, v's (N, nv, TILE) tiles beside the larger of K1's
+    work and K2's without v, and one block of TILE slots per SM at
+    most."""
+    stream = 4 * 8 * max(nx + nv + nu, 2 * nu + nx + nv)
+    fused = 4 * 8 * (N * nv + max(nx + nv + nu, 2 * nu + nx))
+    return (ns >= 1 and 1 <= N <= 65535 and stream <= limit and
+            fused <= limit and -(-ns // 8) <= sms)
+
+
+@pytest.mark.parametrize("limit", [H100_SMEM, 100 * 1024])
+def test_fused_fits_takes_every_tree_the_tile_gate_took(limit):
+    """Over tests/test_torch_apg_stream.py's grid of shapes (N 1-80, ns
+    1-2048, widths up to 3x config 5's), ``fused_fits`` refuses no tree
+    that the tile gate took, nor takes one it refused."""
+    from rapidnet_tpu_torch.ops import apg_stream as S
+    from tests.test_torch_apg_stream import gate_grid
+
+    taken = 0
+    for d in gate_grid():
+        before = _tile_fused_fits(**d, limit=limit, sms=H100_SMS)
+        assert S.fused_fits(**d, smem_limit=limit,
+                            sm_count=H100_SMS) == before, d
+        taken += before
+    assert taken > 0
+
+
+def test_config5_staged_fused_launch_fits_an_h100():
+    """At config 5 the staged fused kernel (v's tiles, the larger work
+    area and matrices, one K1 or two K2 operand buffers) fits a block's
+    232,448 bytes with its static shared memory, by the source's
+    exported formula (mirrored by ``staged_smem``), with one block on
+    each of its 128 SMs."""
+    from rapidnet_tpu_torch.ops import apg_stream as S
+
+    fused = S.staged_smem(**CONFIG5)[2]
+    assert fused == 220848
+    assert fused + S.STATIC_SMEM <= H100_SMEM
+    assert S.fused_fits(**CONFIG5, smem_limit=H100_SMEM, sm_count=H100_SMS)
+
+
 def test_fused_wrapper_refuses_what_the_kernel_does_not_take():
     from types import SimpleNamespace
 

@@ -1263,6 +1263,110 @@ def test_fused_smem_matches_the_source(cuda_device):
                          apg_stream.fused_smem(*dims))
 
 
+# The variants of the streaming kernels: at BASELINE config 5's widths
+# the matrices and a stage's operands fit in shared memory (staged); at
+# twice those widths they do not, and the same stage bodies read them
+# from device memory.  Each single pass is held to its plain half by
+# chip_smoke.py phase 15's bound.
+PASS_FACTOR = 1e-4
+CONFIG5_WIDTHS = (63, 114, 88, 17)         # nx, nu, nd, ne: nv = 97
+WIDE_WIDTHS = (126, 228, 44, 34)           # nv = 194: matrices ~425 KB
+STAGE_VARIANTS = {"staged": ((8, 8, 4, 4), 24, CONFIG5_WIDTHS),
+                  "unstaged": ((3, 2, 2), 8, WIDE_WIDTHS)}
+
+
+def _held(got, ref, factor=PASS_FACTOR):
+    got, ref = got.double().cpu(), ref.double().cpu()
+    bound = factor * max(float(ref.abs().max()), 1.0)
+    assert float((got - ref).abs().max()) <= bound
+
+
+def _single_pass_case(device, variant):
+    from rapidnet_tpu_torch.ops import apg_stream as S
+
+    branching, N, widths = STAGE_VARIANTS[variant]
+    fa, prefix, step, kw = _stream_problem(device, branching=branching, N=N,
+                                           widths=widths)
+    kc = S.stream_constants(fa, prefix_stages=prefix, max_iterations=ITERS)
+    st = S.plain_iterations(kc, step, iterations=3, **kw)
+    sc = (kc["lams"][2], kc["lams"][3], 1.0) + STREAM_SHRINKS
+    return kc, step, kw, st, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(STAGE_VARIANTS))
+def test_stream_variant_passes_match_plain_halves(cuda_device, variant):
+    """One K1 and one K2 pass of the variant the source picks (staged at
+    config 5's widths, unstaged past them) against the plain halves."""
+    from rapidnet_tpu_torch.ops import apg_stream as S
+
+    kc, step, kw, st, sc = _single_pass_case(cuda_device, variant)
+    picked = S.staged(*S._dims(kc))
+    want = variant == "staged"
+    assert picked["k1"] == want and picked["k2"] == want, picked
+    scal = dict(lam_prev=sc[0], lam_i=sc[1], upd=1.0, k1f=sc[3], k2f=sc[4],
+                c=kw["inv_step"], xs_upper=kw["xs_upper"])
+    yk, zk, vk, chk = S.k1_call(kc, step, st["pre"], st["y"], st["z"], sc,
+                                **kw)
+    yp, zp, vp, chp = S.k1_plain(kc, step["beta"], st["pre"], st["y"],
+                                 st["z"], step=kw["step_size"], **scal)
+    for k in ("xi", "psi"):
+        _held(yk[k], yp[k])
+        _held(zk[k], zp[k])
+    _held(vk, vp)
+    _held(chk, chp)
+    pdu = step["prev_u"] - step["prev_uhat"]
+    got = S.k2_call(kc, step, vp, yp, zp, sc, **kw)
+    ref = S.k2_plain(kc, vp, step["uhat"], step["e"], step["x0"], pdu, yp,
+                     zp, lam_i=sc[1], c=kw["inv_step"],
+                     xs_upper=kw["xs_upper"])
+    for g, r in zip(got[:2] + (got[2]["xi"], got[2]["psi"]) + got[3:],
+                    ref[:2] + (ref[2]["xi"], ref[2]["psi"]) + ref[3:]):
+        _held(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(STAGE_VARIANTS))
+def test_instrumented_build_equals_the_plain_build(cuda_device, variant):
+    """The clock64 build (apg_stream.CLOCK_DEFINES) adds barriers and
+    nothing else: its K1 and K2 passes equal the plain build's bit for
+    bit, and it reports cycles for every part its variant runs."""
+    from rapidnet_tpu_torch.ops import apg_stream as S
+
+    kc, step, kw, st, sc = _single_pass_case(cuda_device, variant)
+    spans = S.stage_spans(kc, step, st["pre"], st["y"], st["z"], sc, **kw)
+    k1 = S.k1_call(kc, step, st["pre"], st["y"], st["z"], sc, **kw)
+    k2 = S.k2_call(kc, step, k1[2], k1[0], k1[1], sc, **kw)
+    for a, b in ((spans["k1"][0], k1[0]), (spans["k1"][1], k1[1]),
+                 (spans["k2"][2], k2[2])):
+        for k in ("xi", "psi"):
+            assert torch.equal(a[k], b[k]), k
+    for a, b in zip((spans["k1"][2], spans["k1"][3]) + spans["k2"][:2] +
+                    spans["k2"][3:], (k1[2], k1[3]) + k2[:2] + k2[3:]):
+        assert torch.equal(a, b)
+    cycles = spans["cycles"]
+    assert all(cycles[p] > 0 for p in S.SPAN_PARTS), cycles
+
+
+@pytest.mark.cuda
+def test_staged_formulas_match_the_source(cuda_device):
+    """``apg_stream.staged_smem`` equals the source's
+    ``apg_stream_staged_smem`` for each kernel, at config 5, its shard,
+    twice its widths and a tiny tree."""
+    import ctypes
+
+    from rapidnet_tpu_torch.ops import apg_stream, build
+
+    fn = build.load("apg_stream").apg_stream_staged_smem
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    for dims in [(24, 1024, 63, 114, 97), (24, 512, 63, 114, 97),
+                 (8, 12, 126, 228, 194), (8, 12, 4, 7, 5),
+                 (6, 27, 5, 9, 7)]:
+        assert tuple(fn(*dims, k) for k in range(3)) == \
+            apg_stream.staged_smem(*dims), dims
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("algorithm", QN_ALGORITHMS)
 def test_qn_bf16_history(cuda_device, algorithm):
