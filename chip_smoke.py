@@ -20,7 +20,14 @@ imports only ``rapidnet_tpu_torch``, torch and numpy, and in order:
    and checks that every solve launched the kernel, that the controls
    and KPIs are finite and that they agree with the plain backend;
 5. times the kernel and the plain version (median of 7 solves each,
-   inputs staged on the device, synchronised around each solve).
+   inputs staged on the device, synchronised around each solve); prints
+   the variant the source picks for the Barcelona problem
+   (``apg_solve.variant``: slot clusters of C CTAs, prefix clusters of
+   Cp, staged matrices per phase), which must be ``apg_solve.pick``'s
+   and clustered and staged in every phase; with ``--reference-kernel
+   DIR``, DIR's ``apg_solve.cu`` and this one in turns (APG_AB_SOLVES a
+   turn, 8 solves each), both medians and each one's device µs an
+   iteration per phase kernel.
 
 Then the batched kernel, at B = 32 instances whose states are
 x0 * (1 + 0.02 N(0, 1)) (numpy seed 7, as bench.py:133-136):
@@ -41,9 +48,10 @@ x0 * (1 + 0.02 N(0, 1)) (numpy seed 7, as bench.py:133-136):
     the streaming APG solve to its kernels, in 15 one K1 and one K2
     pass; in 12a the single FBE and NAMA solves to its ``qn_solve.cu``
     by 9a's TRACK rule and 9b's tail rule, since this source's flat
-    passes sum the dual space in another order; and in 11, 14 and 18 it
-    times the QN solves, the B = 32 QN calls and the streaming solve on
-    that source's kernels in turns with these);
+    passes sum the dual space in another order; and in 5, 8, 11, 14 and
+    18 it times the APG solve, the B = 32 APG call, the QN solves, the B
+    = 32 QN calls and the streaming solve on that source's kernels in
+    turns with these);
 7.  runs 3-step batched closed loops through
     ``BatchedSmpcController(device="cuda")`` with a shared forecaster,
     cold and warm-started: one kernel call per step, finite controls and
@@ -52,7 +60,13 @@ x0 * (1 + 0.02 N(0, 1)) (numpy seed 7, as bench.py:133-136):
 8.  times it: batch-32 solves/s (median of 5 batched 500-iteration
     solves), the pipelined rate (4 batched solves enqueued back to back,
     one synchronise, median of 3 rounds), the plain batched version
-    (median of 3), and the batched solve's peak device memory.
+    (median of 3), and the batched solve's peak device memory; prints
+    the variant the source picks at B = 32, which must be
+    ``apg_solve.pick``'s with a staged prefix cluster (its slot phases
+    fill the card at C = 1, where staging leaves fewer blocks resident:
+    measured slower, so they run unstaged); with ``--reference-kernel
+    DIR``, DIR's batched calls and these in turns (APG_AB_CALLS a turn,
+    6 calls each), as in 5.
 
 Then the whole-solve FBE/NAMA kernel (``csrc/qn_solve.cu``), for each of
 the two algorithms, at the same problem with an L-BFGS buffer of 5
@@ -362,6 +376,8 @@ STREAM_QN_REPEATS = 3      # phase 22's timed solves per algorithm and
 PROFILE_ITER = 50     # phase 22's profiled solves
 PROFILE_TRIES = 3     # phase 28's traced solves at most
 PLAIN_INSTANCES = 4   # phase 12b-c: the instances held to the plain batch
+APG_AB_SOLVES = 4     # phase 5 with --reference-kernel: solves a turn
+APG_AB_CALLS = 3      # phase 8 with --reference-kernel: B = 32 calls a turn
 QN_AB_SOLVES = 3      # phase 11 with --reference-kernel: solves a turn
 QN_AB_CALLS = 2       # phase 14 with --reference-kernel: B = 32 calls a turn
 BATCH_LOOP_STEPS = 3
@@ -593,6 +609,29 @@ def phase_us(run, n_it):
         if dt > 0 and name:
             us[name.group()] = us.get(name.group(), 0.0) + dt / n_it
     return dict(sorted(us.items(), key=lambda kv: -kv[1])) or None
+
+
+def apg_variant(tag, dims, B, need):
+    """Phases 5 and 8: the variant the source picks for a launch of B at
+    ``dims`` on this card (``apg_solve.variant``), printed; it must be
+    ``apg_solve.pick``'s for the card's limits and pass ``need``."""
+    import torch
+    from rapidnet_tpu_torch.ops import apg_solve as K
+    props = torch.cuda.get_device_properties(0)
+    got = K.variant(*dims, B)
+    want = K.pick(*dims, B, sm_count=props.multi_processor_count,
+                  smem_limit=props.shared_memory_per_block_optin,
+                  smem_per_sm=getattr(props, "shared_memory_per_multiprocessor",
+                                      K.H100_SMEM_PER_SM))
+    print(f"[variant] {tag}: B {B}: slot clusters of {got['cluster']}, "
+          f"prefix clusters of {got['prefix_cluster']}, staged "
+          f"{got['staged']} (apg_solve_variant, code {K.encode(got):#x})")
+    if got != want:
+        raise SmokeFailure(f"{tag}: the source picks {got}, apg_solve.pick "
+                           f"{want}")
+    if not need(got):
+        raise SmokeFailure(f"{tag}: {got} is not the variant the Barcelona "
+                           "problem should take")
 
 
 def in_turns(tag, runs, per_turn):
@@ -1477,6 +1516,34 @@ def apg_phases(ref_libs, device, cfg, net, tree, fa, make_step, make_batch,
 
     single_bound = solve_bound(kc, solve_inputs(kc, step_r), out, MAX_ITER,
                                prefix)
+    dims = (tree.N, tree.ns, net.nx, net.nu, kc["iWT"].shape[0])
+    apg_variant("5", dims, 1, lambda v: v["cluster"] > 1 and
+                v["prefix_cluster"] > 1 and all(v["staged"].values()))
+
+    def reference_apg(steps, batch=None, n_it=None):
+        """DIR's apg_solve.cu (--reference-kernel) on these inputs."""
+        hy = dict(hyper, max_iterations=n_it or MAX_ITER)
+        strides = {} if batch is None else K._strides(kc, steps, batch)
+        with torch.cuda.device(device):
+            return K._launch(ref_libs["apg_solve"],
+                             torch.cuda.current_stream().cuda_stream, kc,
+                             steps, None, batch=batch, tolerance=None,
+                             **strides, **hy)
+
+    def these_apg(steps, batch=None, n_it=None):
+        """This checkout's apg_solve.cu, through the same launch."""
+        hy = dict(hyper, max_iterations=n_it or MAX_ITER)
+        strides = {} if batch is None else K._strides(kc, steps, batch)
+        with torch.cuda.device(device):
+            return K._launch(K._load(kc),
+                             torch.cuda.current_stream().cuda_stream, kc,
+                             steps, None, batch=batch, tolerance=None,
+                             **strides, **hy)
+
+    if ref_libs:
+        in_turns("5 single solve", {
+            "reference": lambda n: reference_apg(step_r, n_it=n),
+            "these": lambda n: these_apg(step_r, n_it=n)}, APG_AB_SOLVES)
 
     # 6. the batched kernel at B = 32
     rng = np.random.default_rng(7)
@@ -1563,6 +1630,12 @@ def apg_phases(ref_libs, device, cfg, net, tree, fa, make_step, make_batch,
     plain_batch_ms = float(np.median(plain_batch))
     batch_bound = solve_bound(kc, solve_inputs(kc, steps_r), out_b,
                               MAX_ITER, prefix)
+    apg_variant("8", dims, BATCH, lambda v: v["prefix_cluster"] > 1 and
+                v["staged"]["prefix"])
+    if ref_libs:
+        in_turns(f"8 B = {BATCH}", {
+            "reference": lambda n: reference_apg(steps_r, BATCH, n),
+            "these": lambda n: these_apg(steps_r, BATCH, n)}, APG_AB_CALLS)
     print(f"[timing] pipelined, {PIPELINE_DEPTH} batched calls per "
           f"synchronise: median {pipe_med:.3f} ms per call of "
           f"{PIPELINE_ROUNDS} rounds ({', '.join(f'{t:.3f}' for t in per)})"
@@ -3507,9 +3580,10 @@ def main() -> int:
                          "solve, one K1 and one K2 pass and the streaming "
                          "APG solve to its kernels bit for bit, 12a the "
                          "single FBE and NAMA solves by TRACK and tail, "
-                         "and phases 11, 14 and 18 time its QN solves, "
-                         "B = 32 QN calls and streaming solve in turns "
-                         "with this checkout's")
+                         "and phases 5, 8, 11, 14 and 18 time its APG "
+                         "solve, B = 32 APG call, QN solves, B = 32 QN "
+                         "calls and streaming solve in turns with this "
+                         "checkout's")
     args = ap.parse_args()
     import torch
 

@@ -2,7 +2,7 @@
 """Where the time of one solve kernel call goes, on one GPU.
 
     python3 profile_solve.py [--algorithm apg|fbe|nama] [--iterations 500]
-                             [--batch B | --stream [--spans]]
+                             [--batch B] [--stream] [--spans] [--sweep]
                              [--lbfgs-dtype D] [--out profile_out]
 
 Builds the Barcelona-scale problem of ``chip_smoke.py``, warms the
@@ -30,7 +30,19 @@ between them):
   (``apg_stream.stage_spans``, from the state after two plain
   iterations), the SM cycles of each part per block and stage (the
   launches' start and end parts per block and pass) and their µs at
-  the card's maximum SM clock.
+  the card's maximum SM clock;
+* with ``--spans`` (APG, single or ``--batch B``), where a block of the
+  whole-solve kernel spends its time: one call of ``csrc/apg_solve.cu``'s
+  instrumented build (``-DAPG_SOLVE_CLOCK``, ``apg_solve.phase_spans``),
+  the SM cycles of each part of a block per launch of its phase (a
+  phase's start waits for the previous phase: dependent launches) and
+  their µs at the card's maximum SM clock;
+* with ``--sweep`` (APG whole solve), the variant the source picks
+  (``apg_solve.variant``) and the event ms of one call (the batched
+  entry, B = 1 without ``--batch``) in each variant of SWEEP_CLUSTERS
+  (slot clusters of C CTAs, staged as the pick would stage them, and
+  the one-block design: C = Cp = 1 unstaged), SWEEP_ROUNDS rounds in
+  turns; every variant's outputs equal the picked one's bit for bit.
 
 It writes the trace (``trace.json``, for chrome://tracing or Perfetto)
 and these numbers (``summary.json``) under ``--out``.
@@ -46,6 +58,9 @@ import subprocess
 import sys
 import time
 
+
+SWEEP_CLUSTERS = (1, 2, 4, 5, 8)   # --sweep's slot cluster sizes
+SWEEP_ROUNDS = 2                  # --sweep's calls of each variant
 
 # --algorithm -> the config's algorithm name (None: APG)
 ALGORITHMS = {"apg": None, "fbe": "globalFbeAlgorithm",
@@ -67,15 +82,21 @@ def main() -> int:
                     help="--stream with FBE or NAMA: the L-BFGS history's "
                          "storage")
     ap.add_argument("--spans", action="store_true",
-                    help="--stream with APG: the SM cycles of each part of "
-                         "a block's stage (the instrumented build)")
+                    help="APG: the SM cycles of each part of a block (the "
+                         "instrumented build; with --stream a K1/K2 "
+                         "stage's)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="APG whole solve: time the variants (cluster "
+                         "sizes, staging) in turns")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
     algorithm = ALGORITHMS[args.algorithm]
     if args.stream and args.batch:
         ap.error("--stream runs one solve")
-    if args.spans and not (args.stream and algorithm is None):
-        ap.error("--spans times the streaming APG kernels (--stream)")
+    if args.spans and algorithm is not None:
+        ap.error("--spans times the APG kernels")
+    if args.sweep and (algorithm is not None or args.stream):
+        ap.error("--sweep times the whole-solve APG kernel's variants")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -229,7 +250,11 @@ def main() -> int:
     summary["card"] = smi.splitlines()[0]
     if args.spans:
         mhz = float(summary["card"].split(",")[-1].split()[0])
-        summary["spans"] = stage_split(S, kc, step, hyper, mhz)
+        summary["spans"] = (stage_split(S, kc, step, hyper, mhz)
+                            if args.stream else
+                            phase_split(K, kc, step, hyper, args.batch, mhz))
+    if args.sweep:
+        summary["sweep"] = variant_sweep(K, kc, step, hyper, args.batch)
     print(summary["card"])
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     return 0
@@ -258,6 +283,74 @@ def stage_split(S, kc, step, hyper, mhz):
               f"{split[part]['per']}, {per / mhz:8.3f} us at {mhz:g} MHz "
               f"(x{n} a pass: {per * n / mhz:8.3f} us)")
     return split
+
+
+def phase_split(K, kc, step, hyper, batch, mhz):
+    """Print and return the per-part split of one call of the whole-solve
+    APG kernel's instrumented build (``apg_solve.phase_spans``): the SM
+    cycles of each part per block and launch of its phase, at ``mhz``,
+    the card's maximum SM clock."""
+    got = K.phase_spans(kc, step, None, batch=batch or None, **hyper)
+    n_it = hyper["max_iterations"]
+    for phase, blocks in got["blocks"].items():
+        print(f"[span] {phase}: {blocks / n_it:g} blocks a launch")
+    split = {}
+    for part, cyc in got["cycles"].items():
+        split[part] = {"cycles": cyc, "us": cyc / mhz}
+        print(f"[span] {part:18s} {cyc:10.1f} cycles a block per launch, "
+              f"{cyc / mhz:8.3f} us at {mhz:g} MHz")
+    return {"parts": split, "blocks": got["blocks"]}
+
+
+def variant_sweep(K, kc, step, hyper, batch):
+    """Print and return the event ms of one call in each variant of
+    SWEEP_CLUSTERS, the picked one and the one-block design, in turns (``apg_solve.solve_as``; B = 1 of the batched entry for a single
+    solve), after checking that each equals the picked variant's outputs
+    bit for bit."""
+    import numpy as np
+    import torch
+    steps = step if batch else {k: v[None] for k, v in step.items()}
+    B = steps["beta"].shape[0]
+    fa = kc["fa"]
+    dims = (*fa["d1"].shape, fa["g"].shape[-1], fa["invWbar"].shape[0])
+    props = torch.cuda.get_device_properties(0)
+    limits = dict(sm_count=props.multi_processor_count,
+                  smem_limit=props.shared_memory_per_block_optin,
+                  smem_per_sm=getattr(props, "shared_memory_per_multiprocessor",
+                                      K.H100_SMEM_PER_SM))
+    picked = K.variant(*dims, B)
+    print(f"[sweep] B {B}: the source picks {picked} "
+          f"(code {K.encode(picked):#x})")
+    runs = {"picked": K.encode(picked)}
+    for C in SWEEP_CLUSTERS:
+        runs[f"C {C}"] = K.encode(K.pick(*dims, B, cluster=C, **limits))
+    runs["one-block (C 1, Cp 1, unstaged)"] = 0x110
+    ref = K.solve_as(kc, steps, None, code=runs["picked"], **hyper)
+    for name, code in runs.items():
+        out = K.solve_as(kc, steps, None, code=code, **hyper)
+        for k in ("x", "u", "primal_infeasibility", "iterations"):
+            if not torch.equal(out[k], ref[k]):
+                raise RuntimeError(f"sweep: {name} ({code:#x}) differs from "
+                                   f"the picked variant in {k}")
+    times = {name: [] for name in runs}
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    for r in range(SWEEP_ROUNDS):
+        for name in (runs if r % 2 == 0 else reversed(list(runs))):
+            torch.cuda.synchronize()
+            ev0.record()
+            K.solve_as(kc, steps, None, code=runs[name], **hyper)
+            ev1.record()
+            torch.cuda.synchronize()
+            times[name].append(ev0.elapsed_time(ev1))
+    out = {}
+    for name, ts in times.items():
+        out[name] = {"code": runs[name], "ms": ts,
+                     "median_ms": float(np.median(ts))}
+        print(f"[sweep] B {B} {name:34s} code {runs[name]:#06x}: "
+              f"{float(np.median(ts)):9.3f} ms "
+              f"({', '.join(f'{t:.3f}' for t in ts)})")
+    return out
 
 
 if __name__ == "__main__":

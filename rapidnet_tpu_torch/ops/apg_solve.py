@@ -30,6 +30,18 @@ scenarios.  ``fits`` says whether a tree is within those limits, by the
 formulas of the launch; a larger tree's launch is refused and the
 wrapper raises.  The controllers' ``auto`` sends such trees to the
 streaming kernels (``ops/apg_stream.py``).
+
+The source picks a variant for each launch from the sizes and the
+device's limits: slot clusters of C CTAs, prefix clusters of Cp, and
+which phases stage their matrices in shared memory.  ``variant`` reads
+the pick from the source, ``pick`` writes the rule out, ``sweep_smem``
+the shared memory of any variant; every tree ``fits`` takes runs, at
+worst in the one-block variant (C = Cp = 1, nothing staged), whose
+shared memory is the gate's.  Every variant gives the same bits.
+``solve_as`` runs a batched call in a given variant, and
+``phase_spans`` one call of the clock64-instrumented build: tools for
+holding the variants to each other and timing them, not the product
+path.
 """
 
 from __future__ import annotations
@@ -46,25 +58,61 @@ ROW_KEYS = ("d1", "d2", "g", "nhp", "rep", "xmin", "xmax", "xs", "umin",
             "umax")
 MATRIX_KEYS = ("L", "BbT", "iWT", "LT", "BT", "Cs", "lams")
 STEP_KEYS = ("beta", "uhat", "e", "x0", "pdu")
-ROW_GROUP = 8        # stage rows per thread in a product (csrc/apg_solve.cu)
+ROW_GROUP = 8        # stage rows are padded to a multiple (csrc/apg_solve.cu)
 STATE_KEYS = ("y_xi", "y_psi", "yp_xi", "yp_psi", "w_xi", "w_psi", "t",
               "a", "df_xi", "df_psi", "x", "u", "norm_part", "champ_part",
               "trace", "status")
+# the instrumented build (csrc/apg_solve.cu's Part, in its order): the
+# parts of a block whose SM cycles ``phase_spans`` reads, each with its
+# phase (Phase: tail, prefix, forward, dual update)
+CLOCK_DEFINES = ("APG_SOLVE_CLOCK",)
+PHASES = ("tail", "prefix", "forward", "dual")
+SWEEP_PHASES = PHASES[:3]    # the phases whose variants stage matrices
+SPAN_PARTS = (
+    ("tail.start", 0), ("tail.elementwise", 0), ("tail.share", 0),
+    ("tail.L", 0), ("tail.BbT", 0), ("tail.scan", 0), ("tail.store", 0),
+    ("prefix.load", 1), ("prefix.tS", 1), ("prefix.share", 1),
+    ("prefix.BbT", 1), ("prefix.children", 1),
+    ("forward.load", 2), ("forward.iW", 2), ("forward.share", 2),
+    ("forward.LT", 2), ("forward.u_scan", 2), ("forward.BT", 2),
+    ("forward.x_scan", 2), ("forward.prox", 2), ("forward.norms", 2),
+    ("dual.shrinks", 3), ("dual.update", 3), ("dual.reduce", 3))
 
 
-def sweep_smem(N: int, ns: int, nx: int, nu: int, nv: int) -> dict:
-    """Shared memory (bytes) of the sweep phases at these sizes, as the
-    launch computes it (``run_iterations`` in csrc/apg_solve.cu, the
-    same sweeps in csrc/qn_solve.cu)."""
+MAX_CLUSTER = 8          # the portable cluster size (csrc/apg_solve.cu)
+STATIC_RESERVE = 2048    # bytes a variant past the gate's leaves for static
+                         # shared memory (csrc/apg_solve.cu)
+CTAS_PER_SM = 2          # slot-cluster CTAs the pick lets share an SM
+H100_SMEM_PER_SM = 233472   # an H100's shared memory an SM
+
+
+def sweep_smem(N: int, ns: int, nx: int, nu: int, nv: int, C: int = 1,
+               Cp: int = 1, staged: tuple = (False, False, False)) -> dict:
+    """Dynamic shared memory (bytes) of the sweep phases at these sizes in
+    a variant, as the launch computes it (``sweep_smem`` in
+    csrc/apg_solve.cu, exported per phase as ``apg_solve_sweep_smem``):
+    slot clusters of C CTAs, prefix clusters of Cp, and which phases
+    (tail, prefix, forward) stage their matrices.  The default, the
+    unstaged variant at C = Cp = 1, is the one-block sweeps' (the same
+    sweeps in csrc/qn_solve.cu) and the routing gate's."""
     RS = -(-N // ROW_GROUP) * ROW_GROUP
-    return {"tail": 4 * (nu + nx + nv) * RS,
-            "prefix": 4 * 2 * (nx + nv) * ns,
-            "forward": 4 * (2 * nv + nu + nx) * RS}
+    nvw, nuw, nxw = -(-nv // C), -(-nu // C), -(-nx // C)
+    pxw, pvw = -(-nx // Cp), -(-nv // Cp)
+    P = -(-ns // 4) * 4 if Cp > 1 else ns
+    st_tail, st_prefix, st_fwd = staged
+    tail = (nu + nx + nvw) * RS + (st_tail and (nu + nx) * nvw)
+    prefix = ((2 if Cp > 1 else 1) * nx * P + (pxw + 2 * pvw) * ns +
+              (st_prefix and nx * pvw + ns * ns))
+    fwd = ((2 * nv + nu + nxw) * RS + (C > 1 and 2 * nx * RS) +
+           (st_fwd and nv * nvw + nv * nuw + nu * nxw))
+    return {"tail": 4 * tail, "prefix": 4 * prefix, "forward": 4 * fwd}
 
 
 def smem(N: int, ns: int, nx: int, nu: int, nv: int) -> int:
-    """The most shared memory (bytes) a launch at these sizes asks for
-    (``apg_solve_smem`` in the source, checked at every launch)."""
+    """The most shared memory (bytes) a launch of the unstaged variant at
+    C = Cp = 1 asks for (``apg_solve_smem`` in the source, checked at
+    every launch): every tree within it runs, whatever variant the
+    source picks for it."""
     return max(sweep_smem(N, ns, nx, nu, nv).values())
 
 
@@ -74,6 +122,81 @@ def fits(N: int, ns: int, nx: int, nu: int, nv: int,
     every phase's shared memory within ``smem_limit`` (default: the
     current CUDA device's opt-in limit per block)."""
     return smem(N, ns, nx, nu, nv) <= build.smem_optin(smem_limit)
+
+
+def encode(v: dict) -> int:
+    """A variant as the source encodes it: staged tail | prefix << 1 |
+    forward << 2 | C << 4 | Cp << 8."""
+    st = v["staged"]
+    return (int(st["tail"]) | int(st["prefix"]) << 1 |
+            int(st["forward"]) << 2 | v["cluster"] << 4 |
+            v["prefix_cluster"] << 8)
+
+
+def decode(code: int) -> dict:
+    """``encode``'s inverse: {"cluster": C, "prefix_cluster": Cp,
+    "staged": {phase: bool}}."""
+    return {"cluster": (code >> 4) & 15, "prefix_cluster": (code >> 8) & 15,
+            "staged": {ph: bool(code >> j & 1)
+                       for j, ph in enumerate(SWEEP_PHASES)}}
+
+
+def pick(N: int, ns: int, nx: int, nu: int, nv: int, B: int = 1, *,
+         sm_count: int, smem_limit: int, clusters: bool = True,
+         smem_per_sm: int = H100_SMEM_PER_SM,
+         cluster: int | None = None) -> dict:
+    """The variant the source picks for these sizes on a device with
+    ``sm_count`` SMs, ``smem_limit`` bytes of opt-in shared memory a block
+    and ``smem_per_sm`` an SM (``pick_sizes`` in csrc/apg_solve.cu): the
+    largest C <= 8 with the B * ns * C slot CTAs within CTAS_PER_SM an
+    SM, the largest Cp <= 8 with B * Cp within the SM count (1 each
+    without cluster launch); a cluster whose unstaged variant does not fit
+    the shared memory less STATIC_RESERVE runs at 1; then the prefix
+    stages its matrices where its staged variant fits, and the slot phases
+    where theirs fit and the launch's CTAs are all resident at once.
+    (The source also runs a cluster at 1 where the device reports that it
+    cannot hold one at once; an H100 holds these.)  ``cluster`` forces C,
+    with the rest of the rule as it is: what profile_solve.py's
+    ``--sweep`` times."""
+    C = Cp = 1
+    if clusters:
+        C = cluster or max([c for c in range(1, MAX_CLUSTER + 1)
+                            if B * ns * c <= CTAS_PER_SM * sm_count],
+                           default=1)
+        Cp = max([c for c in range(1, MAX_CLUSTER + 1) if B * c <= sm_count],
+                 default=1)
+    room = smem_limit - STATIC_RESERVE
+    plain = sweep_smem(N, ns, nx, nu, nv, C, Cp)
+    if plain["tail"] > room or plain["forward"] > room:
+        C = 1
+    if plain["prefix"] > room:
+        Cp = 1
+    st = sweep_smem(N, ns, nx, nu, nv, C, Cp, (True, True, True))
+    ctas = B * ns * C
+    per_sm = 1 if ctas <= sm_count else CTAS_PER_SM
+
+    def resident(smem):
+        return (smem <= room and ctas <= per_sm * sm_count and
+                per_sm * (smem + STATIC_RESERVE) <= smem_per_sm)
+
+    return {"cluster": C, "prefix_cluster": Cp,
+            "staged": {"tail": resident(st["tail"]),
+                       "prefix": st["prefix"] <= room,
+                       "forward": resident(st["forward"])}}
+
+
+def variant(N: int, ns: int, nx: int, nu: int, nv: int, B: int = 1) -> dict:
+    """The variant a launch at these sizes takes on the current CUDA
+    device, as the source reports it (``apg_solve_variant``; B = 1 the
+    single solve, else a batched call of B); ``decode``'s dict."""
+    lib = build.load("apg_solve")
+    fn = lib.apg_solve_variant
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    code = fn(N, ns, nx, nu, nv, B)
+    if code < 0:
+        raise RuntimeError(f"apg_solve_variant failed: error {-code}")
+    return decode(code)
 
 
 def sweep_constants(fa: dict, *, prefix_stages: tuple) -> dict:
@@ -281,9 +404,12 @@ def _load(kc) -> ctypes.CDLL:
     return lib
 
 
-def _entry(lib, batched: bool):
-    """The C entry ``apg_solve_batch`` or ``apg_solve``, declared."""
-    fn = lib.apg_solve_batch if batched else lib.apg_solve
+def _entry(lib, batched: bool, forced: bool = False):
+    """The C entry ``apg_solve_batch`` or ``apg_solve``, declared; with
+    ``forced`` ``apg_solve_batch_as`` (a variant's code after the
+    stream)."""
+    fn = (lib.apg_solve_batch_as if forced else
+          lib.apg_solve_batch if batched else lib.apg_solve)
     if fn.argtypes is None:
         ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_longlong, ctypes.c_float)
@@ -291,7 +417,8 @@ def _entry(lib, batched: bool):
             [ptr] * (len(ROW_KEYS) + len(MATRIX_KEYS) + len(STEP_KEYS) +
                      len(STATE_KEYS)) +
             ([i32, i64, i64] if batched else []) +
-            [i32] * 7 + [f32] * 5 + [i32, f32, ptr])
+            [i32] * 7 + [f32] * 5 + [i32, f32, ptr] +
+            ([i32] if forced else []))
         fn.restype = i32
         lib.apg_solve_error_string.argtypes = [i32]
         lib.apg_solve_error_string.restype = ctypes.c_char_p
@@ -300,13 +427,14 @@ def _entry(lib, batched: bool):
 
 def _launch(lib, stream, kc, step, y0, *, batch, uhat_bs=0, e_bs=0,
             inv_step, step_size, penalty_state, penalty_safety, xs_upper,
-            max_iterations, tolerance):
+            max_iterations, tolerance, code=None):
     """Allocate the outputs and scratch, then run the kernel on
     ``stream`` (the argument order of ``apg_solve`` in the source).
 
     ``batch=None`` is the single solve (C entry ``apg_solve``); an int B
     the batched one (``apg_solve_batch``), with a leading B on every
-    per-instance array.
+    per-instance array; with ``code`` (an int B required) the batched one
+    in that variant (``apg_solve_batch_as``).
     """
     fa = kc["fa"]
     N, ns, nx = fa["d1"].shape
@@ -351,8 +479,11 @@ def _launch(lib, stream, kc, step, y0, *, batch, uhat_bs=0, e_bs=0,
              float(tolerance) if tolerance is not None else 0.0, stream)
     if batch is None:
         err = _entry(lib, False)(*ptrs, *hyper)
-    else:
+    elif code is None:
         err = _entry(lib, True)(*ptrs, batch, uhat_bs, e_bs, *hyper)
+    else:
+        err = _entry(lib, True, True)(*ptrs, batch, uhat_bs, e_bs, *hyper,
+                                      code)
     if err != 0:
         msg = lib.apg_solve_error_string(err).decode()
         raise RuntimeError(f"apg_solve kernel failed: error {err} ({msg})")
@@ -360,6 +491,67 @@ def _launch(lib, stream, kc, step, y0, *, batch, uhat_bs=0, e_bs=0,
             "y": {"xi": state["y_xi"], "psi": state["y_psi"]},
             "primal_infeasibility": state["trace"],
             "iterations": state["status"][..., 1]}
+
+
+def solve_as(kc, steps, y0=None, *, code: int, tolerance=None, **hyper):
+    """One batched call (a leading batch axis on ``steps``, B = 1 too) on
+    CUDA tensors in the variant ``code`` (``encode``) instead of the one
+    the sizes pick: for holding the variants to each other and timing
+    them.  Not the product path: it counts no launch.  Raises where the
+    variant does not fit."""
+    lib = build.load("apg_solve")
+    B = steps["beta"].shape[0]
+    dev = kc["fa"]["d1"].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return _launch(lib, stream, kc, steps, y0, batch=B, code=code,
+                       tolerance=tolerance, **_strides(kc, steps, B),
+                       **hyper)
+
+
+def phase_spans(kc, step, y0=None, *, batch=None, tolerance=None,
+                **hyper):
+    """One solve (``batch=None``) or one batched call of B solves (``step``
+    with a leading batch axis) of the instrumented build
+    (``CLOCK_DEFINES``) on CUDA tensors.  Returns the outputs, under
+    "cycles" the SM cycles of each part of ``SPAN_PARTS`` per block and
+    launch of its phase (summed over a launch's prefix stages), and under
+    "blocks" each phase's blocks summed over the launches.  A
+    measurement, not the product path: its marks add block barriers."""
+    import numpy as np
+    lib = build.load("apg_solve", CLOCK_DEFINES)
+    lib.apg_solve_spans.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.apg_solve_spans.restype = ctypes.c_int
+    n = len(SPAN_PARTS) + len(PHASES)
+    buf = (ctypes.c_ulonglong * n)()
+
+    def read():
+        err = lib.apg_solve_spans(buf)
+        if err != 0:
+            raise RuntimeError(f"apg_solve_spans failed: error {err}")
+        return np.array(buf[:], dtype=np.float64)
+
+    dev = kc["fa"]["d1"].device
+    read()                               # zeroes what came before
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        out = _launch(lib, stream, kc, step, y0, batch=batch,
+                      tolerance=tolerance, **_strides(kc, step, batch),
+                      **hyper)
+    got = read()
+    blocks = dict(zip(PHASES, got[len(SPAN_PARTS):].tolist()))
+    cycles = {name: float(c) / max(blocks[PHASES[ph]], 1.0)
+              for (name, ph), c in zip(SPAN_PARTS, got[:len(SPAN_PARTS)])}
+    return {"out": out, "cycles": cycles, "blocks": blocks}
+
+
+def _strides(kc, step, batch):
+    """The batch strides of uhat and e that ``_launch`` takes."""
+    if batch is None:
+        return {}
+    _, uhat_bs, e_bs, _ = _check_batch_inputs(kc, step, None,
+                                              kc["lams"].shape[0])
+    return {"uhat_bs": uhat_bs, "e_bs": e_bs}
 
 
 def make_apg_kernel(fa: dict, *, prefix_stages: tuple, inv_step, step_size,

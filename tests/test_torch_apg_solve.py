@@ -158,3 +158,108 @@ def test_import_builds_nothing():
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                    check=True, timeout=120)
+
+
+H100 = dict(sm_count=132, smem_limit=232448)   # an H100's SMs and opt-in
+                                               # shared memory a block
+
+
+# The routing gate before the cluster-split variants, written out: one
+# block a slot for the tail and forward sweeps, one block an instance for
+# the prefix, nothing staged.  The variants ask for more shared memory
+# only where the device has it (apg_solve.pick), so the gate must still
+# take every tree this took, and refuse what it refused.
+def _one_block_fits(N, ns, nx, nu, nv, limit):
+    RS = -(-N // 8) * 8
+    tail = (nu + nx + nv) * RS
+    prefix = 2 * (nx + nv) * ns
+    forward = (2 * nv + nu + nx) * RS
+    return 4 * max(tail, prefix, forward) <= limit
+
+
+GATE_GRID = dict(N=(1, 8, 24, 100, 152, 153, 200),
+                 ns=(1, 4, 25, 181, 182, 1024),
+                 nx=(1, 4, 63, 126), nu=(1, 7, 114, 228),
+                 nv=(1, 5, 97, 194))
+
+
+def _grid():
+    import itertools
+    keys = tuple(GATE_GRID)
+    for vals in itertools.product(*GATE_GRID.values()):
+        yield dict(zip(keys, vals))
+
+
+@pytest.mark.parametrize("limit", [232448, 100 * 1024, 48 * 1024])
+def test_fits_takes_every_tree_the_one_block_gate_took(limit):
+    from rapidnet_tpu_torch.ops import apg_solve as K
+
+    taken = 0
+    for d in _grid():
+        before = _one_block_fits(**d, limit=limit)
+        assert K.fits(**d, smem_limit=limit) == before, d
+        taken += before
+    assert taken > 0
+    assert K.fits(152, 25, 63, 114, 97, smem_limit=232448)
+    assert K.fits(24, 181, 63, 114, 97, smem_limit=232448)
+    assert not K.fits(153, 25, 63, 114, 97, smem_limit=232448)
+    assert not K.fits(24, 182, 63, 114, 97, smem_limit=232448)
+
+
+@pytest.mark.parametrize("dims,B,want", [
+    # the Barcelona problem: 25 slots on clusters of 8 (200 CTAs, two a
+    # SM), one prefix cluster of 8, every phase staged
+    ((24, 25, 63, 114, 97), 1, (8, 8, (True, True, True))),
+    # B = 32: 800 slots fill the card at C = 1, unstaged; 32 prefix
+    # clusters of 4 on 128 SMs, staged
+    ((24, 25, 63, 114, 97), 32, (1, 4, (False, True, False))),
+    ((24, 25, 63, 114, 97), 2, (5, 8, (True, True, True))),
+    # the gate's edges: N = 152 (a cluster's unstaged forward sweep does
+    # not fit), ns = 181 (its prefix fits only unstaged, on 8 CTAs)
+    ((152, 25, 63, 114, 97), 1, (1, 8, (False, True, False))),
+    ((24, 181, 63, 114, 97), 1, (1, 8, (True, False, False))),
+    ((8, 12, 4, 7, 5), 1, (8, 8, (True, True, True))),
+])
+def test_pick_takes_the_documented_variant(dims, B, want):
+    from rapidnet_tpu_torch.ops import apg_solve as K
+
+    got = K.pick(*dims, B, **H100)
+    C, Cp, staged = want
+    assert (got["cluster"], got["prefix_cluster"]) == (C, Cp), got
+    assert tuple(got["staged"][ph] for ph in K.SWEEP_PHASES) == staged, got
+    assert K.decode(K.encode(got)) == got
+    # without cluster launch: the one-block clusters, staged as they fit
+    flat = K.pick(*dims, B, clusters=False, **H100)
+    assert (flat["cluster"], flat["prefix_cluster"]) == (1, 1)
+
+
+def test_pick_rule_over_a_grid():
+    """Over the gate's grid (every tree the gate takes, B 1 and 32): C is
+    the largest cluster <= 8 with the slot CTAs within two an SM, unless
+    its unstaged sweeps do not fit (then 1); Cp the largest <= 8 with the
+    prefix CTAs within the SM count; a staged phase fits; the variant at
+    C = Cp = 1 unstaged is the gate's formula."""
+    from rapidnet_tpu_torch.ops import apg_solve as K
+
+    room = H100["smem_limit"] - K.STATIC_RESERVE
+    for d in _grid():
+        dims = tuple(d.values())
+        if not K.fits(*dims, smem_limit=H100["smem_limit"]):
+            continue
+        assert max(K.sweep_smem(*dims).values()) == K.smem(*dims)
+        for B in (1, 32):
+            v = K.pick(*dims, B, **H100)
+            ns = d["ns"]
+            best = max(c for c in range(1, 9)
+                       if c == 1 or B * ns * c <= 2 * H100["sm_count"])
+            plain = K.sweep_smem(*dims, best, v["prefix_cluster"])
+            fits = plain["tail"] <= room and plain["forward"] <= room
+            assert v["cluster"] == (best if fits else 1), (d, B, v)
+            assert v["prefix_cluster"] == max(
+                c for c in range(1, 9) if c == 1 or B * c <= 132) or (
+                v["prefix_cluster"] == 1 and
+                K.sweep_smem(*dims, 1, 8)["prefix"] > room), (d, B, v)
+            st = K.sweep_smem(*dims, v["cluster"], v["prefix_cluster"],
+                              (True, True, True))
+            for ph, on in v["staged"].items():
+                assert not on or st[ph] <= room, (d, B, v)

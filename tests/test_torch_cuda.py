@@ -326,13 +326,21 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-def _qn_close(got, ref, stressed, n=QN_TRACK):
+def _qn_traces_close(got, ref, n=QN_TRACK):
     vscale = max(float(np.abs(_np(ref["value_fbe"])).max()), 1.0)
     for k, rtol, atol in (("tau", 1e-4, 1e-6),
                           ("value_fbe", 2e-3, 2e-4 * vscale),
                           ("primal_infeasibility", 2e-3, 1e-4)):
         np.testing.assert_allclose(_np(got[k])[:n], _np(ref[k])[:n],
                                    rtol=rtol, atol=atol, err_msg=k)
+
+
+def _qn_close(got, ref, stressed, n=QN_TRACK):
+    _qn_traces_close(got, ref, n)
+    _qn_solution_close(got, ref, stressed)
+
+
+def _qn_solution_close(got, ref, stressed):
     for k, rtol, atol in (("control", 1e-3, 1e-4), ("u", 1e-3, 1e-3)):
         if stressed:
             rtol, atol = 0.0, 2e-3 * max(float(np.abs(_np(ref[k])).max()),
@@ -361,8 +369,19 @@ def test_qn_kernel_matches_plain_on_gpu(cuda_device, algorithm, case):
 def test_qn_kernel_tracks_plain_across_the_lbfgs_wrap(cuda_device,
                                                       algorithm):
     """Over QN_WRAP iterations, in which the ring wraps, the kernel keeps
-    to the plain version's traces, solution, rejected pairs and count of
-    line-search trials."""
+    to the plain version's solution, rejected pairs and count of
+    line-search trials, and its traces keep to the JAX bounds: NAMA's
+    of the plain float32 version's traces, FBE's of a float64 witness's
+    (the plain version in float64), at the same bounds.
+
+    FBE is so conditioned from this state that any two float32 orders
+    part by about one bound at iteration 6: the witness itself moves by
+    up to 0.775 bounds when the step's inputs are perturbed by 1e-7
+    (float32's rounding), and no one sum of the plain version taken to
+    float64 brings it closer to the witness than the kernel is (PERF.md
+    §6, fault F4; tools/qn_sum_probe.py).  The exact trajectory is the
+    reference there; the kernel must keep to it within the unchanged
+    bounds."""
     from rapidnet_tpu_torch.ops import qn_solve as Q
 
     kc, step, kw = _qn_problem(cuda_device, **QN_CASES["stressed"],
@@ -374,7 +393,13 @@ def test_qn_kernel_tracks_plain_across_the_lbfgs_wrap(cuda_device,
     skips = int(ref["lbfgs_skips"])
     assert QN_WRAP - 1 - skips > QN_WRAP_BS, "the ring did not wrap"
     assert int(got["lbfgs_skips"]) == skips
-    _qn_close(got, ref, stressed=True, n=QN_WRAP)
+    traces_ref = ref
+    if algorithm == "globalFbeAlgorithm":
+        traces_ref = Q.qn_solve_plain(dict(kc, fa=_float64(kc["fa"])),
+                                      _float64(step), None,
+                                      algorithm=algorithm, **kw)
+    _qn_traces_close(got, traces_ref, n=QN_WRAP)
+    _qn_solution_close(got, ref, stressed=True)
     assert int(got["line_search_trials"]) == int(ref["line_search_trials"])
 
 
@@ -815,6 +840,22 @@ def test_smem_formulas_match_the_sources(cuda_device):
         lib = build.load(name)
         for dims in shapes:
             build.check_smem(lib, name, dims, mod.smem(*dims))
+    # the whole-solve APG kernel's variants: each phase's shared memory
+    # (apg_solve_sweep_smem) as apg_solve.sweep_smem computes it
+    import ctypes
+    fn = build.load("apg_solve").apg_solve_sweep_smem
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
+    for dims in shapes + [(152, 25, 63, 114, 97), (6, 27, 5, 9, 7)]:
+        for C, Cp in ((1, 1), (2, 8), (5, 4), (8, 8), (3, 2)):
+            for staged in range(8):
+                st = tuple(bool(staged >> j & 1) for j in range(3))
+                v = {"cluster": C, "prefix_cluster": Cp,
+                     "staged": dict(zip(apg_solve.SWEEP_PHASES, st))}
+                want = apg_solve.sweep_smem(*dims, C, Cp, st)
+                got = {ph: fn(*dims, apg_solve.encode(v), j)
+                       for j, ph in enumerate(apg_solve.SWEEP_PHASES)}
+                assert got == want, (dims, v)
 
 
 @pytest.mark.cuda
@@ -1391,3 +1432,135 @@ def test_qn_bf16_history(cuda_device, algorithm):
     for k in ("control", "u", "x", "primal_infeasibility", "value_fbe",
               "tau"):
         assert torch.equal(b1[k][0], got[k]), k
+
+
+# The whole-solve APG kernel's variants: slot clusters of C CTAs, prefix
+# clusters of Cp, staged or unstaged matrices per phase.  Every variant
+# keeps every sum in the order of the one-block design (C = Cp = 1,
+# unstaged), so each equals it bit for bit.  Small penalties make the
+# global shrinks act, so the norm partials' order shows in the outputs.
+BARCELONA = dict(branching=(5, 5), N=24, widths=(63, 114, 88, 17))
+BRANCHY = dict(branching=(3, 2, 2), N=8, widths=(4, 7, 3, 2))
+ONE_BLOCK = 0x110       # apg_solve.encode: C = Cp = 1, nothing staged
+VARIANT_ITERS = 40
+
+
+def _variant_case(device, case, penalised):
+    from rapidnet_tpu_torch.ops import apg_solve as K
+
+    fa, prefix, step, kw = _stream_problem(
+        device, x0_scale=1.2, max_iterations=VARIANT_ITERS,
+        **{"barcelona": BARCELONA, "branchy": BRANCHY}[case])
+    if penalised:
+        kw = dict(kw, penalty_state=1e-3, penalty_safety=1e-3)
+    kc = K.kernel_constants(fa, prefix_stages=prefix,
+                            max_iterations=VARIANT_ITERS)
+    return kc, step, kw
+
+
+def _assert_same_solve(got, ref):
+    """The kernel's outputs equal bit for bit (what every launch returns:
+    the wrappers add the clamped control)."""
+    for k in ("u", "x", "primal_infeasibility", "iterations"):
+        assert torch.equal(got[k], ref[k]), k
+    for k in ("xi", "psi"):
+        assert torch.equal(got["y"][k], ref["y"][k]), k
+
+
+def _limits():
+    props = torch.cuda.get_device_properties(0)
+    return dict(sm_count=props.multi_processor_count,
+                smem_limit=props.shared_memory_per_block_optin,
+                smem_per_sm=getattr(props, "shared_memory_per_multiprocessor",
+                                    233472))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("penalised", [False, True],
+                         ids=["nominal", "shrinking"])
+@pytest.mark.parametrize("case", ["barcelona", "branchy"])
+def test_apg_variants_equal_the_one_block_variant(cuda_device, case,
+                                                  penalised):
+    """The variant the source picks (at Barcelona scale clustered and
+    staged), a few forced ones and the one-block variant give the same
+    bits, single and at B = 1 of the batched entry; the branchy tree has
+    fp >= 2 prefix stages."""
+    from rapidnet_tpu_torch.ops import apg_solve as K
+
+    kc, step, kw = _variant_case(cuda_device, case, penalised)
+    assert kc["fp"] >= 2
+    dims = (*kc["fa"]["d1"].shape, kc["fa"]["g"].shape[-1],
+            kc["iWT"].shape[0])
+    picked = K.variant(*dims, 1)
+    if case == "barcelona":
+        assert picked["cluster"] > 1 and picked["prefix_cluster"] > 1
+        assert all(picked["staged"].values()), picked
+    single = K.apg_solve(kc, step, None, **kw)
+    one = {k: v[None] for k, v in step.items()}
+    for code in (ONE_BLOCK, K.encode(picked), 0x827, 0x457, 0x282):
+        got = _instance(K.solve_as(kc, one, None, code=code, **kw), 0)
+        _assert_same_solve(got, single)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", ["N152", "ns181"])
+def test_apg_gate_edge_takes_the_exported_variant(cuda_device, edge):
+    """A tree at the gate's edge (Barcelona widths, N = 152 or ns = 181)
+    launches, takes the variant the export names, which is
+    ``apg_solve.pick``'s for this card, and equals the one-block
+    variant bit for bit."""
+    from rapidnet_tpu_torch.ops import apg_solve as K
+
+    shape = (dict(branching=(5, 5), N=152) if edge == "N152" else
+             dict(branching=(181,), N=4))
+    fa, prefix, step, kw = _stream_problem(
+        cuda_device, x0_scale=0.3, widths=(63, 114, 88, 17),
+        max_iterations=2, **shape)
+    kc = K.kernel_constants(fa, prefix_stages=prefix, max_iterations=2)
+    dims = (*fa["d1"].shape, fa["g"].shape[-1], kc["iWT"].shape[0])
+    assert K.fits(*dims) and K.smem(*dims) > 200 * 1024
+    picked = K.variant(*dims, 1)
+    assert picked == K.pick(*dims, 1, **_limits())
+    got = K.apg_solve(kc, step, None, **kw)
+    assert bool(torch.isfinite(got["u"]).all())
+    one = {k: v[None] for k, v in step.items()}
+    _assert_same_solve(_instance(K.solve_as(kc, one, None, code=ONE_BLOCK,
+                                       **kw), 0), got)
+
+
+@pytest.mark.cuda
+def test_apg_variant_export_matches_the_pick_rule(cuda_device):
+    """``apg_solve.variant`` (the source's pick on this card) equals
+    ``apg_solve.pick`` (the rule written out) for single and batched
+    launches over a range of trees."""
+    from rapidnet_tpu_torch.ops import apg_solve as K
+
+    lim = _limits()
+    for dims in [(24, 25, 63, 114, 97), (24, 181, 63, 114, 97),
+                 (152, 25, 63, 114, 97), (8, 12, 4, 7, 5),
+                 (6, 4, 4, 7, 5), (48, 40, 63, 114, 97)]:
+        for B in (1, 2, 7, 32):
+            assert K.variant(*dims, B) == K.pick(*dims, B, **lim), (dims, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [None, 3])
+def test_apg_instrumented_build_equals_the_plain_build(cuda_device, batch):
+    """The clock64 build (apg_solve.CLOCK_DEFINES) adds barriers and
+    nothing else: its outputs equal the plain build's bit for bit, and it
+    reports cycles for the parts every phase runs."""
+    from rapidnet_tpu_torch.ops import apg_solve as K
+
+    kc, step, kw = _variant_case(cuda_device, "barcelona", True)
+    if batch:
+        step = {k: torch.stack([v] * batch) for k, v in step.items()}
+        plain = K.apg_solve_batch(kc, step, None, **kw)
+    else:
+        plain = K.apg_solve(kc, step, None, **kw)
+    spans = K.phase_spans(kc, step, None, batch=batch, **kw)
+    _assert_same_solve(spans["out"], plain)
+    cycles = spans["cycles"]
+    for part in ("tail.elementwise", "tail.L", "tail.BbT", "prefix.BbT",
+                 "prefix.children", "forward.iW", "forward.LT",
+                 "forward.BT", "forward.prox", "dual.update"):
+        assert cycles[part] > 0, (part, cycles)
