@@ -192,7 +192,10 @@ config 5, L-BFGS buffer 5, 500 iterations:
 
 19. one S1 and one S2 pass in each variant (solve step, Hessian oracle)
     from the duals of phase 15's stressed state, within PASS_FACTOR *
-    max(|plain|, 1) of ``s1_plain`` / ``s2_plain``; one dots and one
+    max(|plain|, 1) of ``s1_plain`` / ``s2_plain``, and the kernels'
+    variant (``stream_qn.staged``: staged at config 5, matrices and a
+    stage's operands in shared memory); with ``--reference-kernel DIR``,
+    both passes equal to DIR's ``stream_qn.cu`` bit for bit; one dots and one
     combine pass over a full history (seeded, column 0 zero) in float32
     and in bfloat16 storage, the dots within 1e-5 of the rep-weighted sum
     of the products' magnitudes, combine within 1e-6 * max(|plain|, 1);
@@ -221,7 +224,9 @@ config 5, L-BFGS buffer 5, 500 iterations:
     the idle share
     (``torch.profiler``, a PROFILE_ITER-iteration solve), the bound; and
     each kernel's ms per call at the main path's shapes beside its plain
-    version's and its bound.
+    version's and its bound; with ``--reference-kernel DIR``, S1's and
+    S2's ms per call and an FBE solve of STREAM_QN_AB_ITER iterations
+    (cut from 500) on DIR's ``stream_qn.cu`` and this one in turns.
 
 Then the scenario-sharded streaming solves (``ops/apg_stream_sharded.py``,
 ``solver/qn_stream.py`` with ``mesh=``; the per-shard K1/K2 and S1/S2 of
@@ -262,7 +267,10 @@ every phase; rank 0 prints:
     iteration of each kernel and of the glue, host µs in the collectives,
     idle share), each sharded kernel's ms per pass on rank 0's block
     (rank 1 idle) beside its plain half's and its bound, the peak memory
-    of each rank.
+    of each rank; with ``--reference-kernel DIR``, the sharded S1
+    (``s1a_call``) and S2 on rank 0's block equal to DIR's
+    ``stream_qn.cu`` bit for bit (solve step and oracle), and their ms
+    per pass on both sources in turns.
 
 Then this slice's kernels and its main path:
 
@@ -343,7 +351,8 @@ FP32_FLOPS = 67e12    # H100 SXM, FP32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 KERNELS = ("apg_solve", "qn_solve", "apg_stream", "stream_qn",
            "lbfgs", "stream_sharded")       # sources under csrc/
-REFERENCE_KERNELS = ("apg_solve", "qn_solve", "apg_stream")   # the solves
+REFERENCE_KERNELS = ("apg_solve", "qn_solve", "apg_stream",   # the solves
+                     "stream_qn")                              # and sweeps
                                             # --reference-kernel holds
 BARCELONA_BRANCHING = (5, 5)        # bench.py:42-65: 556 nodes, ns 25
 CONFIG5_BRANCHING = (8, 8, 4, 4)    # BASELINE config 5 (bench_ladder.py:47):
@@ -374,6 +383,8 @@ STREAM_QN_LOOP_STEPS = 3   # phase 21's streaming QN loops (cut from 4 to
 STREAM_QN_REPEATS = 3      # phase 22's timed solves per algorithm and
                            # history storage (cut from REPEATS = 7)
 PROFILE_ITER = 50     # phase 22's profiled solves
+STREAM_QN_AB_ITER = 200    # phase 22 with --reference-kernel: the FBE
+                           # solve's iterations in turns (cut from 500)
 PROFILE_TRIES = 3     # phase 28's traced solves at most
 PLAIN_INSTANCES = 4   # phase 12b-c: the instances held to the plain batch
 APG_AB_SOLVES = 4     # phase 5 with --reference-kernel: solves a turn
@@ -657,6 +668,19 @@ def in_turns(tag, runs, per_turn):
         print(f"[phase] {tag} {which}: device us an iteration over "
               f"{PROFILE_ITER} iterations: {shown}")
     return med
+
+
+def source_runs(ref_libs, name, fn):
+    """``in_turns``' runs of n calls of fn(): on the reference source's
+    ``name`` kernels (--reference-kernel) and on this checkout's."""
+    def these(n):
+        for _ in range(n):
+            fn()
+
+    def reference(n):
+        with reference_kernel(ref_libs, name):
+            these(n)
+    return {"reference": reference, "these": these}
 
 
 def qn_solve_bound(kq, step, out, algorithm, prefix_stages):
@@ -2177,12 +2201,14 @@ def tracking(tag, kern, plain, min_track, label="stream_qn"):
     return check_allclose(f"{tag}.u", k_t["u"], p_t["u"], 0.0, u_atol)
 
 
-def stream_qn_phases(device, problem, kq_b, kc_b, step_b, hyper_b):
+def stream_qn_phases(ref_libs, device, problem, kq_b, kc_b, step_b,
+                     hyper_b):
     """Phases 19-22, the streaming FBE/NAMA path at BASELINE config 5
     (``problem``, phase 15's), and in 20 on the Barcelona problem against
     the whole-solve QN kernel (its constants ``kq_b``, the streaming
-    constants' source ``kc_b``); returns the JSON entries of S1, S2 and
-    the history passes."""
+    constants' source ``kc_b``); ``ref_libs``: the kernels of an earlier
+    checkout (``--reference-kernel``) or None.  Returns the JSON entries
+    of S1, S2 and the history passes."""
     import numpy as np
     import torch
     from rapidnet_tpu_torch.ops import apg_stream as S
@@ -2212,15 +2238,34 @@ def stream_qn_phases(device, problem, kq_b, kc_b, step_b, hyper_b):
               False: ((), ())}
     v_in = SQ.s1_plain(kc, w, step_hot["beta"])
     del ps
+    variant = SQ.staged(N, ns, nx, nu, nv)
+    print(f"[stream_qn] 19: the source picks S1 "
+          f"{'staged' if variant['s1'] else 'unstaged'}, S2 "
+          f"{'staged' if variant['s2'] else 'unstaged'} (staged: "
+          f"{variant['s1_smem']} and {variant['s2_smem']} bytes; "
+          f"stream_qn_staged)")
+    if not (variant["s1"] and variant["s2"]):
+        raise SmokeFailure(f"19: config 5 should stage S1 and S2: {variant}")
     for aff, (a1, a2) in affine.items():
         label = "solve" if aff else "oracle"
+        got_v = SQ.s1_call(kc, w, *a1)
         errs[f"S1.{label}"] = check_close(
-            f"19.s1.{label}.v", SQ.s1_call(kc, w, *a1),
-            SQ.s1_plain(kc, w, *a1), PASS_FACTOR)
+            f"19.s1.{label}.v", got_v, SQ.s1_plain(kc, w, *a1), PASS_FACTOR)
         got, ref = SQ.s2_call(kc, v_in, *a2), SQ.s2_plain(kc, v_in, *a2)
         errs[f"S2.{label}"] = max(
             check_close(f"19.s2.{label}.{name}", g, r, PASS_FACTOR)
             for name, g, r in zip(("x", "u", "images"), got, ref))
+        if ref_libs is not None:
+            with reference_kernel(ref_libs, "stream_qn"):
+                ref_v = SQ.s1_call(kc, w, *a1)
+                ref_s2 = SQ.s2_call(kc, v_in, *a2)
+            same = torch.equal(got_v, ref_v) and all(
+                torch.equal(g, r) for g, r in zip(got, ref_s2))
+            print(f"[stream_qn] 19.{label}: S1 and S2 equal to the "
+                  f"reference source's bit for bit: {same}")
+            if not same:
+                raise SmokeFailure(f"19.{label}: S1/S2 differ from the "
+                                   "reference source's")
     gen = torch.Generator().manual_seed(19)
 
     def seeded(*shape):
@@ -2498,6 +2543,16 @@ def stream_qn_phases(device, problem, kq_b, kc_b, step_b, hyper_b):
 
     entries = []
     src = "rapidnet_tpu_torch/csrc/stream_qn.cu"
+    if ref_libs is not None:
+        fbe = QN_ALGORITHMS["fbe"]
+
+        def ref_solve(n):
+            with reference_kernel(ref_libs, "stream_qn"):
+                return solver(fbe, min(n, STREAM_QN_AB_ITER))(step)
+        in_turns(f"22.fbe {STREAM_QN_AB_ITER}-iteration solve", {
+            "reference": ref_solve,
+            "these": lambda n: solver(fbe, min(n, STREAM_QN_AB_ITER))(step)},
+            1)
     for name, call, plain, key, line in (
             ("S1", SQ.s1_call, SQ.s1_plain, "stream_qn.s1",
              "rapidnet_tpu/ops/pallas_stream_qn.py:79"),
@@ -2505,6 +2560,15 @@ def stream_qn_phases(device, problem, kq_b, kc_b, step_b, hyper_b):
              "rapidnet_tpu/ops/pallas_stream_qn.py:129")):
         ms = event_ms(sweep_mix(call, name), reps) / 3
         p_ms = event_ms(sweep_mix(plain, name), 2) / 3
+        if ref_libs is not None:
+            med = in_turns(f"22.{name}, {MAX_ITER} rounds of one solve "
+                           "step and two oracles,", source_runs(
+                               ref_libs, "stream_qn", sweep_mix(call, name)),
+                           1)
+            print(f"[timing] {name} in turns: these "
+                  f"{med['these'] / (3 * MAX_ITER):.6f} ms per call, the "
+                  f"reference source's "
+                  f"{med['reference'] / (3 * MAX_ITER):.6f} ms")
         flops, b_aff, b_orc = work[name]
         b_ms = (bound_of(flops, b_aff)[0] + 2 * bound_of(flops, b_orc)[0]) / 3
         by = bound_of(flops, b_orc)[1]
@@ -2516,7 +2580,9 @@ def stream_qn_phases(device, problem, kq_b, kc_b, step_b, hyper_b):
             "launches": launches[key],
             "max_abs_err": max(errs[f"{name}.solve"], errs[f"{name}.oracle"]),
             "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None})
+            "library_ms": None,
+            "variant": ("staged" if variant[name.lower()] else
+                        "unstaged")})
     for dtype in LB.STORAGE:
         name = str(dtype).split(".")[-1]
         mat_s, mat_y, s, yv, g, coef = hist[dtype]
@@ -2644,12 +2710,13 @@ def mesh_profile(run, n_it, names):
     return out
 
 
-def mesh_phases(mesh):
+def mesh_phases(mesh, ref_path=None):
     """Phases 23-27 on this rank of a two-rank mesh on card 0 (every rank
     runs them; rank 0 prints and reports): the sharded streaming APG and
-    FBE/NAMA solves at BASELINE config 5.  Returns (the JSON entries of
-    the sharded kernels, the counts of phase 26's main-path runs, this
-    rank's peak memory)."""
+    FBE/NAMA solves at BASELINE config 5; ``ref_path``: the library of an
+    earlier checkout's ``stream_qn.cu`` (``--reference-kernel``) or None.
+    Returns (the JSON entries of the sharded kernels, the counts of phase
+    26's main-path runs, this rank's peak memory)."""
     import numpy as np
     import torch
     from rapidnet_tpu_torch.engine.engine import XS_UPPER
@@ -3090,6 +3157,11 @@ def mesh_phases(mesh):
          lambda: SQ.s2_call(kc, v_t, stl["uhat"], stl["e"], stl["x0"], pdu),
          lambda: SQ.s2_plain(kc, v_t, stl["uhat"], stl["e"], stl["x0"],
                              pdu), work["s2"][:2]))
+    variant = SQ.staged(*SQ.dims(kc))
+    kinds = {"stream_qn.s1a": "s1", "stream_qn.s2.sharded": "s2"}
+    if ref_path is not None:
+        sweeps_against_reference(mesh, kc, w, v_t, stl, pdu, rows,
+                                 {"stream_qn": ctypes.CDLL(ref_path)})
     entries = []
     for key, src, line, counted, err, call, plain, (flops, nbytes) in rows:
         mesh.barrier()
@@ -3108,6 +3180,9 @@ def mesh_phases(mesh):
                         "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
                         "bound_ms": b_ms, "bound_by": by,
                         "library_ms": None})
+        if key in kinds:
+            entries[-1]["variant"] = ("staged" if variant[kinds[key]] else
+                                      "unstaged")
     # the bound of one sharded solve: both ranks' blocks on the one card
     b1 = stream_bound(kc1, step, out, MAX_ITER)
     print(f"[bound] sharded APG solve, both ranks' work on one card: "
@@ -3116,10 +3191,50 @@ def mesh_phases(mesh):
     return entries, counts, torch.cuda.max_memory_allocated()
 
 
-def mesh_rank(rank, init, results):
+def sweeps_against_reference(mesh, kc, w, v, stl, pdu, rows, ref_libs):
+    """Phase 27 with ``--reference-kernel``, on every rank: the sharded
+    S1 (``s1a_call``, with its all-reduce and root-side stages) and S2 on
+    this rank's block, solve step and oracle, equal to the reference
+    source's bit for bit; then rank 0 times the per-pass calls of
+    ``rows`` (phase 27's S1 and S2 on its block) on both sources in turns
+    (``in_turns``; rank 1 idle)."""
+    import torch
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+    g = torch.Generator().manual_seed(27)
+    w = (w + torch.randn(w.shape, generator=g).to(w.device)).contiguous()
+    v = (v + torch.randn(v.shape, generator=g).to(v.device)).contiguous()
+    for label, beta, aff in (
+            ("solve", stl["beta"], (stl["uhat"], stl["e"], stl["x0"], pdu)),
+            ("oracle", None, ())):
+        got = (SQ.s1a_call(kc, w, mesh, beta),) + SQ.s2_call(kc, v, *aff)
+        with reference_kernel(ref_libs, "stream_qn"):
+            ref = (SQ.s1a_call(kc, w, mesh, beta),) + SQ.s2_call(kc, v, *aff)
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        print(f"[mesh] 27.{label}: the sharded S1 and S2 on rank "
+              f"{mesh.rank}'s block equal to the reference source's bit "
+              f"for bit: {same}")
+        if not same:
+            raise SmokeFailure(f"27.{label}: the sharded S1/S2 differ from "
+                               "the reference source's")
+    for key, _, _, _, _, call, _, _ in rows:
+        if not key.startswith("stream_qn"):
+            continue
+        mesh.barrier()
+        if mesh.rank == 0:
+            med = in_turns(f"27.{key}, {MAX_ITER} passes on rank 0's block,",
+                           source_runs(ref_libs, "stream_qn", call), 1)
+            print(f"[timing] {key} in turns: these "
+                  f"{med['these'] / MAX_ITER:.6f} ms per pass on rank 0's "
+                  f"block, the reference source's "
+                  f"{med['reference'] / MAX_ITER:.6f} ms")
+        mesh.barrier()
+
+
+def mesh_rank(rank, init, results, ref_path):
     """One rank of phases 23-27 (a process of its own): joins the gloo
     group, puts (rank, outcome) on ``results``.  Rank 1's output goes to
-    /dev/null; both ranks run every phase."""
+    /dev/null; both ranks run every phase; ``ref_path`` as
+    ``mesh_phases``'."""
     import os
     import traceback
     import torch
@@ -3134,17 +3249,19 @@ def mesh_rank(rank, init, results):
         distributed.initialize(backend="gloo", init_method=f"file://{init}",
                                rank=rank, world_size=MESH_RANKS)
         mesh = make_mesh(MESH_RANKS, devices=["cuda:0"] * MESH_RANKS)
-        results.put((rank, mesh_phases(mesh)))
+        results.put((rank, mesh_phases(mesh, ref_path)))
         mesh.barrier()
         torch.distributed.destroy_process_group()
     except BaseException:
         results.put((rank, traceback.format_exc()))
 
 
-def run_mesh_phases():
+def run_mesh_phases(ref_path=None):
     """Phases 23-27: MESH_RANKS processes (spawned: this one has
     initialised CUDA) share card 0 over a gloo group; returns rank 0's
-    entries.  Every process started is stopped."""
+    entries.  ``ref_path``: the library of the reference source's
+    ``stream_qn.cu``, which the ranks load (``--reference-kernel``), or
+    None.  Every process started is stopped."""
     import multiprocessing as mp
     import queue
     import tempfile
@@ -3156,7 +3273,7 @@ def run_mesh_phases():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     init = f"{tmp}/store"
     procs = [ctx.Process(target=mesh_rank,
-                         args=(r, init, results))
+                         args=(r, init, results, ref_path))
              for r in range(MESH_RANKS)]
     out = {}
     try:
@@ -3576,14 +3693,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reference-kernel", default=None, metavar="DIR",
                     help="the csrc directory of an earlier checkout: "
-                         "phases 6c, 15 and 16 also hold the single APG "
-                         "solve, one K1 and one K2 pass and the streaming "
-                         "APG solve to its kernels bit for bit, 12a the "
-                         "single FBE and NAMA solves by TRACK and tail, "
-                         "and phases 5, 8, 11, 14 and 18 time its APG "
-                         "solve, B = 32 APG call, QN solves, B = 32 QN "
-                         "calls and streaming solve in turns with this "
-                         "checkout's")
+                         "phases 6c, 15, 16, 19 and 27 also hold the "
+                         "single APG solve, one K1 and one K2 pass, the "
+                         "streaming APG solve and S1/S2 (single and on a "
+                         "rank's block) to its kernels bit for bit, 12a "
+                         "the single FBE and NAMA solves by TRACK and "
+                         "tail, and phases 5, 8, 11, 14, 18, 22 and 27 "
+                         "time its APG solve, B = 32 APG call, QN solves, "
+                         "B = 32 QN calls, streaming solve, S1/S2 and an "
+                         "FBE solve in turns with this checkout's")
     args = ap.parse_args()
     import torch
 
@@ -3663,11 +3781,12 @@ def main() -> int:
     stream_plain_ms = entry["plain_ms"]
     lap("15-18")
     from rapidnet_tpu_torch.ops import qn_solve as Q
-    entries += stream_qn_phases(device, problem5,
+    entries += stream_qn_phases(ref_libs, device, problem5,
                                 Q.kernel_constants(fa, prefix_stages=prefix),
                                 kc, step_b, hyper)
     lap("19-22")
-    entries += run_mesh_phases()
+    entries += run_mesh_phases(
+        None if ref_libs is None else ref_libs["stream_qn"]._name)
     lap("23-27")
     fused = fused_phases(problem5, stream_plain_ms)
     lap("28")

@@ -2,8 +2,9 @@
 """Where the time of one solve kernel call goes, on one GPU.
 
     python3 profile_solve.py [--algorithm apg|fbe|nama] [--iterations 500]
-                             [--batch B] [--stream] [--spans] [--sweep]
-                             [--lbfgs-dtype D] [--out profile_out]
+                             [--batch B] [--stream [--branching 8,8,4,4]]
+                             [--spans] [--sweep] [--lbfgs-dtype D]
+                             [--out profile_out]
 
 Builds the Barcelona-scale problem of ``chip_smoke.py``, warms the
 algorithm's whole-solve kernel up (APG: ``csrc/apg_solve.cu``; FBE and
@@ -12,11 +13,11 @@ prints, for one solve or, with ``--batch B``, one batched call of B
 solves (states x0 * (1 + 0.02 N(0, 1)), numpy seed 7, assembled on the
 device from the shared base), or, with ``--stream``, one solve of the
 streaming path at BASELINE config 5 (the same widths over branching
-[8, 8, 4, 4]: 1024 scenarios): APG through ``csrc/apg_stream.cu``, FBE
-and NAMA through ``solver/qn_stream.py`` (the sweeps of
-``csrc/stream_qn.cu``, the history passes of ``csrc/lbfgs.cu`` with the
-history in ``--lbfgs-dtype``, float32 or bfloat16, and the PyTorch glue
-between them):
+[8, 8, 4, 4]: 1024 scenarios, or over ``--branching``): APG through
+``csrc/apg_stream.cu``, FBE and NAMA through ``solver/qn_stream.py``
+(the sweeps of ``csrc/stream_qn.cu``, the history passes of
+``csrc/lbfgs.cu`` with the history in ``--lbfgs-dtype``, float32 or
+bfloat16, and the PyTorch glue between them):
 
 * the CUDA-event time of one call and the host's time to enqueue it;
 * per phase kernel, its launches and its device µs per iteration
@@ -31,6 +32,10 @@ between them):
   iterations), the SM cycles of each part per block and stage (the
   launches' start and end parts per block and pass) and their µs at
   the card's maximum SM clock;
+* with ``--stream --spans --algorithm fbe|nama``, the same for the
+  sweeps: one S1 and one S2 pass of ``csrc/stream_qn.cu``'s instrumented
+  build (``stream_qn.sweep_spans``, the solve step and the Hessian
+  oracle, from the duals after two plain APG iterations);
 * with ``--spans`` (APG, single or ``--batch B``), where a block of the
   whole-solve kernel spends its time: one call of ``csrc/apg_solve.cu``'s
   instrumented build (``-DAPG_SOLVE_CLOCK``, ``apg_solve.phase_spans``),
@@ -77,14 +82,18 @@ def main() -> int:
                          "(0: one single solve)")
     ap.add_argument("--stream", action="store_true",
                     help="the streaming solve at BASELINE config 5")
+    ap.add_argument("--branching", default=None,
+                    help="--stream: the tree's branching, comma-separated "
+                         "(default: config 5's, 8,8,4,4)")
     ap.add_argument("--lbfgs-dtype", default="float32",
                     choices=["float32", "bfloat16"],
                     help="--stream with FBE or NAMA: the L-BFGS history's "
                          "storage")
     ap.add_argument("--spans", action="store_true",
-                    help="APG: the SM cycles of each part of a block (the "
-                         "instrumented build; with --stream a K1/K2 "
-                         "stage's)")
+                    help="the SM cycles of each part of a block (the "
+                         "instrumented build): APG, or with --stream a "
+                         "K1/K2 stage's (APG) or an S1/S2 stage's (FBE, "
+                         "NAMA)")
     ap.add_argument("--sweep", action="store_true",
                     help="APG whole solve: time the variants (cluster "
                          "sizes, staging) in turns")
@@ -93,8 +102,11 @@ def main() -> int:
     algorithm = ALGORITHMS[args.algorithm]
     if args.stream and args.batch:
         ap.error("--stream runs one solve")
-    if args.spans and algorithm is not None:
-        ap.error("--spans times the APG kernels")
+    if args.branching is not None and not args.stream:
+        ap.error("--branching shapes the streaming solve's tree")
+    if args.spans and algorithm is not None and not args.stream:
+        ap.error("--spans times the APG kernels, or with --stream the "
+                 "streaming kernels")
     if args.sweep and (algorithm is not None or args.stream):
         ap.error("--sweep times the whole-solve APG kernel's variants")
 
@@ -117,8 +129,10 @@ def main() -> int:
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     device = torch.device("cuda", 0)
+    branching = (tuple(int(b) for b in args.branching.split(","))
+                 if args.branching else CONFIG5_BRANCHING)
     cfg, eng, net, tree, fa, make_step, make_batch = build_problem(
-        device, CONFIG5_BRANCHING if args.stream else BARCELONA_BRANCHING)
+        device, branching if args.stream else BARCELONA_BRANCHING)
     hyper = dict(inv_step=1.0 / cfg.step_size, step_size=cfg.step_size,
                  penalty_state=cfg.penalty_state,
                  penalty_safety=cfg.penalty_safety,
@@ -166,6 +180,8 @@ def main() -> int:
     torch.cuda.synchronize()
 
     summary = {"algorithm": args.algorithm, "iterations": n_it,
+               "branching": list(branching if args.stream
+                                 else BARCELONA_BRANCHING),
                "batch": args.batch, "stream": args.stream,
                "lbfgs_dtype": args.lbfgs_dtype,
                "scenarios": tree.ns, "solves": []}
@@ -250,14 +266,36 @@ def main() -> int:
     summary["card"] = smi.splitlines()[0]
     if args.spans:
         mhz = float(summary["card"].split(",")[-1].split()[0])
-        summary["spans"] = (stage_split(S, kc, step, hyper, mhz)
-                            if args.stream else
-                            phase_split(K, kc, step, hyper, args.batch, mhz))
+        if args.stream and algorithm is not None:
+            summary["spans"] = sweep_split(S, kc, step, hyper, mhz)
+        elif args.stream:
+            summary["spans"] = stage_split(S, kc, step, hyper, mhz)
+        else:
+            summary["spans"] = phase_split(K, kc, step, hyper, args.batch,
+                                           mhz)
     if args.sweep:
         summary["sweep"] = variant_sweep(K, kc, step, hyper, args.batch)
     print(summary["card"])
     (out_dir / "summary.json").write_text(json.dumps(summary, indent=1))
     return 0
+
+
+def per_block(cycles, per_pass, N, nb, mhz, label=""):
+    """Print and return each part's SM cycles (summed over nb blocks and
+    a pass's launches) per block and stage, or, for the parts of
+    ``per_pass`` (part -> launches a pass), per block and launch, with
+    their µs at ``mhz``, the card's maximum SM clock."""
+    split = {}
+    for part, cyc in cycles.items():
+        n = per_pass.get(part, N)
+        per = cyc / nb / n
+        split[part] = {"cycles": per, "us": per / mhz,
+                       "per": "launch" if part in per_pass and n > 1 else
+                       "pass" if part in per_pass else "stage"}
+        print(f"[span] {label}{part:9s} {per:10.1f} cycles a block per "
+              f"{split[part]['per']}, {per / mhz:8.3f} us at {mhz:g} MHz "
+              f"(x{n} a pass: {per * n / mhz:8.3f} us)")
+    return split
 
 
 def stage_split(S, kc, step, hyper, mhz):
@@ -269,19 +307,33 @@ def stage_split(S, kc, step, hyper, mhz):
                         (lams[1], lams[2], 1.0, st["k1f"], st["k2f"]),
                         **hyper)
     N, ns = kc["sq"].shape
-    nb = -(-ns // S.TILE)
     per_pass = {"k1_start": len(kc["ranges"]), "k1_end": len(kc["ranges"]),
                 "k2_end": 1}
+    return per_block(out["cycles"], per_pass, N, -(-ns // S.TILE), mhz)
+
+
+def sweep_split(S, kc, step, hyper, mhz):
+    """Print and return the per-part split of one S1 and one S2 pass of
+    ``csrc/stream_qn.cu``'s instrumented build at ``mhz``, the card's
+    maximum SM clock, for the solve step and the Hessian oracle, with the
+    variant each pass took (``stream_qn.staged``)."""
+    import torch
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+    st = S.plain_iterations(kc, step, iterations=2, **hyper)
+    w = torch.cat([st["y"]["xi"], st["y"]["psi"]], dim=-1).contiguous()
+    pdu = (step["prev_u"] - step["prev_uhat"]).contiguous()
+    N, ns = kc["sq"].shape
+    per_pass = {"s1_start": len(kc["ranges"]), "s1_end": len(kc["ranges"]),
+                "s2_start": 1}
     split = {}
-    for part, cyc in out["cycles"].items():
-        n = per_pass.get(part, N)
-        per = cyc / nb / n
-        split[part] = {"cycles": per, "us": per / mhz,
-                       "per": "launch" if part in per_pass and n > 1 else
-                       "pass" if part in per_pass else "stage"}
-        print(f"[span] {part:9s} {per:10.1f} cycles a block per "
-              f"{split[part]['per']}, {per / mhz:8.3f} us at {mhz:g} MHz "
-              f"(x{n} a pass: {per * n / mhz:8.3f} us)")
+    for label, a1, a2 in (("solve", (step["beta"],),
+                           (step["uhat"], step["e"], step["x0"], pdu)),
+                          ("oracle", (), ())):
+        got = SQ.sweep_spans(kc, w, *a1, *a2)
+        split[label] = per_block(got["cycles"], per_pass, N,
+                                 -(-ns // SQ.TILE), mhz, f"{label:6s} ")
+    split["staged"] = SQ.staged(*SQ.dims(kc))
+    print(f"[span] variants (stream_qn_staged): {split['staged']}")
     return split
 
 

@@ -28,7 +28,17 @@ and the prefix handoffs as index lists, the stage ranges).
 ``s1_call`` and ``s2_call`` are the wrappers: on CPU tensors they run
 ``s1_plain`` and ``s2_plain``; on CUDA tensors they launch the kernels or
 raise.  ``s1_call.launches`` and ``s2_call.launches`` count the passes
-they launched (S1 launches one kernel per range of stages).
+they launched (S1 launches one kernel per range of stages).  Each kernel
+has two variants of the same stage bodies, which the source's C entry
+picks from the sizes and the device: staged (the shared matrices and
+each stage's operands copied into shared memory by the copy engine, a
+stage ahead) where that fits, else unstaged (read from device memory).
+``stream_fits`` is the unstaged variants' limit and ``staged`` reads the
+pick and the staged variants' shared memory from the source.
+``sweep_spans`` runs one S1 and one S2 pass of the instrumented build
+(``CLOCK_DEFINES``) and reads the SM cycles of each part of a block's
+stage.  Their times on an H100 are in PERF.md section 6 (chip_smoke.py
+phases 22 and 27, profile_solve.py --stream --spans --algorithm fbe).
 
 On a scenario mesh (``make_sharded_sweeps`` of
 ``rapidnet_tpu/ops/pallas_stream_sharded.py``, :799-1029) each rank runs
@@ -55,6 +65,11 @@ from rapidnet_tpu_torch.ops import build
 TILE = 8                 # scenario slots per block (csrc/stream_qn.cu)
 CONST_KEYS = ("cx1", "cx2", "cu", "sq", "nhp", "L", "BbT", "iWT", "LT",
               "BT") + S.INDEX_KEYS
+# the instrumented build (csrc/stream_qn.cu's Part, in its order): the
+# parts of a block's S1 and S2 stage whose SM cycles ``sweep_spans`` reads
+CLOCK_DEFINES = ("STREAM_QN_CLOCK",)
+SPAN_PARTS = ("s1_start", "s1_wait", "s1_pass", "BbT", "L", "iWT", "s1_end",
+              "s2_start", "s2_wait", "s2_load", "LT", "BT", "images")
 
 
 def smem(N: int, ns: int, nx: int, nu: int, nv: int) -> int:
@@ -66,11 +81,34 @@ def smem(N: int, ns: int, nx: int, nu: int, nv: int) -> int:
 
 def stream_fits(N: int, ns: int, nx: int, nu: int, nv: int,
                 smem_limit: int | None = None) -> bool:
-    """Whether S1/S2 take a tree of these sizes: their tiles' shared
-    memory within ``smem_limit`` (default: the current CUDA device's
-    opt-in limit per block)."""
+    """Whether S1/S2 take a tree of these sizes: their unstaged tiles'
+    shared memory within ``smem_limit`` (default: the current CUDA
+    device's opt-in limit per block).  A launch takes the staged variant
+    only where its larger shared memory fits, so this refuses no tree
+    either variant takes."""
     return ns >= 1 and N >= 1 and \
         smem(N, ns, nx, nu, nv) <= build.smem_optin(smem_limit)
+
+
+def staged(N: int, ns: int, nx: int, nu: int, nv: int) -> dict:
+    """Which variant S1 and S2 take at these sizes on the current CUDA
+    device, as the source's C entry chooses it (``stream_qn_staged``),
+    and the staged variants' dynamic shared memory in bytes
+    (``stream_qn_staged_smem``): {"s1": bool, "s2": bool, "s1_smem": int,
+    "s2_smem": int}."""
+    lib = build.load("stream_qn")
+    pick = lib.stream_qn_staged
+    pick.argtypes = [ctypes.c_int] * 5
+    pick.restype = ctypes.c_int
+    size = lib.stream_qn_staged_smem
+    size.argtypes = [ctypes.c_int] * 6
+    size.restype = ctypes.c_longlong
+    mask = pick(N, ns, nx, nu, nv)
+    if mask < 0:
+        raise RuntimeError(f"stream_qn_staged failed: error {-mask}")
+    return {"s1": bool(mask & 1), "s2": bool(mask & 2),
+            "s1_smem": size(N, ns, nx, nu, nv, 0),
+            "s2_smem": size(N, ns, nx, nu, nv, 1)}
 
 
 def dims(kc) -> tuple:
@@ -169,16 +207,18 @@ def _entry(lib):
 
 
 def _launch(kc, mode, affine, *, w=None, v, x=None, u=None, pr=None,
-            beta=None, uhat=None, e=None, x0=None, pdu=None, carry=None):
+            beta=None, uhat=None, e=None, x0=None, pdu=None, carry=None,
+            lib=None):
     """Enqueue one S1 (mode 1) or S2 (mode 2) pass on the current stream
     of the constants' device; S1's two carry buffers are ``carry`` (2, ns,
-    nx + nv) when given.  Raises on a refused launch."""
+    nx + nv) when given.  ``lib``: the library to launch (default: the
+    checkout's).  Raises on a refused launch."""
     N, ns, nx, nu, nv = dims(kc)
     if not stream_fits(N, ns, nx, nu, nv):
         raise ValueError(f"the streaming sweeps do not take this tree (N {N},"
                          f" ns {ns}, nx {nx}, nu {nu}, nv {nv})")
     dev = kc["sq"].device
-    lib = build.load("stream_qn")
+    lib = lib if lib is not None else build.load("stream_qn")
     fn = _entry(lib)
     build.check_smem(lib, "stream_qn", (N, ns, nx, nu, nv),
                      smem(N, ns, nx, nu, nv))
@@ -254,6 +294,41 @@ def s2_call(kc, v, uhat=None, e=None, x0=None, pdu=None):
 
 
 s2_call.launches = 0
+
+
+def sweep_spans(kc, w, beta=None, uhat=None, e=None, x0=None, pdu=None):
+    """One S1 pass (``w`` -> v) and one S2 pass from its v, of the
+    instrumented build (``CLOCK_DEFINES``) on CUDA tensors: the solve
+    step with ``beta`` and the S2 operands, the Hessian oracle without.
+    Returns v, S2's (x, u, images) and, under "cycles", the SM cycles of
+    each part of ``SPAN_PARTS`` summed over the blocks and the launches
+    of its pass.  A measurement, not the product path: its marks add
+    block barriers."""
+    import numpy as np
+    N, ns, nx, nu, nv = dims(kc)
+    dev = kc["sq"].device
+    lib = build.load("stream_qn", CLOCK_DEFINES)
+    lib.stream_qn_spans.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.stream_qn_spans.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * len(SPAN_PARTS))()
+
+    def read():
+        err = lib.stream_qn_spans(buf)
+        if err != 0:
+            raise RuntimeError(f"stream_qn_spans failed: error {err}")
+        return np.array(buf[:], dtype=np.int64)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    read()                               # zeroes what came before
+    v = empty(N, ns, nv)
+    _launch(kc, 1, beta is not None, w=w, v=v, beta=beta, lib=lib)
+    x, u, pr = empty(N, ns, nx), empty(N, ns, nu), empty(N, ns, 2 * nx + nu)
+    _launch(kc, 2, uhat is not None, v=v, x=x, u=u, pr=pr, uhat=uhat, e=e,
+            x0=x0, pdu=pdu, lib=lib)
+    return {"v": v, "s2": (x, u, pr),
+            "cycles": dict(zip(SPAN_PARTS, read().tolist()))}
 
 
 # ------------------------------------------------------ sharded sweeps

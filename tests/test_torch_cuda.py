@@ -1389,6 +1389,109 @@ def test_instrumented_build_equals_the_plain_build(cuda_device, variant):
     assert all(cycles[p] > 0 for p in S.SPAN_PARTS), cycles
 
 
+def _sweep_case(device, variant):
+    """The sweeps' inputs at a variant's widths: the dual triple after
+    three plain APG iterations, and per kind (solve step, oracle) S1's
+    and S2's affine operands."""
+    kc, step, kw, st, sc = _single_pass_case(device, variant)
+    w = torch.cat([st["y"]["xi"], st["y"]["psi"]], dim=-1).contiguous()
+    pdu = (step["prev_u"] - step["prev_uhat"]).contiguous()
+    kinds = {"solve": ((step["beta"],),
+                       (step["uhat"], step["e"], step["x0"], pdu)),
+             "oracle": ((), ())}
+    return kc, w, kinds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(STAGE_VARIANTS))
+def test_stream_qn_variant_passes_match_plain_halves(cuda_device, variant):
+    """One S1 and one S2 pass, solve step and oracle, of the variant the
+    source picks (``stream_qn.staged``: staged at config 5's widths,
+    unstaged past them) against ``s1_plain``/``s2_plain``."""
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+
+    kc, w, kinds = _sweep_case(cuda_device, variant)
+    picked = SQ.staged(*SQ.dims(kc))
+    want = variant == "staged"
+    assert picked["s1"] == want and picked["s2"] == want, picked
+    for a1, a2 in kinds.values():
+        v = SQ.s1_call(kc, w, *a1)
+        _held(v, SQ.s1_plain(kc, w, *a1))
+        for got, ref in zip(SQ.s2_call(kc, v, *a2), SQ.s2_plain(kc, v, *a2)):
+            _held(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(STAGE_VARIANTS))
+def test_stream_qn_instrumented_build_equals_the_plain_build(cuda_device,
+                                                             variant):
+    """The clock64 build of the sweeps (stream_qn.CLOCK_DEFINES) adds
+    barriers and nothing else: its S1 and S2 passes equal the plain
+    build's bit for bit, solve step and oracle, and it reports cycles for
+    every part its variant runs."""
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+
+    kc, w, kinds = _sweep_case(cuda_device, variant)
+    for a1, a2 in kinds.values():
+        spans = SQ.sweep_spans(kc, w, *a1, *a2)
+        v = SQ.s1_call(kc, w, *a1)
+        assert torch.equal(spans["v"], v)
+        for got, ref in zip(spans["s2"], SQ.s2_call(kc, v, *a2)):
+            assert torch.equal(got, ref)
+        cycles = spans["cycles"]
+        assert all(cycles[p] > 0 for p in SQ.SPAN_PARTS), cycles
+
+
+@pytest.mark.cuda
+def test_stream_qn_launches_at_the_gate_edge(cuda_device):
+    """A tree at the edge of ``stream_fits``: S2's tile takes the device's
+    whole opt-in shared memory per block (to the float column).  Neither
+    staged variant fits there, and the unstaged S1 and S2, of the plain
+    and of the instrumented build, launch (they ask for no shared memory
+    beyond the gate's formula) and hold their plain halves, solve step
+    and oracle."""
+    from rapidnet_tpu_torch.ops import apg_stream as S
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+
+    fa, prefix, _, _ = _stream_problem(cuda_device)
+    kc = dict(S.stream_constants(fa, prefix_stages=prefix,
+                                 max_iterations=ITERS))
+    optin = torch.cuda.get_device_properties(
+        cuda_device).shared_memory_per_block_optin
+    column = optin // (4 * SQ.TILE)        # floats of a slot's tile rows
+    nx = 4
+    nv = 6 + (column - 10) % 2
+    nu = (column - nx - nv) // 2           # 2 nu + nx + nv = column
+    N, ns = kc["sq"].shape
+    assert optin - 4 * SQ.TILE < SQ.smem(N, ns, nx, nu, nv) <= optin
+    assert SQ.stream_fits(N, ns, nx, nu, nv)
+    g = torch.Generator().manual_seed(13)
+
+    def rnd(*shape, fan=1):
+        return (torch.randn(shape, generator=g) / fan ** 0.5).to(cuda_device)
+
+    kc.update(cx1=rnd(N, nx), cx2=rnd(N, nx), cu=rnd(N, nu),
+              L=rnd(nu, nv, fan=nu), BbT=rnd(nx, nv), iWT=rnd(nv, nv, fan=nv),
+              BT=rnd(nu, nx, fan=nu))
+    kc["LT"] = kc["L"].T.contiguous()
+    picked = SQ.staged(N, ns, nx, nu, nv)
+    assert not picked["s1"] and not picked["s2"], picked
+    w = rnd(N, ns, 2 * nx + nu)
+    pdu = rnd(nu)
+    kinds = (((rnd(N, ns, nv),),
+              (rnd(N, ns, nu), rnd(N, ns, nx), rnd(nx), pdu)), ((), ()))
+    for a1, a2 in kinds:
+        v = SQ.s1_call(kc, w, *a1)
+        _held(v, SQ.s1_plain(kc, w, *a1))
+        s2 = SQ.s2_call(kc, v, *a2)
+        for got, ref in zip(s2, SQ.s2_plain(kc, v, *a2)):
+            _held(got, ref)
+        spans = SQ.sweep_spans(kc, w, *a1, *a2)
+        assert torch.equal(spans["v"], v)
+        for got, ref in zip(spans["s2"], s2):
+            assert torch.equal(got, ref)
+
+
 @pytest.mark.cuda
 def test_staged_formulas_match_the_source(cuda_device):
     """``apg_stream.staged_smem`` equals the source's

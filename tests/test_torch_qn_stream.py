@@ -35,6 +35,7 @@ import pytest
 import torch
 
 from tests._torch_parity import jax_problem, port_inputs
+from tests.test_torch_apg_stream import H100_SMEM, gate_grid
 
 torch.set_num_threads(2)
 
@@ -330,6 +331,31 @@ def test_make_qn_stream_refusals():
     with pytest.raises(ValueError, match="quasi-Newton"):
         make_qn_stream(fa_t, lbfgs_buffer_size=5,
                        **dict(base, algorithm="proximalAlgorithm"))
+
+
+# The sweeps' shared-memory gate before their staged variants, written
+# out: the larger of S1's and S2's work tiles (TILE = 8 slots of floats).
+# A launch asks for more only where its staged variant fits the device,
+# so the gate must take every tree this took.
+def _tile_sweep_fits(N, ns, nx, nu, nv, limit):
+    smem = 4 * 8 * max(nx + nv + nu, 2 * nu + nx + nv)
+    return ns >= 1 and N >= 1 and smem <= limit
+
+
+@pytest.mark.parametrize("limit", [H100_SMEM, 48 * 1024, 8 * 1024])
+def test_sweep_fits_takes_every_tree_the_tile_gate_took(limit):
+    """Over the streaming kernels' grid of sizes (``gate_grid``),
+    ``stream_qn.stream_fits`` takes exactly the trees the unstaged tile
+    formula takes (the staged variant is the source's pick, never the
+    gate's)."""
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+
+    taken = 0
+    for d in gate_grid():
+        before = _tile_sweep_fits(**d, limit=limit)
+        assert SQ.stream_fits(**d, smem_limit=limit) == before, d
+        taken += before
+    assert taken > 0
 
 
 def test_sweep_wrappers_refuse_what_the_kernels_do_not_take():
