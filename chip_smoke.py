@@ -224,9 +224,13 @@ config 5, L-BFGS buffer 5, 500 iterations:
     the idle share
     (``torch.profiler``, a PROFILE_ITER-iteration solve), the bound; and
     each kernel's ms per call at the main path's shapes beside its plain
-    version's and its bound; with ``--reference-kernel DIR``, S1's and
-    S2's ms per call and an FBE solve of STREAM_QN_AB_ITER iterations
-    (cut from 500) on DIR's ``stream_qn.cu`` and this one in turns.
+    version's and its bound; the profiled solves must run the dots'
+    vector body (``dots_vec_kernel``) with the bf16 history and the
+    one-value body with the float32 one; with ``--reference-kernel DIR``, S1's and
+    S2's ms per call, an FBE solve of STREAM_QN_AB_ITER iterations (cut
+    from 500), and each history pass (dots and combine, float32 and
+    bfloat16) on DIR's ``stream_qn.cu`` and ``lbfgs.cu`` and these in
+    turns.
 
 Then the scenario-sharded streaming solves (``ops/apg_stream_sharded.py``,
 ``solver/qn_stream.py`` with ``mesh=``; the per-shard K1/K2 and S1/S2 of
@@ -241,7 +245,9 @@ every phase; rank 0 prints:
     the block, and one sharded S1 pass (with its all-reduce and
     root-side stages) and one S2 pass on the block in each variant, from
     phase 15's stressed state, each within PASS_FACTOR * max(|plain|, 1)
-    of the plain halves on the same card;
+    of the plain halves on the same card; with ``--reference-kernel
+    DIR``, the partial parent block equal to DIR's ``stream_sharded.cu``
+    bit for bit on both ranks;
 24. the 500-iteration sharded APG solve against the single-device
     streaming solve (phase 16's kernels): control, u, x and the trace
     within 1e-3 * max(|ref|, 1) or under the float64 witness rule; a warm
@@ -251,7 +257,10 @@ every phase; rank 0 prints:
     (cut from 500) solve's residual tail within 10 times the
     single-device solve's; two calls equal bit for bit; the bf16
     history's control within 1e-1 * max(|f32|, 1); MESH_QN_REPEATS
-    solves per algorithm and history storage, timed;
+    solves per algorithm and history storage, timed; a
+    DOTS_BODY_ITER-iteration solve of each profiled on rank 0, whose
+    dots must run the vector body with the bf16 history and the
+    one-value body with the float32 one;
 26. the main path: 4-step loops through ``SmpcController(mesh=...,
     backend="auto")`` for APG (500 iterations) and FBE and NAMA
     (MESH_LOOP_ITER iterations a step, cut from 500 to fit the time
@@ -266,11 +275,14 @@ every phase; rank 0 prints:
     rank 0's profile over PROFILE_ITER iterations (device µs per
     iteration of each kernel and of the glue, host µs in the collectives,
     idle share), each sharded kernel's ms per pass on rank 0's block
-    (rank 1 idle) beside its plain half's and its bound, the peak memory
-    of each rank; with ``--reference-kernel DIR``, the sharded S1
+    (rank 1 idle) beside its plain half's and its bound, the partial
+    parent block and its library call, ``x_Cp @ carry``, in turns
+    (``in_turns``: ms a call by events over MAX_ITER calls, device µs a
+    call by ``torch.profiler``), the peak memory of each rank; with
+    ``--reference-kernel DIR``, the sharded S1
     (``s1a_call``) and S2 on rank 0's block equal to DIR's
-    ``stream_qn.cu`` bit for bit (solve step and oracle), and their ms
-    per pass on both sources in turns.
+    ``stream_qn.cu`` bit for bit (solve step and oracle), and their and
+    the partial parent block's ms per pass on both sources in turns.
 
 Then this slice's kernels and its main path:
 
@@ -351,9 +363,6 @@ FP32_FLOPS = 67e12    # H100 SXM, FP32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 KERNELS = ("apg_solve", "qn_solve", "apg_stream", "stream_qn",
            "lbfgs", "stream_sharded")       # sources under csrc/
-REFERENCE_KERNELS = ("apg_solve", "qn_solve", "apg_stream",   # the solves
-                     "stream_qn")                              # and sweeps
-                                            # --reference-kernel holds
 BARCELONA_BRANCHING = (5, 5)        # bench.py:42-65: 556 nodes, ns 25
 CONFIG5_BRANCHING = (8, 8, 4, 4)    # BASELINE config 5 (bench_ladder.py:47):
                                     # 20,809 nodes, ns 1024
@@ -602,8 +611,10 @@ def reference_qn(ref_libs, kq, steps, qkw, batch=None):
 
 def phase_us(run, n_it):
     """Device µs per iteration of every kernel of one ``run()`` of n_it
-    iterations, by base name (template arguments merged), by
-    ``torch.profiler``; None where the trace holds no device time."""
+    iterations, by base name (template arguments merged: the
+    ``..._kernel`` in its name, else its name up to the first ``<`` or
+    ``(``, as for a library's kernel), by ``torch.profiler``; None where
+    the trace holds no device time."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -617,9 +628,26 @@ def phase_us(run, n_it):
         if dt is None:
             dt = getattr(e, "cuda_time_total", 0)
         name = re.search(r"\w+_kernel", e.key)
+        if name:
+            name = name.group()
+        elif str(getattr(e, "device_type", "")).endswith("CUDA"):
+            name = library_kernel(e.key)
         if dt > 0 and name:
-            us[name.group()] = us.get(name.group(), 0.0) + dt / n_it
+            us[name] = us.get(name, 0.0) + dt / n_it
     return dict(sorted(us.items(), key=lambda kv: -kv[1])) or None
+
+
+def library_kernel(key):
+    """A library kernel's name without its templates, return type and
+    parameters (``internal::gemvx::kernel`` for cuBLAS's gemv)."""
+    import re
+    while True:
+        bare = re.sub(r"<[^<>]*>", "", key)
+        if bare == key:
+            break
+        key = bare
+    head = key.split("(")[0].strip()
+    return head.split()[-1] if "::" in head else head
 
 
 def apg_variant(tag, dims, B, need):
@@ -645,17 +673,19 @@ def apg_variant(tag, dims, B, need):
                            "problem should take")
 
 
-def in_turns(tag, runs, per_turn):
-    """Wall ms of ``runs['reference']`` and ``runs['these']`` in turns
+def in_turns(tag, runs, per_turn, clock=None):
+    """Ms of ``runs['reference']`` and ``runs['these']`` in turns
     (reference, these, these, reference; per_turn calls a turn, each
-    synchronised around it) and each one's per-phase device µs an
+    taken by ``clock(fn)``, the ms of one fn(): by default the wall
+    clock, synchronised around it) and each one's per-phase device µs an
     iteration over a PROFILE_ITER-iteration call (``runs[k](n)`` runs n
     iterations); prints both and returns the two medians."""
     import numpy as np
+    clock = clock or (lambda fn: timed(fn)[0])
     times = {"reference": [], "these": []}
     for which in ("reference", "these", "these", "reference"):
         for _ in range(per_turn):
-            times[which].append(timed(lambda: runs[which](MAX_ITER))[0])
+            times[which].append(clock(lambda: runs[which](MAX_ITER)))
     med = {k: float(np.median(v)) for k, v in times.items()}
     print(f"[timing] {tag} in turns: these {med['these']:.3f} ms "
           f"({', '.join(f'{t:.3f}' for t in times['these'])}), the "
@@ -2097,7 +2127,8 @@ def event_ms(fn, reps):
 
 
 STREAM_QN_PARTS = {"s1_kernel": "S1", "s2_kernel": "S2",
-                   "dots_kernel": "dots", "dots_finish_kernel": "dots",
+                   "dots_kernel": "dots", "dots_vec_kernel": "dots",
+                   "dots_finish_kernel": "dots",
                    "combine_kernel": "combine"}
 
 
@@ -2128,12 +2159,43 @@ def stream_qn_profile(run, n_it):
     per = dict.fromkeys(("S1", "S2", "dots", "combine", "glue"), 0.0)
     for e in events:
         per[stream_qn_part(e.name)] += e.time_range.end - e.time_range.start
+    bodies = sorted(dots_bodies(e.name for e in events))
     busy, span = busy_span([(e.time_range.start, e.time_range.end)
                             for e in events])
     out = {k: v / n_it for k, v in per.items()}
     out.update(busy_ms=busy / 1e3, span_ms=span / 1e3,
-               idle_share=1.0 - busy / span)
+               idle_share=1.0 - busy / span, dots_bodies=bodies)
     return out
+
+
+DOTS_BODY = {"float32": ["dots_kernel"], "bfloat16": ["dots_vec_kernel"]}
+
+
+def dots_bodies(kernel_names):
+    """The bodies of the dots pass (``dots_kernel``, the one-value body,
+    or ``dots_vec_kernel``, the vector body) among device kernel names."""
+    import re
+    found = set()
+    for name in kernel_names:
+        m = re.search(r"(\w+_kernel)[<(]", name)
+        if m and m.group(1) in ("dots_kernel", "dots_vec_kernel"):
+            found.add(m.group(1))
+    return found
+
+
+def check_dots_body(tag, dtype, bodies):
+    """The dots pass of a main-path solve with ``dtype`` history ran the
+    body DOTS_BODY names, and no other (``bodies``: the ones a profile
+    of it saw, or None where its trace held no device time)."""
+    if bodies is None:
+        print(f"[stream_qn] {tag}: the dots body is not measured (no device "
+              f"time in the trace)")
+        return
+    print(f"[stream_qn] {tag}: the {dtype} history's dots ran "
+          f"{', '.join(bodies) or 'no body'}")
+    if list(bodies) != DOTS_BODY[dtype]:
+        raise SmokeFailure(f"{tag}: the {dtype} dots ran {bodies}, not "
+                           f"{DOTS_BODY[dtype]}")
 
 
 def bound_of(flops, nbytes):
@@ -2475,6 +2537,8 @@ def stream_qn_phases(ref_libs, device, problem, kq_b, kc_b, step_b,
                 lambda: solver(algorithm, PROFILE_ITER, dtype)(step),
                 PROFILE_ITER)
             fq[(short, dtype)] = (med, prof, peak)
+            check_dots_body(f"22.{short}", dtype,
+                            None if prof is None else prof["dots_bodies"])
             print(f"[timing] stream {short} {dtype} history, {MAX_ITER} "
                   f"iterations at config 5: median {med:.3f} ms of "
                   f"{STREAM_QN_REPEATS} "
@@ -2596,6 +2660,13 @@ def stream_qn_phases(ref_libs, device, problem, kq_b, kc_b, step_b,
                  "rapidnet_tpu/ops/pallas_lbfgs.py:150")):
             ms = event_ms(fn, reps)
             p_ms = event_ms(plain, 3)
+            if ref_libs is not None:
+                med = in_turns(f"22.{which} {name}, {MAX_ITER} passes,",
+                               source_runs(ref_libs, "lbfgs", fn), 1)
+                print(f"[timing] {which} {name} in turns: these "
+                      f"{med['these'] / MAX_ITER:.6f} ms per pass, the "
+                      f"reference source's "
+                      f"{med['reference'] / MAX_ITER:.6f} ms")
             flops, nbytes = history_work(E, rows, M, size, which == "dots")
             b_ms, by = bound_of(flops, nbytes)
             print(f"[timing] {which} {name}: {ms:.6f} ms per call, plain "
@@ -2624,8 +2695,11 @@ MESH_LOOP_ITER = 50   # phase 26's QN loops: iterations per step (cut from
                       # 500: a sharded QN iteration takes ~35 ms here)
 MESH_QN_ITER = 200    # phases 25/27's sharded QN solves (cut from 500:
                       # a sharded QN iteration takes ~40 ms here)
-MESH_QN_REPEATS = 3   # phases 25/27: sharded QN solves timed per
-                      # algorithm and history storage
+DOTS_BODY_ITER = 3    # phase 25: the profiled sharded solve that shows
+                      # the dots body (iterations 2 and 3 run the dots)
+MESH_QN_REPEATS = 2   # phases 25/27: sharded QN solves timed per
+                      # algorithm and history storage (cut from 3 to keep
+                      # the run inside its limit on slower hosts)
 def mesh_qn_counts(algorithm, iterations, solves=1):
     """The wrapper calls of ``solves`` sharded FBE/NAMA solves: every
     iteration runs eagerly (no graph on a mesh), the first with the
@@ -2710,11 +2784,12 @@ def mesh_profile(run, n_it, names):
     return out
 
 
-def mesh_phases(mesh, ref_path=None):
+def mesh_phases(mesh, ref_paths=None):
     """Phases 23-27 on this rank of a two-rank mesh on card 0 (every rank
     runs them; rank 0 prints and reports): the sharded streaming APG and
-    FBE/NAMA solves at BASELINE config 5; ``ref_path``: the library of an
-    earlier checkout's ``stream_qn.cu`` (``--reference-kernel``) or None.
+    FBE/NAMA solves at BASELINE config 5; ``ref_paths``: the libraries of
+    an earlier checkout's ``stream_qn.cu`` and ``stream_sharded.cu`` by
+    name (``--reference-kernel``), or None.
     Returns (the JSON entries of the sharded kernels, the counts of phase
     26's main-path runs, this rank's peak memory)."""
     import numpy as np
@@ -2728,6 +2803,8 @@ def mesh_phases(mesh, ref_path=None):
 
     dev = mesh.device
     t0 = time.perf_counter()
+    ref_libs = None if ref_paths is None else {
+        name: ctypes.CDLL(path) for name, path in ref_paths.items()}
 
     def lap(phase):
         print(f"[time] phase {phase}: {time.perf_counter() - t0:.3f} s "
@@ -2796,8 +2873,17 @@ def mesh_phases(mesh, ref_path=None):
     err_k1a = max(err_k1a, held("23.k1a.extrema", ext_k, ext_p))
     err_k1a = max(err_k1a, held("23.k1a.parents", par_k, par_p))
     last = st_k["carry"][(len(kc["ranges"]) - 1) & 1]
-    err_pp = held("23.partial_parents", SS.partial_parents(kc, last),
+    got_pp = SS.partial_parents(kc, last)
+    err_pp = held("23.partial_parents", got_pp,
                   SS.partial_parents_plain(kc, last))
+    if ref_libs is not None:
+        with reference_kernel(ref_libs, "stream_sharded"):
+            same = torch.equal(got_pp, SS.partial_parents(kc, last))
+        print(f"[mesh] 23: the partial parent block on rank {mesh.rank}'s "
+              f"block equal to the reference source's bit for bit: {same}")
+        if not same:
+            raise SmokeFailure("23: the partial parent block differs from "
+                               "the reference source's")
     # one K2 pass on the block from K1a's duals and v (zero below s_hi)
     st_p["v"][:kc["s_hi"]] = 0.0
     st_2 = stressed()
@@ -2886,8 +2972,8 @@ def mesh_phases(mesh, ref_path=None):
             mesh=mesh if sharded else None,
             **dict(hyper, max_iterations=n))
 
-    # two solves of ``step`` (the repeat check) and one of a perturbed
-    # state, per history storage
+    # two solves of ``step`` (the repeat check) and MESH_QN_REPEATS - 2
+    # of perturbed states, per history storage
     staged = [step, step] + [make_step(x) for x in perturbed(
         cfg.current_x, np.random.default_rng(7), MESH_QN_REPEATS - 2)]
     qn_times, qn_peak = {}, {}
@@ -2914,6 +3000,16 @@ def mesh_phases(mesh, ref_path=None):
             qn_peak[(short, dtype)] = (torch.cuda.max_memory_allocated() -
                                        held_b)
             qn_times[(short, dtype)] = times
+            # the dots body a sharded solve runs on this rank's block:
+            # rank 0 profiles a DOTS_BODY_ITER-iteration solve
+            brief = qn(algorithm, DOTS_BODY_ITER, dtype=dtype)
+            if mesh.rank == 0:
+                prof = stream_qn_profile(lambda: brief(step), DOTS_BODY_ITER)
+                check_dots_body(f"25.{short} on rank 0's block", dtype,
+                                None if prof is None else
+                                prof["dots_bodies"])
+            else:
+                brief(step)
         k_full, again = runs["float32"]
         same = outputs_equal(again, k_full, ("x", "u", "v", "control") +
                              QN_TRACES)
@@ -3159,14 +3255,36 @@ def mesh_phases(mesh, ref_path=None):
                              pdu), work["s2"][:2]))
     variant = SQ.staged(*SQ.dims(kc))
     kinds = {"stream_qn.s1a": "s1", "stream_qn.s2.sharded": "s2"}
-    if ref_path is not None:
-        sweeps_against_reference(mesh, kc, w, v_t, stl, pdu, rows,
-                                 {"stream_qn": ctypes.CDLL(ref_path)})
+    if ref_libs is not None:
+        sweeps_against_reference(mesh, kc, w, v_t, stl, pdu, rows, ref_libs)
+    # one PyTorch call computes the partial parent block: x_Cp @ carry
+    library = {"stream_sharded.partial_parents":
+               ("x_Cp @ carry", lambda: kc["x_Cp"] @ last)}
+
+    def calls(fn):          # n calls, each result dropped as it comes
+        def run(n):
+            for _ in range(n):
+                fn()
+        return run
     entries = []
     for key, src, line, counted, err, call, plain, (flops, nbytes) in rows:
         mesh.barrier()
+        lib_ms = None
         if mesh.rank == 0:
             ms, p_ms = event_ms(call, 20), event_ms(plain, 3)
+            if key in library:      # by events over MAX_ITER calls a turn
+                med = in_turns(
+                    f"27.{key} (these) against {library[key][0]} (the "
+                    f"reference), {MAX_ITER} calls,",
+                    {"reference": calls(library[key][1]),
+                     "these": calls(call)}, 3,
+                    clock=lambda fn: event_ms(fn, 1))
+                ms, lib_ms = (med["these"] / MAX_ITER,
+                              med["reference"] / MAX_ITER)
+                host = timed(lambda: calls(call)(MAX_ITER))[1]
+                print(f"[timing] {key}: the wrapper's host time "
+                      f"{host * 1e3 / MAX_ITER:.3f} us a call (enqueue, "
+                      f"{MAX_ITER} calls)")
         else:
             ms = p_ms = 0.0
         mesh.barrier()
@@ -3179,7 +3297,7 @@ def mesh_phases(mesh, ref_path=None):
                         "replaces": line, "launches": counts[counted],
                         "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
                         "bound_ms": b_ms, "bound_by": by,
-                        "library_ms": None})
+                        "library_ms": lib_ms})
         if key in kinds:
             entries[-1]["variant"] = ("staged" if variant[kinds[key]] else
                                       "unstaged")
@@ -3196,8 +3314,8 @@ def sweeps_against_reference(mesh, kc, w, v, stl, pdu, rows, ref_libs):
     S1 (``s1a_call``, with its all-reduce and root-side stages) and S2 on
     this rank's block, solve step and oracle, equal to the reference
     source's bit for bit; then rank 0 times the per-pass calls of
-    ``rows`` (phase 27's S1 and S2 on its block) on both sources in turns
-    (``in_turns``; rank 1 idle)."""
+    ``rows`` (phase 27's S1 and S2 and the partial parent block on its
+    block) on both sources in turns (``in_turns``; rank 1 idle)."""
     import torch
     from rapidnet_tpu_torch.ops import stream_qn as SQ
     g = torch.Generator().manual_seed(27)
@@ -3216,13 +3334,14 @@ def sweeps_against_reference(mesh, kc, w, v, stl, pdu, rows, ref_libs):
         if not same:
             raise SmokeFailure(f"27.{label}: the sharded S1/S2 differ from "
                                "the reference source's")
-    for key, _, _, _, _, call, _, _ in rows:
-        if not key.startswith("stream_qn"):
+    for key, src, _, _, _, call, _, _ in rows:
+        name = src[:-3]
+        if name not in ref_libs:
             continue
         mesh.barrier()
         if mesh.rank == 0:
             med = in_turns(f"27.{key}, {MAX_ITER} passes on rank 0's block,",
-                           source_runs(ref_libs, "stream_qn", call), 1)
+                           source_runs(ref_libs, name, call), 1)
             print(f"[timing] {key} in turns: these "
                   f"{med['these'] / MAX_ITER:.6f} ms per pass on rank 0's "
                   f"block, the reference source's "
@@ -3230,10 +3349,10 @@ def sweeps_against_reference(mesh, kc, w, v, stl, pdu, rows, ref_libs):
         mesh.barrier()
 
 
-def mesh_rank(rank, init, results, ref_path):
+def mesh_rank(rank, init, results, ref_paths):
     """One rank of phases 23-27 (a process of its own): joins the gloo
     group, puts (rank, outcome) on ``results``.  Rank 1's output goes to
-    /dev/null; both ranks run every phase; ``ref_path`` as
+    /dev/null; both ranks run every phase; ``ref_paths`` as
     ``mesh_phases``'."""
     import os
     import traceback
@@ -3249,19 +3368,20 @@ def mesh_rank(rank, init, results, ref_path):
         distributed.initialize(backend="gloo", init_method=f"file://{init}",
                                rank=rank, world_size=MESH_RANKS)
         mesh = make_mesh(MESH_RANKS, devices=["cuda:0"] * MESH_RANKS)
-        results.put((rank, mesh_phases(mesh, ref_path)))
+        results.put((rank, mesh_phases(mesh, ref_paths)))
         mesh.barrier()
         torch.distributed.destroy_process_group()
     except BaseException:
         results.put((rank, traceback.format_exc()))
 
 
-def run_mesh_phases(ref_path=None):
+def run_mesh_phases(ref_paths=None):
     """Phases 23-27: MESH_RANKS processes (spawned: this one has
     initialised CUDA) share card 0 over a gloo group; returns rank 0's
-    entries.  ``ref_path``: the library of the reference source's
-    ``stream_qn.cu``, which the ranks load (``--reference-kernel``), or
-    None.  Every process started is stopped."""
+    entries.  ``ref_paths``: the libraries of the reference source's
+    ``stream_qn.cu`` and ``stream_sharded.cu`` by name, which the ranks
+    load by their paths (``--reference-kernel``), or None.  Every
+    process started is stopped."""
     import multiprocessing as mp
     import queue
     import tempfile
@@ -3273,7 +3393,7 @@ def run_mesh_phases(ref_path=None):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     init = f"{tmp}/store"
     procs = [ctx.Process(target=mesh_rank,
-                         args=(r, init, results, ref_path))
+                         args=(r, init, results, ref_paths))
              for r in range(MESH_RANKS)]
     out = {}
     try:
@@ -3693,15 +3813,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reference-kernel", default=None, metavar="DIR",
                     help="the csrc directory of an earlier checkout: "
-                         "phases 6c, 15, 16, 19 and 27 also hold the "
+                         "phases 6c, 15, 16, 19, 23 and 27 also hold the "
                          "single APG solve, one K1 and one K2 pass, the "
-                         "streaming APG solve and S1/S2 (single and on a "
-                         "rank's block) to its kernels bit for bit, 12a "
-                         "the single FBE and NAMA solves by TRACK and "
-                         "tail, and phases 5, 8, 11, 14, 18, 22 and 27 "
-                         "time its APG solve, B = 32 APG call, QN solves, "
-                         "B = 32 QN calls, streaming solve, S1/S2 and an "
-                         "FBE solve in turns with this checkout's")
+                         "streaming APG solve, S1/S2 (single and on a "
+                         "rank's block) and the partial parent block to "
+                         "its kernels bit for bit, 12a the single FBE and "
+                         "NAMA solves by TRACK and tail, and phases 5, 8, "
+                         "11, 14, 18, 22 and 27 time its APG solve, B = 32 "
+                         "APG call, QN solves, B = 32 QN calls, streaming "
+                         "solve, S1/S2, the history passes, an FBE solve "
+                         "and the partial parent block in turns with this "
+                         "checkout's")
     args = ap.parse_args()
     import torch
 
@@ -3725,7 +3847,7 @@ def main() -> int:
     t0 = time.perf_counter()
     jobs = {build.library_path(name): (name, None) for name in KERNELS}
     if args.reference_kernel:
-        for name in REFERENCE_KERNELS:
+        for name in KERNELS:
             src = Path(args.reference_kernel) / f"{name}.cu"
             jobs.setdefault(build.library_path(name, src), (name, src))
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -3735,12 +3857,13 @@ def main() -> int:
     if args.reference_kernel:
         ref_libs = {name: ctypes.CDLL(str(build.build(
             name, Path(args.reference_kernel) / f"{name}.cu")))
-            for name in REFERENCE_KERNELS}
+            for name in KERNELS}
     for name, so in libs.items():
         build.load(name)
         print(f"[build] {so.name} built and loaded")
         for line in so.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
                 print(f"[build] {line.strip()}")
     print(f"[build] {len(jobs)} sources in {time.perf_counter() - t0:.3f} s")
 
@@ -3785,8 +3908,9 @@ def main() -> int:
                                 Q.kernel_constants(fa, prefix_stages=prefix),
                                 kc, step_b, hyper)
     lap("19-22")
-    entries += run_mesh_phases(
-        None if ref_libs is None else ref_libs["stream_qn"]._name)
+    entries += run_mesh_phases(None if ref_libs is None else {
+        name: ref_libs[name]._name for name in ("stream_qn",
+                                                "stream_sharded")})
     lap("23-27")
     fused = fused_phases(problem5, stream_plain_ms)
     lap("28")

@@ -32,20 +32,72 @@
 // of partials, and a second kernel adds the rows in a fixed order, so a
 // run repeats itself bit for bit.  combine is one elementwise pass, a
 // GEMV over the columns, with the 2 M + 1 coefficients in shared memory.
+//
+// The bfloat16 dots have a vector body (dots_vec_kernel).  With one
+// 2-byte value a load, 4 blocks of 256 threads an SM kept ~28 KB in
+// flight an SM, half of what the float32 body keeps, and the pass ran at
+// 28 % of its bound (PERF.md section 6), with an integer division for
+// each value's row besides.  The vector body takes 8 consecutive values
+// of every column with one 16-byte load each (s and yv the same way, g as
+// two float4), widens them by shifts (a bfloat16 is the high half of a
+// float32) and reads rep once for the 8 (D % 8 == 0, so they share a
+// row).  A thread issues s, yv, g, then the columns VEC_GROUP at a time
+// (8 loads of 16 bytes together), at 2 blocks of 256 threads an SM for
+// M <= 8 (1 past it, where the 6 M + 6 sums take the registers): ~100 KB
+// in flight an SM.  The C entry takes it where D and E are multiples of 8
+// and every history operand is 16-byte aligned (lbfgs_dots_vector, a
+// rule on the shapes and pointers); other shapes, and views at odd
+// offsets, run the one-value body.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int DOT_BLOCKS = 528;    // 4 per SM of an H100
+constexpr int SMS = 132;           // an H100's SMs
+constexpr int DOT_BLOCKS = 4 * SMS;  // the one-value body's grid
 constexpr int MAX_COLS = 16;       // history columns (buffer size + 1)
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// A block's row of the Q partial sums: each warp's sums by shuffles, then
+// the warps' in order, into part[blockIdx.x].
+template <int Q>
+__device__ __forceinline__ void block_partials(const float (&acc)[Q],
+                                               float* __restrict__ part) {
+  __shared__ float red[WARPS][Q];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    float v = acc[q];
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) red[warp][q] = v;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < Q; q += THREADS) {
+    float v = 0.f;
+    for (int k = 0; k < WARPS; ++k) v += red[k][q];
+    part[(size_t)blockIdx.x * Q + q] = v;
+  }
+}
+
+// 8 bfloat16 values of a 16-byte load as float32: value 2p is the low
+// half of word p.
+__device__ __forceinline__ void widen8(const uint4 w, float (&f)[8]) {
+  const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    f[2 * p] = __uint_as_float(u[p] << 16);
+    f[2 * p + 1] = __uint_as_float(u[p] & 0xffff0000u);
+  }
 }
 
 // Pass 1 for the columns' M dots each: block b writes its row of the
@@ -58,7 +110,6 @@ dots_kernel(const float* __restrict__ rep, const T* __restrict__ ms,
             const T* __restrict__ yv, const float* __restrict__ g,
             float* __restrict__ part, long long E, int D) {
   constexpr int Q = 6 * M + 6;
-  __shared__ float red[WARPS][Q];
   float acc[Q];
 #pragma unroll
   for (int q = 0; q < Q; ++q) acc[q] = 0.f;
@@ -87,20 +138,75 @@ dots_kernel(const float* __restrict__ rep, const T* __restrict__ ms,
     acc[6 * M + 4] += ts * gf;
     acc[6 * M + 5] += ty * gf;
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  block_partials<Q>(acc, part);
+}
+
+// Pass 1's vector body for a bfloat16 history: vector v is values 8 v ..
+// 8 v + 7 of every operand (E8 = E / 8 of them, D8 = D / 8 a row).  The
+// same partials as dots_kernel, each thread's sums in another order.
+constexpr int vec_blocks_per_sm(int M) { return M <= 8 ? 2 : 1; }
+constexpr int VEC_GROUP = 4;   // history columns whose loads a thread issues
+                               // together (2 x 16 bytes each)
+
+template <int M>
+__global__ void __launch_bounds__(THREADS, vec_blocks_per_sm(M))
+dots_vec_kernel(const float* __restrict__ rep, const uint4* __restrict__ ms,
+                const uint4* __restrict__ my, const uint4* __restrict__ s,
+                const uint4* __restrict__ yv, const float4* __restrict__ g,
+                float* __restrict__ part, int E8, int D8) {
+  constexpr int Q = 6 * M + 6;
+  float acc[Q];
 #pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    float v = acc[q];
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][q] = v;
+  for (int q = 0; q < Q; ++q) acc[q] = 0.f;
+  const int stride = gridDim.x * THREADS;
+  for (int v = blockIdx.x * THREADS + threadIdx.x; v < E8; v += stride) {
+    const float rv = rep[v / D8];
+    const float4 g0 = g[2 * v], g1 = g[2 * v + 1];
+    float sf[8], yf[8];
+    widen8(s[v], sf);
+    widen8(yv[v], yf);
+    const float gf[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    float ts[8], ty[8], tg[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      ts[e] = rv * sf[e];
+      ty[e] = rv * yf[e];
+      tg[e] = rv * gf[e];
+      acc[6 * M + 0] += ts[e] * sf[e];
+      acc[6 * M + 1] += ts[e] * yf[e];
+      acc[6 * M + 2] += ty[e] * yf[e];
+      acc[6 * M + 3] += tg[e] * gf[e];
+      acc[6 * M + 4] += ts[e] * gf[e];
+      acc[6 * M + 5] += ty[e] * gf[e];
+    }
+    // the columns VEC_GROUP at a time: their loads issued together
+#pragma unroll
+    for (int m0 = 0; m0 < M; m0 += VEC_GROUP) {
+      uint4 cs[VEC_GROUP], cy[VEC_GROUP];
+#pragma unroll
+      for (int j = 0; j < VEC_GROUP && m0 + j < M; ++j) {
+        cs[j] = ms[(size_t)(m0 + j) * E8 + v];
+        cy[j] = my[(size_t)(m0 + j) * E8 + v];
+      }
+#pragma unroll
+      for (int j = 0; j < VEC_GROUP && m0 + j < M; ++j) {
+        const int m = m0 + j;
+        float a[8], b[8];
+        widen8(cs[j], a);
+        widen8(cy[j], b);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          acc[6 * m + 0] += a[e] * ts[e];
+          acc[6 * m + 1] += a[e] * ty[e];
+          acc[6 * m + 2] += a[e] * tg[e];
+          acc[6 * m + 3] += b[e] * ts[e];
+          acc[6 * m + 4] += b[e] * ty[e];
+          acc[6 * m + 5] += b[e] * tg[e];
+        }
+      }
+    }
   }
-  __syncthreads();
-  for (int q = threadIdx.x; q < Q; q += THREADS) {
-    float v = 0.f;
-    for (int k = 0; k < WARPS; ++k) v += red[k][q];
-    part[(size_t)blockIdx.x * Q + q] = v;
-  }
+  block_partials<Q>(acc, part);
 }
 
 // Pass 1b: one warp per quantity adds the blocks' partials in a fixed
@@ -152,25 +258,38 @@ combine_kernel(const float* __restrict__ coef, const T* __restrict__ ms,
   }
 }
 
+// Launch the dot pass's first kernel for M columns (the vector body where
+// `vec`); sets *blocks to the rows of partials it writes.
 template <typename T, int M>
-cudaError_t launch_dots(const float* rep, const void* ms, const void* my,
-                        const void* s, const void* yv, const float* g,
-                        float* part, long long E, int D, cudaStream_t st) {
-  dots_kernel<T, M><<<DOT_BLOCKS, THREADS, 0, st>>>(
-      rep, static_cast<const T*>(ms), static_cast<const T*>(my),
-      static_cast<const T*>(s), static_cast<const T*>(yv), g, part, E, D);
+cudaError_t launch_dots(bool vec, const float* rep, const void* ms,
+                        const void* my, const void* s, const void* yv,
+                        const float* g, float* part, long long E, int D,
+                        int* blocks, cudaStream_t st) {
+  if (vec) {
+    *blocks = vec_blocks_per_sm(M) * SMS;
+    dots_vec_kernel<M><<<*blocks, THREADS, 0, st>>>(
+        rep, static_cast<const uint4*>(ms), static_cast<const uint4*>(my),
+        static_cast<const uint4*>(s), static_cast<const uint4*>(yv),
+        reinterpret_cast<const float4*>(g), part, (int)(E / 8), D / 8);
+  } else {
+    *blocks = DOT_BLOCKS;
+    dots_kernel<T, M><<<DOT_BLOCKS, THREADS, 0, st>>>(
+        rep, static_cast<const T*>(ms), static_cast<const T*>(my),
+        static_cast<const T*>(s), static_cast<const T*>(yv), g, part, E, D);
+  }
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_dots(int M, const float* rep, const void* ms,
+cudaError_t dispatch_dots(int M, bool vec, const float* rep, const void* ms,
                           const void* my, const void* s, const void* yv,
                           const float* g, float* part, long long E, int D,
-                          cudaStream_t st) {
+                          int* blocks, cudaStream_t st) {
   switch (M) {
-#define LBFGS_CASE(m) \
-  case m:             \
-    return launch_dots<T, m>(rep, ms, my, s, yv, g, part, E, D, st);
+#define LBFGS_CASE(m)                                                     \
+  case m:                                                                 \
+    return launch_dots<T, m>(vec, rep, ms, my, s, yv, g, part, E, D, blocks, \
+                             st);
     LBFGS_CASE(1) LBFGS_CASE(2) LBFGS_CASE(3) LBFGS_CASE(4)
     LBFGS_CASE(5) LBFGS_CASE(6) LBFGS_CASE(7) LBFGS_CASE(8)
     LBFGS_CASE(9) LBFGS_CASE(10) LBFGS_CASE(11) LBFGS_CASE(12)
@@ -187,7 +306,23 @@ int combine_blocks(long long E) {
                                      : 4 * DOT_BLOCKS);
 }
 
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 }  // namespace
+
+// Whether lbfgs_dots takes the vector body for these operands: a
+// bfloat16 history, D and E multiples of 8 and the histories, s, yv and
+// g 16-byte aligned.  1 or 0.
+extern "C" int lbfgs_dots_vector(const void* ms, const void* my,
+                                 const void* s, const void* yv,
+                                 const float* g, long long E, int D,
+                                 int bf16) {
+  return bf16 && D % 8 == 0 && E % 8 == 0 && aligned16(ms) &&
+         aligned16(my) && aligned16(s) && aligned16(yv) && aligned16(g);
+}
 
 // The dot pass: rep (N, ns) weights the rows of D values; the histories
 // ms, my are (M, E) with E = N ns D, s and yv (E) in the storage type
@@ -202,14 +337,17 @@ extern "C" int lbfgs_dots(const float* rep, const void* ms, const void* my,
   if (E < 1 || E > 0x7fffffffLL || D < 1 || M < 1 || M > MAX_COLS)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = lbfgs_dots_vector(ms, my, s, yv, g, E, D, bf16);
+  int blocks = 0;
   const cudaError_t err =
-      bf16 ? dispatch_dots<__nv_bfloat16>(M, rep, ms, my, s, yv, g, part, E,
-                                          D, st)
-           : dispatch_dots<float>(M, rep, ms, my, s, yv, g, part, E, D, st);
+      bf16 ? dispatch_dots<__nv_bfloat16>(M, vec, rep, ms, my, s, yv, g, part,
+                                          E, D, &blocks, st)
+           : dispatch_dots<float>(M, false, rep, ms, my, s, yv, g, part, E, D,
+                                  &blocks, st);
   if (err != cudaSuccess) return err;
   const int Q = 6 * M + 6;
   dots_finish_kernel<<<(Q + WARPS - 1) / WARPS, THREADS, 0, st>>>(
-      part, DOT_BLOCKS, M, dS, dY, selfd);
+      part, blocks, M, dS, dY, selfd);
   return cudaGetLastError();
 }
 

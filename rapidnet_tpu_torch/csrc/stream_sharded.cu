@@ -21,7 +21,9 @@
 //
 // Bound: it reads the shard's carries once (nsl x (nx + nv) floats,
 // 0.33 MB at BASELINE config 5 over 2 shards) and writes R x (nx + nv)
-// floats (R = 8 parents there): a few microseconds at most.
+// floats: 0.1 us at 3.35 TB/s, below what one launch costs (R = 1 parent
+// with 4 child slots a shard there; 0.9-1.4 us a call on the H100, PERF.md
+// section 6).
 //
 // Design: one block per parent, the threads over the nx + nv columns,
 // each summing its column over the parent's child slots in ascending slot

@@ -102,12 +102,12 @@ def pack_stream_sharded(fa: dict, n_shards: int, rank: int, *,
     unchanged) with the slot-dependent keys made the block's: sq, nhp and
     rep (N, nsl); the handoff lists of the shard-local prefix stages,
     slots and parents numbered within the shard; ``ranges`` from N-1 down
-    to s_hi.  Besides: for the top cross stage s_hi, ``x_ptr``/``x_idx``,
-    each parent's child slots in the block (CSR, int32, for the kernel),
-    ``x_Cp``, its 0/1 child-sum block over the local columns, and
-    ``x_parent``, each local slot's parent; ``low``, for each cross stage
-    below s_hi, its child-sum block over the local columns and each local
-    slot's parent.  Raises a ValueError when ns is not a multiple of
+    to s_hi.  Besides: for the top cross stage s_hi, ``parent_block``'s
+    keys (``x_Cp``, its 0/1 child-sum block over the local columns, and
+    the kernel's lists ``x_ptr``/``x_idx``) and ``x_parent``, each local
+    slot's parent; ``low``, for each cross stage below s_hi, its
+    child-sum block over the local columns and each local slot's
+    parent.  Raises a ValueError when ns is not a multiple of
     ``n_shards`` or no stage crosses shards, and ``NotStreamable`` when
     the factors are not of the rank-1, 0/1 form."""
     info = analyze_prefix_locality(fa, n_shards)
@@ -144,17 +144,10 @@ def pack_stream_sharded(fa: dict, n_shards: int, rank: int, *,
                              local, nsl, dev))
 
     x_Cp, x_parent = block(s_hi)
-    ptr, idx = [0], []
-    for row in x_Cp:
-        kids = torch.nonzero(row).flatten().tolist()
-        idx += kids
-        ptr.append(ptr[-1] + len(kids))
     low = {s: tuple(t.to(dev) for t in block(s))
            for s in info["cross"] if s != s_hi}
-
-    def i32(values):
-        return torch.tensor(values, dtype=torch.int32, device=dev)
-
+    kc.update(parent_block(x_Cp.to(dev),
+                           kc["cx1"].shape[-1] + kc["iWT"].shape[0]))
     kc.update({
         "fa": {"prefix_Cp": loc_Cp, "prefix_Bp": loc_Bp}, "root": fa,
         "agg_stages": local, "ranges": S.stage_ranges(N, local, stop=s_hi),
@@ -162,9 +155,7 @@ def pack_stream_sharded(fa: dict, n_shards: int, rank: int, *,
         "cross_stages": tuple(sorted(info["cross"], reverse=True)),
         "low": low, "n_shards": n_shards, "rank": rank, "nsl": nsl,
         "ns": fa["d1"].shape[1], "slots": sl,
-        "x_ptr": i32(ptr), "x_idx": i32(idx if idx else [0]),
-        "x_parent": x_parent.to(dev), "x_Cp": x_Cp.to(dev),
-        "n_parents": x_Cp.shape[0],
+        "x_parent": x_parent.to(dev),
         "sq": kc["sq"][:, sl].contiguous(),
         "nhp": kc["nhp"][:, sl].contiguous(),
         "rep": kc["rep"][:, sl].contiguous()})
@@ -180,6 +171,28 @@ def shard_step(kc: dict, step: dict) -> dict:
 
 
 # ------------------------------------------------------------ the parents
+
+
+def parent_block(x_Cp: torch.Tensor, width: int) -> dict:
+    """The partial parent block's constants from the top cross stage's
+    0/1 child-sum block ``x_Cp`` (n_parents, nsl), on its device:
+    ``x_Cp``; ``x_ptr`` (n_parents + 1) and ``x_idx``, each parent's
+    child slots in ascending order (CSR, int32: the order in which the
+    kernel sums them); ``n_parents``; ``nsl``; ``x_width``, the width
+    nx + nv of the carries summed; and ``x_device``, their device.  The
+    lists are made, and so checked, here once: ``partial_parents``
+    checks only the carries a call."""
+    ptr, idx = [0], []
+    for row in x_Cp.cpu():
+        kids = torch.nonzero(row).flatten().tolist()    # ascending
+        idx += kids
+        ptr.append(ptr[-1] + len(kids))
+    dev = x_Cp.device
+    return {"x_Cp": x_Cp,
+            "x_ptr": torch.tensor(ptr, dtype=torch.int32, device=dev),
+            "x_idx": torch.tensor(idx or [0], dtype=torch.int32, device=dev),
+            "n_parents": x_Cp.shape[0], "nsl": x_Cp.shape[1],
+            "x_width": int(width), "x_device": dev}
 
 
 def partial_parents_plain(kc: dict, carry: torch.Tensor) -> torch.Tensor:
@@ -204,25 +217,27 @@ def _lib():
 
 def partial_parents(kc: dict, carry: torch.Tensor) -> torch.Tensor:
     """``partial_parents_plain`` on CPU tensors; on CUDA tensors the
-    kernel of ``csrc/stream_sharded.cu`` (or a raise)."""
-    R, W = kc["n_parents"], carry.shape[1]
-    dev = carry.device
+    kernel of ``csrc/stream_sharded.cu`` (or a raise).  A call checks
+    only ``carry``: (nsl, x_width) float32, contiguous, on the lists'
+    device (``parent_block`` made and checked the lists once), and
+    enters no device context when that device is the current one."""
+    dev, R, W = kc["x_device"], kc["n_parents"], kc["x_width"]
     S._check("carry", carry, (kc["nsl"], W), dev)
-    for k in ("x_ptr", "x_idx"):
-        S._check(k, kc[k], tuple(kc[k].shape), dev, torch.int32)
     if dev.type == "cpu":
         return partial_parents_plain(kc, carry)
     if dev.type != "cuda":
         raise ValueError(f"partial_parents runs on cpu or cuda, not "
                          f"{dev.type}")
-    out = torch.empty((R, W), dtype=torch.float32, device=dev)
+    out = carry.new_empty((R, W))
     lib = _lib()
     partial_parents.launches += 1
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.partial_parents(carry.data_ptr(), kc["x_ptr"].data_ptr(),
-                                  kc["x_idx"].data_ptr(), out.data_ptr(), R,
-                                  W, stream)
+    args = (carry.data_ptr(), kc["x_ptr"].data_ptr(), kc["x_idx"].data_ptr(),
+            out.data_ptr(), R, W, torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        err = lib.partial_parents(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.partial_parents(*args)
     if err != 0:
         msg = lib.stream_sharded_error_string(err).decode()
         raise RuntimeError(f"partial_parents kernel failed: error {err} "

@@ -23,6 +23,9 @@ The TPU kernel's self-dot output has 8 slots of which 6 are used
 ``dots`` and ``combine`` are the wrappers: CPU tensors run
 ``dots_plain`` and ``combine_plain``; CUDA tensors launch the kernels or
 raise.  ``dots.launches`` and ``combine.launches`` count their launches.
+The bfloat16 dots run a vector body (16-byte loads) where the source's
+rule takes it, D and E multiples of 8 and every operand 16-byte aligned,
+and the one-value body otherwise; ``vector_path`` asks the source.
 """
 
 from __future__ import annotations
@@ -167,6 +170,23 @@ def dots(rep, mat_s, mat_y, s, yv, g):
 
 
 dots.launches = 0
+
+
+def vector_path(mat_s, mat_y, s, yv, g) -> bool:
+    """Whether ``dots`` takes the vector body on these CUDA operands:
+    the source's own rule (``lbfgs_dots_vector``), from the shapes,
+    the storage type and the pointers."""
+    dev, nb, M, E = _check_history(mat_s, mat_y, g)
+    if dev.type != "cuda":
+        raise ValueError(f"vector_path asks the CUDA source; the operands "
+                         f"are on {dev}")
+    fn = _lib().lbfgs_dots_vector
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return bool(fn(mat_s.data_ptr(), mat_y.data_ptr(), s.data_ptr(),
+                   yv.data_ptr(), g.data_ptr(), E, g.shape[-1],
+                   int(nb == torch.bfloat16)))
 
 
 def combine(coef, mat_s, mat_y, g):

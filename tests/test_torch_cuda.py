@@ -1,7 +1,9 @@
 """The CUDA kernels on the card: the whole-solve kernels, APG single and
 batched, FBE and NAMA single and batched (float32 and bf16 history), the
-streaming APG kernels (two kernels an iteration, or the fused one), and
-the streaming FBE/NAMA sweeps and history passes.
+streaming APG kernels (two kernels an iteration, or the fused one), the
+streaming FBE/NAMA sweeps and history passes (the bf16 dots' vector and
+one-value bodies), and the partial parent block of the sharded sweeps
+(bit for bit against a float32 sum in the index lists' order).
 
 These tests need a CUDA GPU and skip without one.  They import neither
 jax nor the JAX package, because the card's machine has no JAX; since
@@ -984,6 +986,93 @@ def test_history_passes_match_plain(cuda_device, dtype):
     bound = 1e-6 * max(float(ref.abs().max()), 1.0)
     assert float((out - ref).abs().max()) <= bound
     assert torch.equal(out, LB.combine(coef, mat_s, mat_y, g))
+
+
+# The bf16 dots' two bodies (csrc/lbfgs.cu): the vector body (16-byte
+# loads) where D and E are multiples of 8 and every operand is 16-byte
+# aligned, the one-value body otherwise (D = 15, or a history viewed at
+# an odd offset); M = 1, 6 and 16 columns.  Each within 1e-5 of the
+# magnitude sum of dots_plain, repeats bit for bit.
+BF16_DOTS = {"vector_m1": (1, 24, False, True),
+             "vector_m6": (6, 24, False, True),
+             "vector_m16": (16, 24, False, True),
+             "scalar_m1": (1, 15, False, False),
+             "scalar_m16": (16, 15, False, False),
+             "offset_view": (6, 24, True, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BF16_DOTS))
+def test_bf16_dots_bodies_match_plain(cuda_device, case):
+    from rapidnet_tpu_torch.ops import lbfgs as LB
+
+    M, D, offset, vector = BF16_DOTS[case]
+    N, ns = 8, 37
+    E = N * ns * D
+    bf16 = torch.bfloat16
+    if offset:      # both histories in one buffer, one value off alignment
+        buf = _seeded((2 * M * E + 1,), cuda_device, 5, bf16)
+        mat_s = buf[1:1 + M * E].view(M, N, ns, D)
+        mat_y = buf[1 + M * E:].view(M, N, ns, D)
+    else:
+        mat_s = _seeded((M, N, ns, D), cuda_device, 5, bf16)
+        mat_y = _seeded((M, N, ns, D), cuda_device, 6, bf16)
+    s = _seeded((N, ns, D), cuda_device, 7, bf16)
+    yv = _seeded((N, ns, D), cuda_device, 8, bf16)
+    g = _seeded((N, ns, D), cuda_device, 9)
+    rep = (_seeded((N, ns), cuda_device, 10) > -0.5).float()
+    assert LB.vector_path(mat_s, mat_y, s, yv, g) is vector
+    n0 = LB.dots.launches
+    got = LB.dots(rep, mat_s, mat_y, s, yv, g)
+    assert LB.dots.launches == n0 + 1
+    ref = LB.dots_plain(rep, mat_s, mat_y, s, yv, g)
+    mag = LB.dots_plain(rep, mat_s.abs(), mat_y.abs(), s.abs(), yv.abs(),
+                        g.abs())
+    for a, b, m in zip(got, ref, mag):
+        assert bool(((a - b).abs() <= 1e-5 * m).all()), (a - b).abs().max()
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, LB.dots(rep, mat_s, mat_y, s, yv, g)))
+
+
+# The partial parent block (csrc/stream_sharded.cu) on lists built here:
+# parents with no child, one child, 5, 64, 130 and 1100 children, at
+# widths below, just above and well above a warp of columns; held bit for
+# bit to a float32 sum taken in each parent's index-list order from zero
+# (the order the kernel keeps), repeats bit for bit.
+PARENT_CHILDREN = (0, 1, 130, 1100, 5, 0, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [7, 33, 160])
+def test_partial_parents_equals_the_index_order_fold(cuda_device, W):
+    from rapidnet_tpu_torch.ops import apg_stream_sharded as SS
+
+    rng = np.random.default_rng(W)
+    nsl = sum(PARENT_CHILDREN) + 3
+    slots = rng.permutation(nsl)
+    x_Cp = torch.zeros((len(PARENT_CHILDREN), nsl))
+    start = 0
+    for r, n in enumerate(PARENT_CHILDREN):
+        x_Cp[r, slots[start:start + n]] = 1.0
+        start += n
+    kc = SS.parent_block(x_Cp.to(cuda_device), W)
+    scale = 10.0 ** rng.uniform(-3, 3, (nsl, 1))
+    carry = torch.from_numpy((rng.standard_normal((nsl, W)) *
+                              scale).astype(np.float32)).to(cuda_device)
+    n0 = SS.partial_parents.launches
+    got = SS.partial_parents(kc, carry)
+    assert SS.partial_parents.launches == n0 + 1
+    fold = torch.zeros((len(PARENT_CHILDREN), W), device=cuda_device)
+    ptr, idx = kc["x_ptr"].tolist(), kc["x_idx"].tolist()
+    for r in range(len(PARENT_CHILDREN)):
+        for m in idx[ptr[r]:ptr[r + 1]]:
+            fold[r] += carry[m]
+    assert torch.equal(got, fold)
+    for r, n in enumerate(PARENT_CHILDREN):
+        if n == 0:
+            assert bool((got[r] == 0).all())
+    _close(got, SS.partial_parents_plain(kc, carry))
+    assert torch.equal(SS.partial_parents(kc, carry), got)
 
 
 @pytest.mark.cuda

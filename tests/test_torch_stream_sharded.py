@@ -26,9 +26,13 @@ generators).  Held to the JAX package, with its bounds:
   same duals, within 1e-5 * max(|ref|, 1);
 * ``partial_parents_plain`` against the JAX pack's child-sum block
   (``XCpT``) on the same carries, and the wrapper's CPU path against it
-  exactly; ``k1a_plain`` on each rank against the port's single-device
-  ``k1_plain`` (held to JAX's K1 in tests/test_torch_apg_stream.py) on
-  the rank's slots and the stages N-1 .. s_hi, within 1e-5;
+  exactly; every rank's kernel lists (``parent_block``) ascending within
+  each parent and exactly ``x_Cp``'s nonzero pattern (what the kernel's
+  bit-for-bit order rests on), and the wrapper refusing carries of
+  another width, row count, dtype or device; ``k1a_plain`` on each rank
+  against the port's single-device ``k1_plain`` (held to JAX's K1 in
+  tests/test_torch_apg_stream.py) on the rank's slots and the stages
+  N-1 .. s_hi, within 1e-5;
 * ``SmpcController(mesh=..., backend="stream")`` closed loops against
   JAX's controllers: APG within 1e-4 of the XLA controller
   (:128-157), FBE within 5e-3 of the single-device streaming one
@@ -193,6 +197,57 @@ def test_pack_matches_jax(groups, name):
             Rs = Cp.shape[0]
             np.testing.assert_array_equal(
                 np.eye(Rs, dtype=np.float32)[parent].T, BpT[j, :, :nsl])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_parent_lists_ascend_and_match_the_block(name):
+    """Every rank's kernel lists ``x_ptr``/``x_idx`` (``parent_block``)
+    against its child-sum block ``x_Cp``: each parent's child slots in
+    strictly ascending order (the order in which the kernel sums them,
+    what keeps it bit for bit with a plain left fold) and exactly the
+    row's nonzero columns; int32, and ``x_width`` = nx + nv."""
+    from rapidnet_tpu_torch.ops import apg_stream_sharded as SS
+    branching, n = CASES[name]
+    prefix, fa, step, _ = _problem(branching)
+    fa_t, _ = port_inputs(fa, step)
+    N, ns, nx, nu, nv = _dims(fa)
+    for rank in range(n):
+        kc = SS.pack_stream_sharded(fa_t, n, rank, prefix_stages=prefix,
+                                    max_iterations=MAX_ITER)
+        ptr, idx = kc["x_ptr"], kc["x_idx"]
+        assert ptr.dtype == idx.dtype == torch.int32
+        assert kc["x_width"] == nx + nv and kc["nsl"] == ns // n
+        R = kc["n_parents"]
+        assert ptr.shape == (R + 1,) and int(ptr[0]) == 0
+        Cp = kc["x_Cp"].numpy()
+        assert int(ptr[-1]) == int(np.count_nonzero(Cp))
+        for r in range(R):
+            kids = idx[int(ptr[r]):int(ptr[r + 1])].numpy()
+            assert (np.diff(kids) > 0).all(), (rank, r, kids)
+            np.testing.assert_array_equal(kids, np.flatnonzero(Cp[r]))
+
+
+@pytest.mark.parametrize("fault", ["width", "rows", "dtype", "device"])
+def test_partial_parents_refuses_a_wrong_carry(fault):
+    """The wrapper checks each call's carries against the lists' shapes
+    and device (its lists are checked once, by ``parent_block``): a
+    carry of another width or row count, dtype or device is refused;
+    the right one runs the plain block exactly."""
+    from rapidnet_tpu_torch.ops import apg_stream_sharded as SS
+    prefix, fa, step, _ = _problem((4, 2, 2))
+    fa_t, _ = port_inputs(fa, step)
+    kc = SS.pack_stream_sharded(fa_t, 2, 0, prefix_stages=prefix,
+                                max_iterations=MAX_ITER)
+    nsl, W = kc["nsl"], kc["x_width"]
+    good = torch.randn(nsl, W, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(SS.partial_parents(kc, good),
+                       SS.partial_parents_plain(kc, good))
+    bad = {"width": good[:, :-1].contiguous(), "rows": good[1:],
+           "dtype": good.double(), "device": good.to("meta")}[fault]
+    n0 = SS.partial_parents.launches
+    with pytest.raises(ValueError, match="carry"):
+        SS.partial_parents(kc, bad)
+    assert SS.partial_parents.launches == n0
 
 
 # --------------------------------------------------------------- solves
