@@ -320,7 +320,22 @@ Then this slice's kernels and its main path:
     BASELINE.md, written to ladder_out/LADDER_chip_smoke.json), every
     count zeroed just before it: every row without an error and
     launching its route's wrapper (the fused row the fused kernel); its
-    document is printed on a line of its own.
+    document is printed on a line of its own;
+31. the closed-loop CLI on the card: phase 2's problem written by the
+    port's ``export_problem`` (with the engine's L and Lhat) into a
+    temporary directory and read back bit for bit by the port's readers;
+    ``rapidnet_tpu_torch.cli.main`` (what ``python -m
+    rapidnet_tpu_torch.cli`` runs) in this process, CLI_STEPS = 2 steps
+    with ``--device cuda``, with ``--profile-dir`` on the APG config and
+    without it on an FBE config written by ``config_to_json``, every
+    count zeroed just before each run: each returns 0 with the four KPI
+    lines, finite KPIs and finite controls inside the physical bounds,
+    and launches its whole-solve kernel (``apg_solve``, ``qn_solve``)
+    once a step and no other (the JSON entries' ``cli_launches``); the
+    trace names a kernel of ``csrc/apg_solve.cu``; step 0 of an
+    in-process warm APG controller equals the CLI's control0, and,
+    checkpointed after it (``utils/checkpoint.py``), the controller
+    resumes step 1 bit for bit with the uninterrupted warm loop.
 
 Each phase prints its own line.  The last lines are the card's name and
 power limit, one JSON line describing each kernel (with its bound: the
@@ -3809,6 +3824,212 @@ def ladder_phase():
     return counts
 
 
+CLI_STEPS = 2         # phase 31: closed-loop steps a CLI run takes
+KPI_LINES = ("economic kpi", "smooth kpi", "safety kpi",
+             "network utility kpi")
+# csrc/apg_solve.cu's kernels whose names no other source uses
+APG_SOLVE_KERNELS = ("backward_tail_kernel", "backward_prefix_kernel",
+                     "forward_prox_kernel", "finish_iteration_kernel")
+
+
+def run_cli(tag, config, out, name, net, profile_dir=None):
+    """``rapidnet_tpu_torch.cli.main``, the function ``python -m
+    rapidnet_tpu_torch.cli`` runs, on ``config`` for CLI_STEPS steps on
+    the card, in this process, every wrapper's count zeroed just before
+    it: (the output JSON, the per-step 'time lapsed' ms, the run's wall
+    s, the launches of wrapper ``name``).  It must return 0, print the
+    four KPI lines and finite KPIs, launch ``name`` once a step and no
+    other wrapper, and write finite controls of width nu inside the
+    physical bounds."""
+    import io
+    import math
+
+    import numpy as np
+
+    from rapidnet_tpu_torch import cli
+    argv = ["--config", str(config), "--steps", str(CLI_STEPS), "--device",
+            "cuda", "--output", str(out)]
+    if profile_dir is not None:
+        argv += ["--profile-dir", str(profile_dir)]
+    stdout, stderr = io.StringIO(), io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(stderr):
+            rc = cli.main(argv)
+    except Exception as exc:
+        raise SmokeFailure(f"{tag}: the CLI raised {exc!r}:\n"
+                           f"{stderr.getvalue()[-3000:]}") from exc
+    wall = time.perf_counter() - t0
+    launches = count_launches(tag, name, CLI_STEPS)
+    if rc != 0:
+        raise SmokeFailure(f"{tag}: the CLI returned {rc}:\n"
+                           f"{stderr.getvalue()[-3000:]}")
+    missing = [k for k in KPI_LINES if k not in stdout.getvalue()]
+    ms = [float(line.split()[2]) for line in stderr.getvalue().splitlines()
+          if line.startswith("time lapsed")]
+    if missing or len(ms) != CLI_STEPS:
+        raise SmokeFailure(f"{tag}: the CLI printed no {missing} or "
+                           f"{len(ms)} step times:\n{stdout.getvalue()}\n"
+                           f"{stderr.getvalue()[-3000:]}")
+    log = json.loads(Path(out).read_text())
+    for t in range(CLI_STEPS):
+        u = np.asarray(log[f"control{t}"], np.float32)
+        if not (u.shape == (net.nu,) and np.isfinite(u).all()
+                and (u >= net.umin - 1e-5).all()
+                and (u <= net.umax + 1e-5).all()):
+            raise SmokeFailure(f"{tag}: control{t} is not a finite "
+                               f"control of width {net.nu} inside the "
+                               f"physical bounds")
+    if not all(math.isfinite(log[k]) for k in KPI_KEYS):
+        raise SmokeFailure(f"{tag}: KPIs {[log[k] for k in KPI_KEYS]}")
+    return log, ms, wall, launches
+
+
+def read_back(tag, paths, cfg, eng, net, tree):
+    """The exported files read back by the port's readers equal the
+    objects bit for bit."""
+    import numpy as np
+    from rapidnet_tpu_torch import DwnNetwork, ScenarioTree, SmpcConfig
+    from rapidnet_tpu_torch.model.forecaster import JsonForecaster
+
+    def same(what, a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise SmokeFailure(f"{tag}: {what} read back differs")
+
+    net2 = DwnNetwork.from_json(paths["network"])
+    for k in ("matA", "matB", "matGd", "matE", "matEd", "xmin", "xmax",
+              "xsafe", "umin", "umax", "alpha1"):
+        same(f"network.{k}", getattr(net2, k), getattr(net, k))
+    tree2 = ScenarioTree.from_json(paths["tree"])
+    for k in ("stage", "ancestor", "leaves", "n_children", "prob",
+              "err_demand", "err_price", "node_of_slot", "rep"):
+        same(f"tree.{k}", getattr(tree2, k), getattr(tree, k))
+    fc, fc2 = forecaster(net), JsonForecaster(paths["forecaster"])
+    for t in range(fc.sim_horizon):
+        for f in (fc, fc2):
+            f.predict_demand(t)
+            f.predict_prices(t)
+        same(f"forecast.demand{t}", fc2.nominal_demand, fc.nominal_demand)
+        same(f"forecast.prices{t}", fc2.nominal_prices, fc.nominal_prices)
+    cfg2 = SmpcConfig.from_json(paths["config"])
+    same("config.mat_l", cfg2.mat_l, eng.L)
+    same("config.mat_lhat", cfg2.mat_lhat, eng.Lhat)
+    for k in ("cost_w", "diag_precnd", "current_x", "prev_u", "prev_demand",
+              "step_size", "max_iterations", "penalty_state",
+              "penalty_safety", "nx", "nu", "nd", "nv", "N"):
+        same(f"config.{k}", getattr(cfg2, k), getattr(cfg, k))
+    if cfg2.algorithm != cfg.algorithm:
+        raise SmokeFailure(f"{tag}: config.algorithm read back differs")
+
+
+def cli_phase(cfg, eng, net, tree):
+    """Phase 31: the closed-loop CLI on the card, on a problem directory
+    the port writes (phase 2's Barcelona-scale objects): the files read
+    back bit for bit; ``rapidnet_tpu_torch.cli.main`` for 2 APG steps
+    with ``--profile-dir`` and 2 FBE steps, each launching its
+    whole-solve kernel once a step in its own run (counts zeroed just
+    before it); the trace names a kernel of ``csrc/apg_solve.cu``; step 0
+    of an in-process warm controller equal to the APG CLI's, and its
+    checkpoint resume bit for bit with the uninterrupted warm loop.
+    Returns the CLI runs' launches by the name of the kernel's JSON
+    entry."""
+    import tempfile
+
+    import numpy as np
+
+    from rapidnet_tpu_torch.io.writers import config_to_json, export_problem
+    from rapidnet_tpu_torch.model.config import ALGORITHM_FBE
+    from rapidnet_tpu_torch.solver.controller import SmpcController
+    from rapidnet_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+
+    t_phase = time.perf_counter()
+    counts, report = {}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        tmp = Path(tmp)
+        # 31a. export, read back
+        paths = export_problem(net, tree, forecaster(net), cfg,
+                               str(tmp / "apg"), mat_l=eng.L,
+                               mat_lhat=eng.Lhat)
+        read_back("31a", paths, cfg, eng, net, tree)
+        fbe = copy.deepcopy(cfg)
+        fbe.algorithm = ALGORITHM_FBE
+        (tmp / "fbe").mkdir()
+        fbe_config = str(tmp / "fbe" / "controllerConfig.json")
+        config_to_json(fbe, fbe_config, network_path=paths["network"],
+                       tree_path=paths["tree"],
+                       forecaster_path=paths["forecaster"], mat_l=eng.L,
+                       mat_lhat=eng.Lhat)
+        print(f"[cli] 31a: {', '.join(sorted(paths))} written to "
+              f"{tmp / 'apg'} and read back bit for bit; the FBE config "
+              f"beside them")
+
+        # 31b-c. the CLI as a user calls it, its own launches counted
+        trace_dir = tmp / "trace"
+        logs = {}
+        for tag, config, name, entry, profile in (
+                ("31b.apg", paths["config"], "apg_solve", "apg_solve",
+                 trace_dir),
+                ("31c.fbe", fbe_config, "qn_solve", "qn_solve_fbe", None)):
+            log, ms, wall, counts[entry] = run_cli(
+                tag, config, tmp / f"{tag}.json", name, net, profile)
+            logs[tag] = log
+            report.append(
+                f"{tag} step ms {', '.join(f'{m:.3f}' for m in ms)}, "
+                f"run {wall:.3f} s")
+            print(f"[cli] {tag}: exit 0, {name} launches {counts[entry]} "
+                  f"in the CLI's run and no other kernel's; controls "
+                  f"finite and inside the bounds; kpis "
+                  f"{json.dumps({k: log[k] for k in KPI_KEYS})}")
+
+        # the trace names a kernel of csrc/apg_solve.cu
+        traces = sorted(trace_dir.glob("*.json"))
+        seen = set()
+        for p in traces:
+            for e in json.loads(p.read_text()).get("traceEvents", []):
+                if e.get("cat") == "kernel":
+                    seen.update(k for k in APG_SOLVE_KERNELS
+                                if k in e.get("name", ""))
+        print(f"[cli] 31b: {len(traces)} trace file(s), "
+              f"{sum(p.stat().st_size for p in traces) / 2**20:.3f} MiB; "
+              f"apg_solve.cu kernels named: {sorted(seen)}")
+        if len(traces) != 1 or not seen:
+            raise SmokeFailure("31b: the profile trace names no kernel of "
+                               "csrc/apg_solve.cu")
+
+        # 31d. a warm checkpoint resume against the uninterrupted loop
+        def warm():
+            ctrl = SmpcController(paths["config"], device="cuda",
+                                  warm_start=True)
+            ctrl.initialise()
+            return ctrl
+        ckpt = str(tmp / "ckpt")
+        a = warm()
+        u0 = a.control_action(0)
+        if not np.array_equal(u0, np.asarray(logs["31b.apg"]["control0"],
+                                              np.float32)):
+            raise SmokeFailure("31d: step 0 of an in-process controller "
+                               "differs from the APG CLI's control0")
+        a.move_forward_in_time()
+        save_checkpoint(a, ckpt, sim_time=1)
+        u_ref = a.control_action(1)
+        b = warm()
+        u = b.control_action(load_checkpoint(b, ckpt))
+        if not np.array_equal(u, u_ref):
+            raise SmokeFailure(f"31d: the resumed step differs by "
+                               f"{np.abs(u - u_ref).max()}")
+        print("[cli] 31d: step 0 of an in-process warm controller equals "
+              "the APG CLI's control0, and step 1 resumed from its "
+              "checkpoint equals the uninterrupted warm loop's, bit for "
+              "bit")
+    print(f"[cli] 31: {'; '.join(report)}; phase "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reference-kernel", default=None, metavar="DIR",
@@ -3920,6 +4141,11 @@ def main() -> int:
     fused["launches"] = ladder_phase().get("apg_stream_fused", 0)
     entries.append(fused)
     lap("30")
+    cli = cli_phase(cfg, eng, net, tree)
+    for e in entries:
+        if e["name"] in cli:
+            e["cli_launches"] = cli[e["name"]]
+    lap("31")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

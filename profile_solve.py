@@ -111,7 +111,6 @@ def main() -> int:
         ap.error("--sweep times the whole-solve APG kernel's variants")
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("profile_solve: no CUDA GPU available", file=sys.stderr)
@@ -124,6 +123,7 @@ def main() -> int:
     from rapidnet_tpu_torch.ops import apg_stream as S
     from rapidnet_tpu_torch.ops import qn_solve as Q
     from rapidnet_tpu_torch.solver.qn_stream import make_qn_stream
+    from rapidnet_tpu_torch.utils.timing import profile_trace
 
     n_it = args.iterations
     out_dir = pathlib.Path(args.out)
@@ -201,11 +201,8 @@ def main() -> int:
         summary["solves"].append(solve)
         print("[solve] " + ", ".join(f"{k} {v:.3f}" for k, v in solve.items()))
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile_trace(str(out_dir), name="trace.json") as prof:
         call()
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(str(out_dir / "trace.json"))
 
     phases = []
     for e in prof.key_averages():

@@ -4,7 +4,8 @@ Usage:
   python -m rapidnet_tpu_torch.cli --config path/to/controllerConfig.json \
       --steps 10 --output controlOutput.json [--device cuda] \
       [--backend auto|cuda|stream|torch] \
-      [--stream-lbfgs-dtype float32|bfloat16] [--external-simulator]
+      [--stream-lbfgs-dtype float32|bfloat16] [--external-simulator] \
+      [--profile-dir DIR]
   torchrun --nproc-per-node N -m rapidnet_tpu_torch.cli --devices N ...
 
 Runs the receding-horizon loop: forecast -> controlAction (timed) ->
@@ -14,7 +15,8 @@ last two with its ``lbfgsBufferSize``); the per-step lines and the
 output JSON are the same for all three.  With
 ``--external-simulator`` the controller re-reads currentX/prevU/
 prevDemand from the config JSON each step and writes the updated state
-back (the reference's simulatorFlag=0 path).
+back (the reference's simulatorFlag=0 path).  ``--profile-dir DIR``
+writes a ``torch.profiler`` Chrome trace of the closed loop into DIR.
 
 ``--devices N`` shards the scenario axis over N processes, one per
 shard, each running this command (``torchrun`` sets RANK, WORLD_SIZE,
@@ -68,6 +70,10 @@ def main(argv=None):
                    help="terminate each solve when the residual "
                         "magnitude drops below this (default: fixed "
                         "budget like the reference)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace (CPU, and "
+                        "CUDA activity on a GPU) of the closed loop here; "
+                        "on a mesh rank 0 alone traces")
     p.add_argument("--devices", type=int, default=0,
                    help="shard the scenario axis over this many processes "
                         "(one per shard, e.g. under torchrun; 0 = one "
@@ -101,8 +107,13 @@ def main(argv=None):
     if rank == 0:
         print(f"scenario tree nodes {ctrl.tree.n_nodes} "
               f"{ctrl.tree.ns}", file=sys.stderr)
-    log = ctrl.closed_loop(args.steps,
-                           output_json=args.output if rank == 0 else None)
+    output = args.output if rank == 0 else None
+    if args.profile_dir and rank == 0:
+        from rapidnet_tpu_torch.utils.timing import profile_trace
+        with profile_trace(args.profile_dir):
+            log = ctrl.closed_loop(args.steps, output_json=output)
+    else:
+        log = ctrl.closed_loop(args.steps, output_json=output)
     if rank != 0:
         return 0
     for t in range(args.steps):

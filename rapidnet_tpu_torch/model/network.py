@@ -58,6 +58,22 @@ class DwnNetwork:
             alpha1=jsonio.vector(doc, "costAlpha1"),
         )
 
+    def to_json(self, path) -> None:
+        doc = {
+            "nx": [self.nx], "nu": [self.nu], "ne": [self.ne],
+            "nd": [self.nd], "N": [0],
+            "matA": self.matA.T.reshape(-1),
+            "matB": self.matB.T.reshape(-1),
+            "matGd": self.matGd.T.reshape(-1),
+            "matE": self.matE.T.reshape(-1),
+            "matEd": self.matEd.T.reshape(-1),
+            "vecXmin": self.xmin, "vecXmax": self.xmax,
+            "vecXsafe": self.xsafe,
+            "vecUmin": self.umin, "vecUmax": self.umax,
+            "costAlpha1": self.alpha1,
+        }
+        jsonio.dump_json(path, doc)
+
     def validate(self) -> None:
         assert self.matA.shape == (self.nx, self.nx)
         assert self.matB.shape == (self.nx, self.nu)

@@ -1,7 +1,8 @@
 """Scenario tree with "fan layout" derivations.
 
 NumPy copy of ``rapidnet_tpu/model/scenario_tree.py`` (pure-NumPy
-paths only; the k-means tree generator is not carried over).
+paths only: the fan layout is always built in Python, without the JAX
+package's optional C++ walk).
 
 Reference counterpart: ``ScenarioTree`` (src/ScenarioTree.cu:32-127,
 JSON keys at src/ScenarioTree.cuh:23-40).  Node ids in the JSON's
@@ -210,6 +211,114 @@ class ScenarioTree:
     def gather_to_fan(self, node_values: np.ndarray) -> np.ndarray:
         """(n_nodes, ...) -> (N, ns, ...) by scenario-path duplication."""
         return np.asarray(node_values)[self.node_of_slot]
+
+    def scatter_from_fan(self, fan_values: np.ndarray) -> np.ndarray:
+        """(N, ns, ...) -> (n_nodes, ...) taking representative slots."""
+        fan = np.asarray(fan_values)
+        out_shape = (self.n_nodes,) + tuple(fan.shape[2:])
+        out = np.zeros(out_shape, fan.dtype)
+        s_idx, i_idx = np.nonzero(self.rep > 0)
+        out[self.node_of_slot[s_idx, i_idx]] = fan[s_idx, i_idx]
+        return out
+
+    def first_slot_of_node(self) -> np.ndarray:
+        """(n_nodes,) index of the representative slot of each node."""
+        first = np.zeros(self.n_nodes, np.int32)
+        s_idx, i_idx = np.nonzero(self.rep > 0)
+        first[self.node_of_slot[s_idx, i_idx]] = i_idx
+        return first
+
+    @property
+    def prob_fan(self) -> np.ndarray:
+        return self.gather_to_fan(self.prob)
+
+
+def generate_tree_from_samples(demand_errors: np.ndarray,
+                               price_errors: np.ndarray,
+                               branching: list[int] | tuple[int, ...],
+                               *, N: int | None = None,
+                               seed: int = 0,
+                               kmeans_iters: int = 25) -> ScenarioTree:
+    """Build a scenario tree from sampled forecast-error trajectories.
+
+    The reference only *loads* pre-generated trees (MATLAB,
+    src/paser/dataSource/); this is the forecaster-driven generation the
+    BASELINE ladder requires: stagewise k-means scenario clustering.
+    At each branching stage the surviving sample bundles are split into
+    ``branching[s]`` clusters by their error at that stage; node values
+    are cluster means, node probabilities are sample frequencies.
+
+    Args:
+      demand_errors: (num_samples, N, nd) sampled demand error paths.
+      price_errors:  (num_samples, N, nu) sampled price error paths.
+      branching: children per node at each stage (1 afterwards).
+    """
+    demand_errors = np.asarray(demand_errors, np.float32)
+    price_errors = np.asarray(price_errors, np.float32)
+    n_samples, N_data, nd = demand_errors.shape
+    nu = price_errors.shape[2]
+    N = N or N_data
+    rng = np.random.default_rng(seed)
+
+    def kmeans(vals, k, weights):
+        """Weighted k-means over rows of vals; returns (labels, centers)."""
+        k = min(k, len(np.unique(vals.round(6), axis=0)))
+        idx = rng.choice(len(vals), size=k, replace=False)
+        centers = vals[idx]
+        labels = np.zeros(len(vals), np.int64)
+        for _ in range(kmeans_iters):
+            d2 = ((vals[:, None, :] - centers[None]) ** 2).sum(-1)
+            labels = d2.argmin(1)
+            for j in range(k):
+                m = labels == j
+                if m.any():
+                    w = weights[m][:, None]
+                    centers[j] = (w * vals[m]).sum(0) / w.sum()
+        return labels, centers
+
+    # each tree node tracks its member sample indices
+    ancestor = [-1]
+    stage = [0]
+    node_members = {0: np.arange(n_samples)}
+    node_d = {0: np.zeros(nd, np.float32)}
+    node_p = {0: np.zeros(nu, np.float32)}
+    prob = [1.0]
+    frontier = [0]
+    next_id = 1
+    w_all = np.full(n_samples, 1.0 / n_samples)
+    for s in range(1, N):
+        b = branching[s - 1] if s - 1 < len(branching) else 1
+        new_frontier = []
+        for parent in frontier:
+            members = node_members[parent]
+            feats = np.concatenate(
+                [demand_errors[members, s], price_errors[members, s]],
+                axis=1)
+            if b > 1 and len(members) > 1:
+                labels, _ = kmeans(feats, b, w_all[members])
+            else:
+                labels = np.zeros(len(members), np.int64)
+            for j in np.unique(labels):
+                sub = members[labels == j]
+                ancestor.append(parent)
+                stage.append(s)
+                node_members[next_id] = sub
+                node_d[next_id] = demand_errors[sub, s].mean(0)
+                node_p[next_id] = price_errors[sub, s].mean(0)
+                prob.append(len(sub) / n_samples)
+                new_frontier.append(next_id)
+                next_id += 1
+        frontier = new_frontier
+
+    n_nodes = next_id
+    err_demand = np.stack([node_d[i] for i in range(n_nodes)])
+    err_price = np.stack([node_p[i] for i in range(n_nodes)])
+    return ScenarioTree.from_arrays(
+        N=N, ancestor=np.asarray(ancestor, np.int32),
+        stage=np.asarray(stage, np.int32),
+        prob=np.asarray(prob, np.float32),
+        err_demand=err_demand, err_price=err_price,
+        leaves=np.asarray(frontier, np.int32))
 
 
 def generate_tree(*, N: int, branching: list[int] | tuple[int, ...],

@@ -427,12 +427,12 @@ def test_cli_stream_backend(tmp_path, capsys):
     plain halves, against the plain backend on the same files."""
     import json
 
-    from rapidnet_tpu.io.writers import export_problem
-    from rapidnet_tpu.model.config import synthetic_config
-    from rapidnet_tpu.model.forecaster import synthetic_forecaster
-    from rapidnet_tpu.model.network import synthetic_network
-    from rapidnet_tpu.model.scenario_tree import generate_tree
     from rapidnet_tpu_torch import cli
+    from rapidnet_tpu_torch.io.writers import export_problem
+    from rapidnet_tpu_torch.model.config import synthetic_config
+    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
+    from rapidnet_tpu_torch.model.network import synthetic_network
+    from rapidnet_tpu_torch.model.scenario_tree import generate_tree
 
     net = synthetic_network(nx=4, nu=7, nd=3, ne=2, seed=7)
     tree = generate_tree(N=8, branching=[3, 2, 2], nd=3, nu=7, seed=7)

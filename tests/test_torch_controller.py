@@ -149,11 +149,11 @@ def test_cli_runs_the_config_algorithm(algorithm, tmp_path, capsys,
     """A config that names FBE or NAMA: the port's CLI prints the same
     lines and writes the same JSON keys as for APG, and its controls
     agree with the JAX controller's on the same files."""
-    from rapidnet_tpu.io.writers import export_problem
     from rapidnet_tpu.solver.controller import SmpcController
     from rapidnet_tpu_torch import cli
+    from rapidnet_tpu_torch.io.writers import export_problem
 
-    cfg, net, tree, fc = _problem("rapidnet_tpu", algorithm, QN_TRACK)
+    cfg, net, tree, fc = _problem("rapidnet_tpu_torch", algorithm, QN_TRACK)
     paths = export_problem(net, tree, fc, cfg, tmp_path / "problem")
     out = tmp_path / "control.json"
     assert cli.main(["--config", paths["config"], "--steps", "3",
@@ -199,6 +199,9 @@ def test_package_never_imports_jax():
         "from rapidnet_tpu_torch.model.network import synthetic_network\n"
         "from rapidnet_tpu_torch.model.scenario_tree import generate_tree\n"
         "from rapidnet_tpu_torch.solver.tuning import auto_tune\n"
+        "from rapidnet_tpu_torch.io import (datasource, epanet, matio, "
+        "writers, xls)\n"
+        "from rapidnet_tpu_torch.utils import checkpoint, timing\n"
         "net = synthetic_network(nx=4, nu=7, nd=3, ne=2, seed=1)\n"
         "tree = generate_tree(N=6, branching=[2, 2], nd=3, nu=7, seed=1)\n"
         "fc = synthetic_forecaster(N=6, nd=3, nu=7, seed=1)\n"
