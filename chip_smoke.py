@@ -319,8 +319,9 @@ Then this slice's kernels and its main path:
     (``rapidnet_tpu_torch.bench_ladder --repeats 2``, rows 1-5 of
     BASELINE.md, written to ladder_out/LADDER_chip_smoke.json), every
     count zeroed just before it: every row without an error and
-    launching its route's wrapper (the fused row the fused kernel); its
-    document is printed on a line of its own;
+    launching its route's wrapper (the fused row the fused kernel; the
+    bf16z row and the shardmap row, the plain sharded APG on a mesh of
+    one rank, none); its document is printed on a line of its own;
 31. the closed-loop CLI on the card: phase 2's problem written by the
     port's ``export_problem`` (with the engine's L and Lhat) into a
     temporary directory and read back bit for bit by the port's readers;
@@ -335,7 +336,29 @@ Then this slice's kernels and its main path:
     trace names a kernel of ``csrc/apg_solve.cu``; step 0 of an
     in-process warm APG controller equals the CLI's control0, and,
     checkpointed after it (``utils/checkpoint.py``), the controller
-    resumes step 1 bit for bit with the uninterrupted warm loop.
+    resumes step 1 bit for bit with the uninterrupted warm loop;
+32. (run by phases 23-27's two ranks, after them) the plain sharded
+    solves (``parallel.make_sharded_apg``, ``make_sharded_quasi_newton``)
+    through ``SmpcController(mesh=..., backend="auto")`` on the Barcelona
+    network over branching [5, 2] (10 scenarios, 5 a rank; seeds 42,
+    auto-tuned): APG under the tolerance PLAIN_MESH_TOL and FBE at
+    PLAIN_MESH_QN_ITER iterations, PLAIN_MESH_STEPS-step loops, every
+    count zeroed just before each: the route 'plain' and no kernel
+    launched; the two ranks' step-0 controls equal bit for bit; the APG
+    control within 1e-3 * max(|single|, 1) of the single-device plain
+    solve on the card and FBE held to it by 9a's TRACK rule, with the
+    same stopping iteration; the ms per solve printed beside the card's
+    name and power limit;
+33. the single-device examples on the card (``examples_phase``), in
+    process through their ``main`` with ``--device cuda``, every count
+    zeroed just before each: ``barcelona_scale --steps 2`` (route
+    ``kernel``, ``apg_solve`` once a step), ``batched_monte_carlo --batch
+    8 --steps 2`` (``apg_solve_batch`` once a step),
+    ``large_tree_streaming`` at its defaults (64 scenarios; route
+    ``stream``, ``apg_stream`` once a step) and ``epanet_to_controller``
+    into a temporary directory (``apg_solve`` once a step), each with no
+    other kernel, finite controls inside the physical bounds and finite
+    KPIs, its wall s printed (the JSON entries' ``example_launches``).
 
 Each phase prints its own line.  The last lines are the card's name and
 power limit, one JSON line describing each kernel (with its bound: the
@@ -2708,8 +2731,9 @@ MESH_RANKS = 2        # phases 23-27: two ranks share card 0 over gloo
 MESH_TIMEOUT = 1500   # s the parent waits for the ranks' results
 MESH_LOOP_ITER = 50   # phase 26's QN loops: iterations per step (cut from
                       # 500: a sharded QN iteration takes ~35 ms here)
-MESH_QN_ITER = 200    # phases 25/27's sharded QN solves (cut from 500:
-                      # a sharded QN iteration takes ~40 ms here)
+MESH_QN_ITER = 100    # phases 25/27's sharded QN solves (cut from 500,
+                      # then 200: a sharded QN iteration takes 30-60 ms
+                      # on a shared host)
 DOTS_BODY_ITER = 3    # phase 25: the profiled sharded solve that shows
                       # the dots body (iterations 2 and 3 run the dots)
 MESH_QN_REPEATS = 2   # phases 25/27: sharded QN solves timed per
@@ -3364,6 +3388,119 @@ def sweeps_against_reference(mesh, kc, w, v, stl, pdu, rows, ref_libs):
         mesh.barrier()
 
 
+PLAIN_MESH_BRANCHING = (5, 2)   # phase 32: 10 scenarios, 5 a rank
+PLAIN_MESH_TOL = 1e-3           # phase 32's APG tolerance
+PLAIN_MESH_QN_ITER = 50         # phase 32's FBE budget
+PLAIN_MESH_STEPS = 1            # phase 32: closed-loop steps a run takes
+                                # (cut from 2: ~9 s an APG step on 2 ranks)
+
+
+def card_name():
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def plain_mesh_phase(mesh):
+    """Phase 32 on this rank of the two-rank mesh: the plain sharded
+    solves (``parallel.make_sharded_apg``, ``make_sharded_quasi_newton``)
+    through ``SmpcController(mesh=..., backend="auto")`` on the Barcelona
+    network over branching PLAIN_MESH_BRANCHING: APG under
+    PLAIN_MESH_TOL and FBE at PLAIN_MESH_QN_ITER iterations, each a
+    PLAIN_MESH_STEPS-step loop.  The route must be 'plain' and no kernel
+    launched; step 0's APG control within 1e-3 * max(|single|, 1) of the
+    single-device plain solve on the card with the same stopping
+    iteration, FBE held to it by 9a's TRACK rule.  Returns this rank's
+    step-0 controls, for the parent to hold the ranks to each other bit
+    for bit."""
+    import copy
+
+    import numpy as np
+    import torch
+    from rapidnet_tpu_torch.engine.engine import XS_UPPER
+    from rapidnet_tpu_torch.model.config import ALGORITHM_APG
+    from rapidnet_tpu_torch.parallel import (make_sharded_quasi_newton,
+                                             shard_factor_arrays)
+    from rapidnet_tpu_torch.solver import apg as apg_mod
+    from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
+    from rapidnet_tpu_torch.solver.controller import SmpcController
+
+    t0 = time.perf_counter()
+    dev = mesh.device
+    cfg, eng, net, tree, fa, _, _ = build_problem(dev, PLAIN_MESH_BRANCHING)
+    prefix = eng.factor_step().prefix_stages
+    card = card_name() if mesh.rank == 0 else ""
+    out = {}
+    for short, algorithm, iters, tol in (
+            ("apg", ALGORITHM_APG, MAX_ITER, PLAIN_MESH_TOL),
+            ("fbe", QN_ALGORITHMS["fbe"], PLAIN_MESH_QN_ITER, None)):
+        c = copy.deepcopy(cfg)
+        c.algorithm, c.max_iterations = algorithm, iters
+        ctrl = SmpcController(c, network=net, tree=tree,
+                              forecaster=forecaster(net), tolerance=tol,
+                              backend="auto", device=dev, mesh=mesh)
+        zero_counts()
+        controls = []
+        for t in range(PLAIN_MESH_STEPS):
+            controls.append(ctrl.control_action(t))
+            if t == 0:
+                first = ctrl._last
+                step = ctrl.prepare_step(0)
+            ctrl.move_forward_in_time()
+        counts = {k: fn.launches for k, fn in wrappers().items()
+                  if fn.launches}
+        if ctrl.route != "plain" or counts:
+            raise SmokeFailure(f"32.{short}: route {ctrl.route!r}, kernel "
+                               f"launches {counts}")
+        controls = np.asarray(controls)
+        if not (np.isfinite(controls).all() and
+                (controls >= net.umin - 1e-6).all() and
+                (controls <= net.umax + 1e-6).all()):
+            raise SmokeFailure(f"32.{short}: controls not finite inside the "
+                               "physical bounds")
+        kw = dict(prefix_stages=prefix, inv_step=1.0 / c.step_size,
+                  step_size=c.step_size, penalty_state=c.penalty_state,
+                  penalty_safety=c.penalty_safety,
+                  xs_upper=float(XS_UPPER), max_iterations=iters,
+                  tolerance=tol)
+        it = int(first["iterations"])
+        if short == "apg":
+            single = apg_mod.make_apg(**kw)(fa, step)
+            check_close("32.apg.control", first["control"],
+                        single["control"])
+            it_single = int(single["iterations"])
+        else:
+            qkw = dict(kw, algorithm=algorithm,
+                       lbfgs_buffer_size=int(c.lbfgs_buffer_size))
+            fa_l = shard_factor_arrays(fa, mesh)
+
+            def sharded(n):
+                return make_sharded_quasi_newton(
+                    mesh, fa, step, **dict(qkw, max_iterations=n))(fa_l,
+                                                                    step)
+
+            tracking("32.fbe", sharded,
+                     lambda n: qn_mod.make_solver(
+                         **dict(qkw, max_iterations=n))(fa, step),
+                     QN_SHORT["fbe"], label="plain_mesh")
+            it_single = iters
+        if it != it_single:
+            raise SmokeFailure(f"32.{short}: the sharded solve stops at "
+                               f"iteration {it}, the single-device one at "
+                               f"{it_single}")
+        ms = list(ctrl.solve_times_ms)
+        print(f"[plain_mesh] 32.{short}: route plain, no kernel launched, "
+              f"{it} iterations (single device {it_single}); ms per solve "
+              f"{', '.join(f'{m:.3f}' for m in ms)} ({PLAIN_MESH_STEPS} "
+              f"steps, 2 ranks sharing the card) on {card}")
+        out[short] = {"control": controls[0], "iterations": it, "ms": ms}
+        torch.cuda.synchronize()
+    print(f"[time] phase 32: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
 def mesh_rank(rank, init, results, ref_paths):
     """One rank of phases 23-27 (a process of its own): joins the gloo
     group, puts (rank, outcome) on ``results``.  Rank 1's output goes to
@@ -3383,7 +3520,8 @@ def mesh_rank(rank, init, results, ref_paths):
         distributed.initialize(backend="gloo", init_method=f"file://{init}",
                                rank=rank, world_size=MESH_RANKS)
         mesh = make_mesh(MESH_RANKS, devices=["cuda:0"] * MESH_RANKS)
-        results.put((rank, mesh_phases(mesh, ref_paths)))
+        results.put((rank, mesh_phases(mesh, ref_paths) +
+                     (plain_mesh_phase(mesh),)))
         mesh.barrier()
         torch.distributed.destroy_process_group()
     except BaseException:
@@ -3400,6 +3538,8 @@ def run_mesh_phases(ref_paths=None):
     import multiprocessing as mp
     import queue
     import tempfile
+
+    import numpy as np
     import torch
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3435,8 +3575,15 @@ def run_mesh_phases(ref_paths=None):
             if p.is_alive():
                 p.terminate()
                 p.join(10)
-    entries, counts, peak0 = out[0]
-    peak1 = out[1][2]
+    entries, counts, peak0, plain0 = out[0]
+    peak1, plain1 = out[1][2], out[1][3]
+    for short in plain0:
+        same = np.array_equal(plain0[short]["control"],
+                              plain1[short]["control"])
+        print(f"[plain_mesh] 32.{short}: the ranks' controls equal bit for "
+              f"bit: {same}")
+        if not same:
+            raise SmokeFailure(f"32.{short}: the ranks' controls differ")
     print(f"[memory] sharded solves: peak {peak0 / 2**20:.3f} MiB on rank 0, "
           f"{peak1 / 2**20:.3f} MiB on rank 1 (each process's own "
           "allocator)")
@@ -3790,6 +3937,7 @@ LADDER_WRAPPERS = {
     "5_1024scenario_H24": "apg_stream",
     "5_1024scenario_H24_bf16z": None,
     "5_1024scenario_H24_stream": "apg_stream",
+    "5_1024scenario_H24_shardmap_1dev": None,
     "5_1024scenario_H24_stream_fused": "apg_stream_fused",
     "5h_512scenario_H24_stream_halfwidth": "apg_stream",
     "5h_512scenario_H24_fbe_stream_halfwidth": "stream_qn.s1",
@@ -3822,6 +3970,63 @@ def ladder_phase():
         if "error" in row or not ok:
             raise SmokeFailure(f"30: row {name}: {json.dumps(row)}")
     return counts
+
+
+# phase 33: (example, its arguments, the route its controller must take,
+# the wrapper it must launch once a step and no other); 2 steps each
+EXAMPLE_STEPS = 2
+EXAMPLES = (
+    ("barcelona_scale", ["--steps", "2"], "kernel", "apg_solve"),
+    ("batched_monte_carlo", ["--batch", "8", "--steps", "2"], "kernel",
+     "apg_solve_batch"),
+    ("large_tree_streaming", [], "stream", "apg_stream"),
+    ("epanet_to_controller", [], "kernel", "apg_solve"),
+)
+
+
+def examples_phase():
+    """Phase 33: the single-device examples on the card, in process
+    through their ``main`` (what ``python -m
+    rapidnet_tpu_torch.examples.<name>`` runs) with ``--device cuda``,
+    every count zeroed just before each: each takes its route and
+    launches its wrapper once a step and no other, with finite controls
+    inside the physical bounds and finite KPIs; ``epanet_to_controller``
+    writes into a temporary directory.  Returns the launches by wrapper
+    name, all examples together."""
+    import importlib
+    import tempfile
+
+    import numpy as np
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        for name, argv, route, wrapper in EXAMPLES:
+            if name == "epanet_to_controller":
+                argv = argv + ["--out", str(Path(tmp) / "dwn")]
+            mod = importlib.import_module(
+                f"rapidnet_tpu_torch.examples.{name}")
+            zero_counts()
+            t0 = time.perf_counter()
+            got = mod.main(argv + ["--device", "cuda"])
+            wall = time.perf_counter() - t0
+            n = count_launches(f"33.{name}", wrapper, EXAMPLE_STEPS)
+            launches[wrapper] = launches.get(wrapper, 0) + n
+            net = got["network"]
+            u = np.asarray(got["controls"])
+            kpi = np.asarray([np.asarray(v, np.float64)
+                              for v in got["kpis"].values()])
+            ok = (got["route"] == route and np.isfinite(u).all() and
+                  (u >= net.umin - 1e-6).all() and
+                  (u <= net.umax + 1e-6).all() and np.isfinite(kpi).all())
+            print(f"[examples] 33.{name}: route {got['route']}, {n} "
+                  f"{wrapper} launches for {EXAMPLE_STEPS} steps, controls "
+                  f"{tuple(u.shape)} finite inside the physical bounds and "
+                  f"finite KPIs: {ok}; wall {wall:.3f} s")
+            if not ok:
+                raise SmokeFailure(f"33.{name}: route {got['route']} "
+                                   f"(expected {route}), or controls or "
+                                   "KPIs out of bounds")
+    return launches
 
 
 CLI_STEPS = 2         # phase 31: closed-loop steps a CLI run takes
@@ -4146,12 +4351,13 @@ def main() -> int:
         if e["name"] in cli:
             e["cli_launches"] = cli[e["name"]]
     lap("31")
+    examples = examples_phase()
+    for e in entries:
+        if e["name"] in examples:
+            e["example_launches"] = examples[e["name"]]
+    lap("33")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    print(card_name())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -28,6 +28,13 @@ Rows and the solve each runs (``path``):
 * ``5_1024scenario_H24_bf16z``: the plain ``solver/apg.make_apg`` with
   the Nesterov difference stored in bf16 (``dual_dtype``);
 * ``5_1024scenario_H24_stream``: ``make_apg_stream_kernel``;
+* ``5_1024scenario_H24_shardmap_1dev``: the plain sharded APG solve
+  (``parallel.make_sharded_apg``) on a mesh of one rank
+  (``Mesh(0, 1, device)``, no process group: its collectives are local
+  copies, as a 1-device shard_map's compile to nothing); the JAX
+  ladder's shard_map row (``bench_ladder.py:215-246``): the sharded
+  wrapper's own cost (the cuts, the gathers, the copies) over the plain
+  solve, not a collective's;
 * ``5_1024scenario_H24_stream_fused``: ``make_apg_stream_fused``, one
   cooperative launch an iteration (the JAX ladder's opt-in
   ``RAPIDNET_LADDER_FUSED`` guarded a remote TPU compile; here it runs by
@@ -38,9 +45,8 @@ Rows and the solve each runs (``path``):
   make_qn_stream``, FBE, buffer 5, on the same tree.
 
 Left out (ROADMAP.md lists each with the item that brings it): the real
-Barcelona row ``3R`` (``io/datasource``, item 14, and reference files
-this checkout lacks), the shard_map rows (items 12b and, for the
-emulated shards, the "Do not port" list), and the TPU tooling
+Barcelona row ``3R`` (reference files this checkout lacks), the
+emulated-shard rows (the "Do not port" list), and the TPU tooling
 (virtual-device scaling, HLO collectives, transport latency, the
 regression check against TPU numbers).
 
@@ -121,7 +127,7 @@ def solver_kw(cfg):
 def solver(problem, backend=None, *, batch=None):
     """(fn(step or stacked steps), path) for a row: ``backend`` None is
     the ``auto`` route (with ``batch``, the batched whole-solve kernel),
-    else "bf16z", "stream", "stream_fused" or "fbe_stream"."""
+    else "bf16z", "stream", "stream_fused", "fbe_stream" or "shardmap"."""
     from rapidnet_tpu_torch.model.config import (ALGORITHM_APG,
                                                  ALGORITHM_FBE)
     from rapidnet_tpu_torch.ops import apg_solve, apg_stream
@@ -129,7 +135,7 @@ def solver(problem, backend=None, *, batch=None):
     from rapidnet_tpu_torch.solver.controller import auto_route, tree_dims
     from rapidnet_tpu_torch.solver.qn_stream import make_qn_stream
 
-    cfg, eng, fa, _, _ = problem
+    cfg, eng, fa, make_step, _ = problem
     kw = dict(solver_kw(cfg), prefix_stages=eng.factor_step().prefix_stages)
     dev = fa["d1"].device
     if backend is None:
@@ -147,6 +153,13 @@ def solver(problem, backend=None, *, batch=None):
         return (lambda step: plain(fa, step)), "make_apg(dual_dtype=bf16)"
     if backend == "stream":
         return apg_stream.make_apg_stream_kernel(fa, **kw), "apg_stream"
+    if backend == "shardmap":
+        from rapidnet_tpu_torch.parallel import (Mesh, make_sharded_apg,
+                                                 shard_factor_arrays)
+        mesh = Mesh(0, 1, dev)
+        run = make_sharded_apg(mesh, fa, make_step(cfg.current_x), **kw)
+        fa_l = shard_factor_arrays(fa, mesh)
+        return (lambda step: run(fa_l, step)), "make_sharded_apg(1 rank)"
     if backend == "stream_fused":
         return apg_stream.make_apg_stream_fused(fa, **kw), "apg_stream_fused"
     if backend == "fbe_stream":
@@ -268,6 +281,8 @@ def main(argv=None) -> int:
         ("5_1024scenario_H24", "5", c5, rep5, None, None),
         ("5_1024scenario_H24_bf16z", "5", c5, rep5, "bf16z", None),
         ("5_1024scenario_H24_stream", "5", c5, rep5, "stream", None),
+        ("5_1024scenario_H24_shardmap_1dev", "5", c5, rep5, "shardmap",
+         None),
         ("5_1024scenario_H24_stream_fused", "5", c5, rep5, "stream_fused",
          None),
         ("5h_512scenario_H24_stream_halfwidth", "5h", half, rep5, "stream",

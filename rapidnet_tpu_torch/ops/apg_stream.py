@@ -119,7 +119,9 @@ TOLERANCE_MESSAGE = (
 class NotStreamable(ValueError):
     """The factors are not of the form the streaming kernels take: a
     preconditioner or bound that is not sqrt(prob) x a per-stage row, or
-    a prefix aggregation that is not 0/1 with one parent per slot."""
+    a prefix aggregation that is not 0/1 with one parent per slot; on a
+    mesh also a tree the sharded pack cannot cut
+    (``apg_stream_sharded.pack_stream_sharded``)."""
 
 
 def stream_fits(N: int, ns: int, nx: int, nu: int, nv: int,

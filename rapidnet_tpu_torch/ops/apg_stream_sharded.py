@@ -87,7 +87,7 @@ def analyze_prefix_locality(fa: dict, n_shards: int) -> dict:
     s_hi = max(cross) if cross else 0
     for s in local:
         if s < s_hi:
-            raise ValueError(
+            raise S.NotStreamable(
                 f"prefix stage {s} is shard-local below the cross-shard "
                 f"stage {s_hi} — unsupported tree/shard layout")
     return {"s_hi": s_hi, "local": local, "cross": cross, "nsl": nsl}
@@ -108,12 +108,13 @@ def pack_stream_sharded(fa: dict, n_shards: int, rank: int, *,
     slot's parent; ``low``, for each cross stage below s_hi, its
     child-sum block over the local columns and each local slot's
     parent.  Raises a ValueError when ns is not a multiple of
-    ``n_shards`` or no stage crosses shards, and ``NotStreamable`` when
-    the factors are not of the rank-1, 0/1 form."""
+    ``n_shards``, and ``NotStreamable`` when no stage crosses shards, a
+    shard-local stage lies below a cross one, or the factors are not of
+    the rank-1, 0/1 form."""
     info = analyze_prefix_locality(fa, n_shards)
     s_hi = info["s_hi"]
     if s_hi == 0:
-        raise ValueError(SINGLE_SHARD)
+        raise S.NotStreamable(SINGLE_SHARD)
     if not 0 <= rank < n_shards:
         raise ValueError(f"rank {rank} outside {n_shards} shards")
     # checks the rank-1 rows and that every aggregation is 0/1 with one
@@ -500,23 +501,37 @@ def check_mesh(mesh, fa):
                          f"device is {mesh.device}")
 
 
+def check_consts(mesh, kc: dict) -> None:
+    """Constants handed to a sharded solve must be this rank's
+    ``pack_stream_sharded``, not the single-device pack."""
+    if (kc.get("n_shards"), kc.get("rank")) != (mesh.size, mesh.rank):
+        raise ValueError("consts on a mesh are packed per shard: pass "
+                         "this rank's pack_stream_sharded(fa, mesh.size, "
+                         "mesh.rank, ...)")
+
+
 # ---------------------------------------------------------------- solve
 
 
 def make_apg_stream_sharded(mesh, fa: dict, *, prefix_stages: tuple,
                             inv_step, step_size, penalty_state,
                             penalty_safety, xs_upper, max_iterations,
-                            tolerance=None):
+                            tolerance=None, consts=None):
     """The streaming APG solve over a 1-D scenario mesh (``make_apg_
     stream_sharded``, :217-793): run(step, y0=None), collective, every
     rank calling it with the same global step.  Same output contract as
     ``apg_stream.make_apg_stream_kernel``; x, u, v and y come back in the
-    global layout on every rank."""
+    global layout on every rank.  ``consts``: this rank's
+    ``pack_stream_sharded`` when the caller already packed it (the
+    controller's gate)."""
     S._check_budget(max_iterations, tolerance)
     check_mesh(mesh, fa)
     K = int(max_iterations)
-    kc = pack_stream_sharded(fa, mesh.size, mesh.rank,
-                             prefix_stages=prefix_stages, max_iterations=K)
+    if consts is not None:
+        check_consts(mesh, consts)
+    kc = consts if consts is not None else pack_stream_sharded(
+        fa, mesh.size, mesh.rank, prefix_stages=prefix_stages,
+        max_iterations=K)
     hyper = dict(inv_step=inv_step, step_size=step_size,
                  penalty_state=penalty_state, penalty_safety=penalty_safety,
                  xs_upper=xs_upper, max_iterations=K)

@@ -13,6 +13,12 @@ held to.
 * ``tolerance``: early termination on the true residual magnitude
   (``max_abs_residual``); the reference always runs the full budget.
   This path reads the magnitude on the host once per iteration.
+* ``trace_control``: also return ``control_trace``, the unprojected
+  stage-0 u after every iteration (the time-to-solution diagnostic).
+* ``mesh``: the scenario-sharded solve of one rank
+  (``parallel.make_sharded_apg`` wraps it): the oracle's collectives
+  (``solve_step``'s ``mesh``) and the trace and stopping rule reduced
+  over the ranks, so every rank stops at the same iteration.
 
 The batched solves (``make_apg_batch``, ``make_apg_batch_shared``: B
 independent instances over one factor step, the JAX package's ``vmap``
@@ -56,7 +62,8 @@ def nesterov_lambdas(max_iterations: int) -> np.ndarray:
 
 
 def apg_oracle(fa, step, w_xi, w_psi, *, prefix_stages, inv_step,
-               step_size, penalty_state, penalty_safety, xs_upper):
+               step_size, penalty_state, penalty_safety, xs_upper,
+               mesh=None):
     """One dual-gradient step at an injected accelerated dual w.
 
     Solve step, prox of g, fixed-point residual (Hz - t,
@@ -68,11 +75,11 @@ def apg_oracle(fa, step, w_xi, w_psi, *, prefix_stages, inv_step,
     sol = ss.solve_step(
         fa, w_xi, w_psi, step["beta"], step["uhat"], step["e"],
         step["x0"], step["prev_u"], step["prev_uhat"],
-        prefix_stages=prefix_stages)
+        prefix_stages=prefix_stages, mesh=mesh)
     dual_xi, dual_psi, value_g = ss.prox_g(
         fa, sol["prim_xi"], sol["prim_psi"], w_xi, w_psi,
         inv_step=inv_step, penalty_state=penalty_state,
-        penalty_safety=penalty_safety, xs_upper=xs_upper)
+        penalty_safety=penalty_safety, xs_upper=xs_upper, mesh=mesh)
     res_xi = sol["prim_xi"] - dual_xi
     res_psi = sol["prim_psi"] - dual_psi
     return dict(sol, dual_xi=dual_xi, dual_psi=dual_psi,
@@ -84,7 +91,8 @@ def apg_oracle(fa, step, w_xi, w_psi, *, prefix_stages, inv_step,
 def make_apg(*, prefix_stages: tuple, inv_step: float, step_size: float,
              penalty_state: float, penalty_safety: float, xs_upper: float,
              max_iterations: int, tolerance: float | None = None,
-             dual_dtype=torch.float32):
+             dual_dtype=torch.float32, mesh=None,
+             trace_control: bool = False):
     """Build the APG solve function.
 
     Returns fn(fa, step, y0=None) -> dict with the final control (the
@@ -94,6 +102,13 @@ def make_apg(*, prefix_stages: tuple, inv_step: float, step_size: float,
     A leading batch axis on ``step`` and ``y0`` runs B instances at once
     (``make_apg_batch``).
 
+    ``trace_control``: the output also holds
+    ``control_trace``, the unprojected stage-0 u after each iteration,
+    (max_iterations, nu) (with a batch axis in front), zero past an
+    instance's exit under a ``tolerance``
+    (``rapidnet_tpu/solver/apg.py:160-180``).  ``mesh``: the solve of
+    this rank of a scenario mesh on its slot block (module docstring).
+
     ``dual_dtype``: the storage of the Nesterov difference z = y - y_prev
     (``rapidnet_tpu/solver/apg.py:77``, ``:115-116``, ``:133``);
     ``torch.bfloat16`` stores it in half the bytes, the config ladder's
@@ -101,7 +116,8 @@ def make_apg(*, prefix_stages: tuple, inv_step: float, step_size: float,
     """
     oracle_kw = dict(prefix_stages=prefix_stages, inv_step=inv_step,
                      step_size=step_size, penalty_state=penalty_state,
-                     penalty_safety=penalty_safety, xs_upper=xs_upper)
+                     penalty_safety=penalty_safety, xs_upper=xs_upper,
+                     mesh=mesh)
     lams = nesterov_lambdas(max_iterations)
 
     def run(fa, step, y0=None):
@@ -122,7 +138,7 @@ def make_apg(*, prefix_stages: tuple, inv_step: float, step_size: float,
         # instances still iterating, and their iteration counts
         active = torch.ones(lead, dtype=torch.bool, device=x.device)
         iterations = torch.zeros(lead, dtype=torch.int32, device=x.device)
-        trace = []
+        trace, controls = [], []
         for it in range(max_iterations):
             lam = float(lams[it])
             # w = (1+lam) y - lam y_prev = y + lam z  (dual
@@ -134,7 +150,8 @@ def make_apg(*, prefix_stages: tuple, inv_step: float, step_size: float,
                    "z_xi": (o["y_xi"] - y["xi"]).to(dual_dtype),
                    "z_psi": (o["y_psi"] - y["psi"]).to(dual_dtype),
                    "x": o["x"], "u": o["u"], "v": o["v"]}
-            signed = ss.signed_max_abs(o["res_xi"], o["res_psi"])
+            signed = ss.signed_max_abs(o["res_xi"], o["res_psi"], mesh)
+            u0 = o["u"][..., 0, 0, :]
             if tolerance is not None:
                 # an instance that has stopped keeps its state
                 old = {"y_xi": y["xi"], "y_psi": y["psi"], "z_xi": z["xi"],
@@ -143,14 +160,17 @@ def make_apg(*, prefix_stages: tuple, inv_step: float, step_size: float,
                 new = {k: torch.where(keep, new[k], old[k]) for k in new}
                 signed = torch.where(active, signed,
                                      torch.zeros_like(signed))
+                u0 = torch.where(active[..., None], u0, torch.zeros_like(u0))
             y = {"xi": new["y_xi"], "psi": new["y_psi"]}
             z = {"xi": new["z_xi"], "psi": new["z_psi"]}
             x, u, v = new["x"], new["u"], new["v"]
             trace.append(signed)
+            if trace_control:
+                controls.append(u0)
             iterations += active.to(torch.int32)
             if tolerance is not None:
                 active = active & (ss.max_abs_residual(o["res_xi"],
-                                                       o["res_psi"])
+                                                       o["res_psi"], mesh)
                                    > tolerance)
                 if not bool(active.any()):
                     break
@@ -158,9 +178,15 @@ def make_apg(*, prefix_stages: tuple, inv_step: float, step_size: float,
         if trace:
             infeas[..., :len(trace)] = torch.stack(trace, dim=-1)
         lo, hi = ss.root_control_bounds(fa)
-        return {"control": torch.clamp(u[..., 0, 0, :], lo, hi), "x": x,
-                "u": u, "v": v, "y": y, "primal_infeasibility": infeas,
-                "iterations": iterations}
+        out = {"control": torch.clamp(u[..., 0, 0, :], lo, hi), "x": x,
+               "u": u, "v": v, "y": y, "primal_infeasibility": infeas,
+               "iterations": iterations}
+        if trace_control:
+            out["control_trace"] = zeros(max_iterations, nu)
+            if controls:
+                out["control_trace"][..., :len(controls), :] = torch.stack(
+                    controls, dim=-2)
+        return out
 
     return run
 

@@ -117,7 +117,8 @@ class BatchedSmpcController:
                                     for f in self.forecasters)
         self.engine = Engine(network, tree, config)
         self.warm_start = warm_start
-        self._y_carry = None
+        self.route = None        # 'kernel' or 'plain': what initialise()
+        self._y_carry = None     # picked
         self._solver = None
         self._fa = None
         self._last_control: Optional[np.ndarray] = None
@@ -167,8 +168,10 @@ class BatchedSmpcController:
                        and not fits(**tree_dims(self._fa)))
         if self.backend == "torch" or past_limits:
             run, fa = plain(**kw), self._fa
+            self.route = "plain"
             self._solver = lambda *args: run(fa, *args)
         else:
+            self.route = "kernel"
             self._solver = kernel(self._fa, **kw)
 
     # ------------------------------------------------------------------

@@ -33,16 +33,26 @@ FBE and NAMA (``config.algorithm``; FBE and NAMA with the config's
 
 ``mesh``: a ``parallel.Mesh`` (one process per shard of the scenario
 axis; every rank builds the same controller and runs the same loop).
-The solve is then the scenario-sharded streaming solve
-(``ops/apg_stream_sharded.make_apg_stream_sharded`` for APG,
-``solver/qn_stream.make_qn_stream(mesh=...)`` for FBE and NAMA) on the
-mesh's device: with ``backend='stream'``, or ``'auto'`` when
-``auto_route`` picks ``'stream'`` for the whole tree
-(``rapidnet_tpu/solver/controller.py:243-346``).  ``'cuda'`` raises (the
-whole-solve kernels are single-device), as the JAX package's
-``'pallas'`` does; the plain shard_map solves (a tolerance, ``'torch'``,
-``'auto'`` on a tree the whole-solve kernel fits) are not ported
-(ROADMAP item 12b) and raise ``NotImplementedError``.
+The solve then runs scenario-sharded on the mesh's device, on one of two
+routes (``rapidnet_tpu/solver/controller.py:243-346``):
+
+* ``'stream'``: the sharded streaming solve
+  (``ops/apg_stream_sharded.make_apg_stream_sharded`` for APG,
+  ``solver/qn_stream.make_qn_stream(mesh=...)`` for FBE and NAMA), with
+  ``backend='stream'``, or ``'auto'`` when ``auto_route`` picks
+  ``'stream'`` for the whole tree on a CUDA mesh;
+* ``'plain'``: the plain sharded solve (``parallel.make_sharded_apg``,
+  ``make_sharded_quasi_newton``; JAX's XLA shard_map solve) everywhere
+  else: under a tolerance, with ``'torch'``, with ``'auto'`` on a CPU
+  mesh or on a tree ``auto_route`` does not send to ``'stream'``, and
+  with ``'auto'`` when the sharded streaming pack refuses the tree
+  (``apg_stream.NotStreamable``; JAX's ``except ValueError``), its
+  message kept in ``route_reason``.
+
+``'cuda'`` raises (the whole-solve kernels are single-device), as the
+JAX package's ``'pallas'`` does, and so does ``'stream'`` under a
+tolerance.  Both routes return x, u, v and the duals y in the global
+layout on every rank, so a warm start carries over either.
 
 Differences from the reference (intentional, as in the JAX package):
   * the built-in simulator applies the demand disturbance e to the state
@@ -73,7 +83,8 @@ from rapidnet_tpu_torch.model.network import DwnNetwork
 from rapidnet_tpu_torch.model.scenario_tree import ScenarioTree
 from rapidnet_tpu_torch.ops import apg_solve, apg_stream, lbfgs, qn_solve
 from rapidnet_tpu_torch.ops import apg_stream_sharded
-from rapidnet_tpu_torch.parallel.sharding import Mesh
+from rapidnet_tpu_torch.parallel.sharding import (
+    Mesh, make_sharded_apg, make_sharded_quasi_newton, shard_factor_arrays)
 from rapidnet_tpu_torch.ops import stream_qn
 from rapidnet_tpu_torch.solver import apg as apg_mod
 from rapidnet_tpu_torch.solver import qn_stream
@@ -83,10 +94,6 @@ BACKENDS = ("auto", "cuda", "stream", "torch")
 ALGORITHMS = (ALGORITHM_APG, ALGORITHM_FBE, ALGORITHM_NAMA)
 STREAM_PRECISIONS = (None, "highest")
 STREAM_LBFGS_DTYPES = (None, "float32", "bfloat16")
-MESH_PLAIN = ("the plain shard_map solves on a mesh ({}) are not ported "
-              "yet (ROADMAP queue 1, item 12b); on a mesh the sharded "
-              "streaming solve runs with backend='stream' or 'auto' past "
-              "the whole-solve kernel's limits, with no tolerance")
 
 
 def auto_route(algorithm: str, *, tolerance, N: int, ns: int, nx: int,
@@ -167,11 +174,6 @@ class SmpcController:
                     "the whole-solve CUDA kernels are single-device; with a "
                     "mesh use backend='stream' (per-shard streaming "
                     "kernels) or 'auto'")
-            if backend == "torch":
-                raise NotImplementedError(MESH_PLAIN.format(
-                    "backend='torch'"))
-            if tolerance is not None and backend != "stream":
-                raise NotImplementedError(MESH_PLAIN.format("a tolerance"))
         if stream_precision not in STREAM_PRECISIONS:
             raise ValueError(
                 f"stream_precision must be None or 'highest' (the "
@@ -265,33 +267,57 @@ class SmpcController:
             self._solver = make_kernel(self._fa, **kw)
 
     def _initialise_sharded(self, kw: dict) -> None:
-        """The scenario-sharded streaming solve over ``self.mesh``
-        (``_initialise_sharded`` of the JAX controller, its streaming
-        branch).  ``auto`` takes it when ``auto_route`` picks 'stream' for
-        the whole tree on the mesh's CUDA device; every other case raises
-        (the plain shard_map solves are not ported)."""
+        """The scenario-sharded solve over ``self.mesh``
+        (``_initialise_sharded`` of the JAX controller): the sharded
+        streaming solve with ``stream``, or with ``auto`` when
+        ``_auto_streams`` says so and the sharded pack takes the tree;
+        else the plain sharded solve (module docstring).  Only the
+        pack's ``NotStreamable`` sends ``auto`` to the plain solve: the
+        streaming wrapper is built outside the gate, so any other error
+        of it raises."""
         self.route_reason = None
-        if self.backend == "auto":
-            if self.device.type != "cuda":
-                raise NotImplementedError(MESH_PLAIN.format(
-                    "backend='auto' on a CPU mesh, whose tree every "
-                    "whole-solve wrapper takes"))
-            with torch.cuda.device(self.device):
-                route = auto_route(
-                    self.config.algorithm, tolerance=self.tolerance,
-                    lbfgs_buffer_size=self.config.lbfgs_buffer_size,
-                    **tree_dims(self._fa))
-            if route != "stream":
-                raise NotImplementedError(MESH_PLAIN.format(
-                    f"backend='auto' on a tree routed to '{route}'"))
-        self.route = "stream"
+        consts = None
+        if self.backend == "auto" and self._auto_streams():
+            try:
+                consts = apg_stream_sharded.pack_stream_sharded(
+                    self._fa, self.mesh.size, self.mesh.rank,
+                    prefix_stages=kw["prefix_stages"],
+                    max_iterations=kw["max_iterations"])
+            except apg_stream.NotStreamable as exc:
+                self.route_reason = str(exc)
+        if self.backend == "stream" or consts is not None:
+            if self.config.algorithm == ALGORITHM_APG:
+                self._solver = apg_stream_sharded.make_apg_stream_sharded(
+                    self.mesh, self._fa, consts=consts, **kw)
+            else:
+                self._solver = qn_stream.make_qn_stream(
+                    self._fa, mesh=self.mesh, consts=consts,
+                    lbfgs_dtype=self.stream_lbfgs_dtype, **kw)
+            self.route = "stream"
+            return
+        N, ns = self._fa["d1"].shape[:2]
+        step_shape = {"beta": torch.empty(N, ns, self._fa["invWbar"].shape[0],
+                                          device="meta")}
         if self.config.algorithm == ALGORITHM_APG:
-            self._solver = apg_stream_sharded.make_apg_stream_sharded(
-                self.mesh, self._fa, **kw)
+            run = make_sharded_apg(self.mesh, self._fa, step_shape, **kw)
         else:
-            self._solver = qn_stream.make_qn_stream(
-                self._fa, mesh=self.mesh,
-                lbfgs_dtype=self.stream_lbfgs_dtype, **kw)
+            run = make_sharded_quasi_newton(self.mesh, self._fa, step_shape,
+                                            **kw)
+        fa = shard_factor_arrays(self._fa, self.mesh)
+        self.route = "plain"
+        self._solver = lambda step, y0: run(fa, step, y0)
+
+    def _auto_streams(self) -> bool:
+        """Whether ``auto`` on the mesh asks for the sharded streaming
+        solve: a fixed budget on a CUDA mesh whose whole tree
+        ``auto_route`` sends to 'stream'."""
+        if self.tolerance is not None or self.device.type != "cuda":
+            return False
+        with torch.cuda.device(self.device):
+            return auto_route(
+                self.config.algorithm, tolerance=None,
+                lbfgs_buffer_size=self.config.lbfgs_buffer_size,
+                **tree_dims(self._fa)) == "stream"
 
     def _route(self, kw: dict):
         """'kernel', 'stream' or 'plain', and the streaming constants

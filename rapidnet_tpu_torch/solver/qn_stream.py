@@ -133,8 +133,9 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
                    mesh=None):
     """Build the streaming FBE/NAMA solve: run(step, y0=None) -> outputs.
 
-    ``consts``: ``apg_stream.stream_constants(fa, ...)`` when the caller
-    already packed them (the controller's gate; single device only).
+    ``consts``: ``apg_stream.stream_constants(fa, ...)``, or on a mesh
+    this rank's ``apg_stream_sharded.pack_stream_sharded``, when the
+    caller already packed them (the controller's gate).
     ``lbfgs_dtype``: the history's storage, float32 (default) or
     bfloat16.  ``y0``: a dual warm start {"xi", "psi"} in the XLA path's
     layout; the history starts fresh.  ``mesh``: a ``parallel.Mesh``, the
@@ -160,12 +161,12 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
             fa, prefix_stages=prefix_stages,
             max_iterations=int(max_iterations))
     else:
-        if consts is not None:
-            raise ValueError("consts are packed per shard on a mesh")
         SS.check_mesh(mesh, fa)
-        kc = SS.pack_stream_sharded(fa, mesh.size, mesh.rank,
-                                    prefix_stages=prefix_stages,
-                                    max_iterations=int(max_iterations))
+        if consts is not None:
+            SS.check_consts(mesh, consts)
+        kc = consts if consts is not None else SS.pack_stream_sharded(
+            fa, mesh.size, mesh.rank, prefix_stages=prefix_stages,
+            max_iterations=int(max_iterations))
     N, ns, nx, nu, nv = SQ.dims(kc)
     D = 2 * nx + nu
     dev = kc["sq"].device

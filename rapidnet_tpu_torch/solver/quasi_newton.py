@@ -20,6 +20,13 @@ branches (the accept test, the line search) read their scalars on the
 host.  ``make_solver`` solves one instance; ``make_solver_batch`` and
 ``make_solver_batch_shared`` solve B of them, one after another.
 
+``mesh``: the solve of one rank of a scenario mesh on its slot block
+(``parallel.make_sharded_quasi_newton`` wraps it), the counterpart of the
+JAX functions' ``axis_name``: every dot, norm and value of the dual space
+is summed over the ranks (``psum``) before any branch reads it, so the
+accept test, every line-search decision and the tolerance exit come out
+the same on every rank.  The sums of one step share one all-reduce.
+
 As in the JAX package: the buffers have buffer_size + 1 columns, with
 column 0 always zero and rho[0] = 0, so the reference's
 ``col = 1 + col % size`` wrap and the two-loop's occasional visit to
@@ -47,12 +54,18 @@ def masked_dot(a, b, rep):
     return torch.sum(rep[..., None] * a * b)
 
 
-def dual_dot(a, b, rep):
+def _local_dot(a, b, rep):
     return masked_dot(a["xi"], b["xi"], rep) + \
         masked_dot(a["psi"], b["psi"], rep)
 
 
-def oracle(fa, xi, psi, *, prefix_stages):
+def dual_dot(a, b, rep, mesh=None):
+    """<a, b> over the dual pair {xi, psi}, counting each node once."""
+    s = _local_dot(a, b, rep)
+    return s if mesh is None else mesh.psum(s)
+
+
+def oracle(fa, xi, psi, *, prefix_stages, mesh=None):
     """The solve-step linear map on a dual direction (affine terms 0)."""
     N, ns = xi.shape[:2]
     nx = fa["d1"].shape[-1]
@@ -62,26 +75,27 @@ def oracle(fa, xi, psi, *, prefix_stages):
     return ss.solve_step(
         fa, xi, psi, zeros((N, ns, nv)), zeros((N, ns, nu)),
         zeros((N, ns, nx)), zeros((nx,)), zeros((nu,)), zeros((nu,)),
-        prefix_stages=prefix_stages)
+        prefix_stages=prefix_stages, mesh=mesh)
 
 
-def value_fbe(fa, step, w, u, res, value_g, *, step_size):
+def value_fbe(fa, step, w, u, res, value_g, *, step_size, mesh=None):
     """FBE value (computeValueFbe, src/SmpcController.cu:1417-1476):
 
     <w, r> + (step/2) ||r||^2 + g-values + f(u), with
     f = sum_n p_n du_n' W du_n + sum_n p_n u_n' alpha_n and
-    du_n = u_n - u_anc(n) (root: - previous control).
+    du_n = u_n - u_anc(n) (root: - previous control).  On a ``mesh`` the
+    four sums are summed over the ranks in one all-reduce.
     """
     rep = fa["rep"]
-    val = dual_dot(w, res, rep)
-    val = val + 0.5 * step_size * dual_dot(res, res, rep)
-    val = val + value_g
     du0 = u[0] - step["prev_u"][None, :]
     du = torch.cat([du0[None], u[1:] - u[:-1]], dim=0)
     Wdu = du @ fa["W"].T
     p = fa["prob"]
-    smooth = torch.sum(rep[..., None] * (p * du) * Wdu)
-    econ = torch.sum(rep[..., None] * (p * u) * step["alpha_price"])
+    wr, rr, smooth, econ = ss.psum_all(
+        mesh, _local_dot(w, res, rep), _local_dot(res, res, rep),
+        torch.sum(rep[..., None] * (p * du) * Wdu),
+        torch.sum(rep[..., None] * (p * u) * step["alpha_price"]))
+    val = wr + 0.5 * step_size * rr + value_g
     return val + smooth + econ
 
 
@@ -102,7 +116,7 @@ def empty_lbfgs(fa, N, ns, buffer_size):
 
 
 def lbfgs_update_and_direction(fa, lb, y, y_prev, yvec, yvec_prev, *,
-                               buffer_size, storage=None):
+                               buffer_size, storage=None, mesh=None):
     """L-BFGS buffer update + two-loop recursion.
 
     Reference: updateLbfgsBuffer (src/SmpcController.cu:1103-1177) and
@@ -119,10 +133,10 @@ def lbfgs_update_and_direction(fa, lb, y, y_prev, yvec, yvec_prev, *,
     if storage is not None:
         s = {k: v.to(storage).to(v.dtype) for k, v in s.items()}
         yv = {k: v.to(storage).to(v.dtype) for k, v in yv.items()}
-    norm_grad = torch.sqrt(dual_dot(yvec, yvec, rep))
-    inv_rho = dual_dot(s, yv, rep)
-    norm_y2 = dual_dot(yv, yv, rep)
-    norm_s2 = dual_dot(s, s, rep)
+    gg, inv_rho, norm_y2, norm_s2 = ss.psum_all(
+        mesh, _local_dot(yvec, yvec, rep), _local_dot(s, yv, rep),
+        _local_dot(yv, yv, rep), _local_dot(s, s, rep))
+    norm_grad = torch.sqrt(gg)
 
     norm_grad = torch.where(norm_grad < 1.0, norm_grad ** 3, norm_grad)
     accept = bool(inv_rho / torch.clamp(norm_s2, min=1e-30) >
@@ -154,7 +168,7 @@ def lbfgs_update_and_direction(fa, lb, y, y_prev, yvec, yvec_prev, *,
         icol = col - i
         icol = mem + icol if icol < 0 else icol
         sk = {k: mat_s[k][icol] for k in DUAL_KEYS}
-        a = rho[icol] * dual_dot(sk, d, rep)
+        a = rho[icol] * dual_dot(sk, d, rep, mesh)
         d = {k: d[k] - a * mat_y[k][icol] for k in DUAL_KEYS}
         alphas[icol] = a
     d = {k: hessian * d[k] for k in DUAL_KEYS}
@@ -162,7 +176,7 @@ def lbfgs_update_and_direction(fa, lb, y, y_prev, yvec, yvec_prev, *,
         icol = col - (mem - j) + 1     # reference iSize runs mem..1
         icol = mem + icol if icol < 0 else icol
         yk = {k: mat_y[k][icol] for k in DUAL_KEYS}
-        b = rho[icol] * dual_dot(yk, d, rep)
+        b = rho[icol] * dual_dot(yk, d, rep, mesh)
         scale = alphas[icol] - b
         d = {k: d[k] + scale * mat_s[k][icol] for k in DUAL_KEYS}
     lb_new = {"mat_s": mat_s, "mat_y": mat_y, "rho": rho, "col": col,
@@ -171,7 +185,7 @@ def lbfgs_update_and_direction(fa, lb, y, y_prev, yvec, yvec_prev, *,
 
 
 def _ls_apply(fa, step, state, w_dir, dirs, tau, *, prox_kwargs,
-              step_size):
+              step_size, mesh=None):
     """One cumulative line-search application + re-evaluation."""
     x = state["x"] + tau * dirs["x"]
     u = state["u"] + tau * dirs["u"]
@@ -179,9 +193,11 @@ def _ls_apply(fa, step, state, w_dir, dirs, tau, *, prox_kwargs,
     prim = {"xi": state["prim"]["xi"] + tau * dirs["prim_xi"],
             "psi": state["prim"]["psi"] + tau * dirs["prim_psi"]}
     dual_xi, dual_psi, value_g = ss.prox_g(
-        fa, prim["xi"], prim["psi"], w["xi"], w["psi"], **prox_kwargs)
+        fa, prim["xi"], prim["psi"], w["xi"], w["psi"], mesh=mesh,
+        **prox_kwargs)
     res = {"xi": prim["xi"] - dual_xi, "psi": prim["psi"] - dual_psi}
-    val = value_fbe(fa, step, w, u, res, value_g, step_size=step_size)
+    val = value_fbe(fa, step, w, u, res, value_g, step_size=step_size,
+                    mesh=mesh)
     new_state = {"x": x, "u": u, "w": w, "prim": prim,
                  "dual": {"xi": dual_xi, "psi": dual_psi},
                  "res": res, "value_g": value_g}
@@ -189,7 +205,7 @@ def _ls_apply(fa, step, state, w_dir, dirs, tau, *, prox_kwargs,
 
 
 def tau_line_search(fa, step, state, w_dir, dirs, value_ref,
-                    direction_value, *, prox_kwargs, step_size):
+                    direction_value, *, prox_kwargs, step_size, mesh=None):
     """The reference's cumulative backtracking tau loop (:1280-1315).
 
     Applies tau increments 1, -1/2, +1/4-1/2... cumulatively while the
@@ -203,7 +219,8 @@ def tau_line_search(fa, step, state, w_dir, dirs, value_ref,
     istep, tau, st, trials = 0, 1.0, state, 0
     while istep < LS_MAX_STEPS + 1:
         st, val = _ls_apply(fa, step, st, w_dir, dirs, tau,
-                            prox_kwargs=prox_kwargs, step_size=step_size)
+                            prox_kwargs=prox_kwargs, step_size=step_size,
+                            mesh=mesh)
         trials += 1
         improved = bool(val <= value_ref)
         istep = istep + 1 if improved else LS_MAX_STEPS + 1
@@ -214,25 +231,27 @@ def tau_line_search(fa, step, state, w_dir, dirs, value_ref,
 
 
 def fbe_line_search(fa, step, state, grad, lbfgs_dir, value_ref, *,
-                    prefix_stages, prox_kwargs, step_size):
+                    prefix_stages, prox_kwargs, step_size, mesh=None):
     """computeLineSearchLbfgsUpdate (src/SmpcController.cu:1250-1320)."""
     h = oracle(fa, lbfgs_dir["xi"], lbfgs_dir["psi"],
-               prefix_stages=prefix_stages)
-    dval = dual_dot(grad, lbfgs_dir, fa["rep"])
+               prefix_stages=prefix_stages, mesh=mesh)
+    dval = dual_dot(grad, lbfgs_dir, fa["rep"], mesh)
     return tau_line_search(fa, step, state, lbfgs_dir, h, value_ref, dval,
-                           prox_kwargs=prox_kwargs, step_size=step_size)
+                           prox_kwargs=prox_kwargs, step_size=step_size,
+                           mesh=mesh)
 
 
 def ame_line_search(fa, step, state, lbfgs_dir, value_ref, *,
-                    prefix_stages, prox_kwargs, step_size):
+                    prefix_stages, prox_kwargs, step_size, mesh=None):
     """computeLineSearchAmeLbfgsUpdate (src/SmpcController.cu:1326-1414).
 
     First takes the gradient (residual) step unconditionally, then runs
     the tau loop along the combined direction d = lbfgsDir - step * res.
     """
     res = state["res"]
-    dval = -dual_dot(res, lbfgs_dir, fa["rep"])
-    hres = oracle(fa, res["xi"], res["psi"], prefix_stages=prefix_stages)
+    dval = -dual_dot(res, lbfgs_dir, fa["rep"], mesh)
+    hres = oracle(fa, res["xi"], res["psi"], prefix_stages=prefix_stages,
+                  mesh=mesh)
     st = dict(state)
     st["w"] = {k: state["w"][k] + step_size * res[k] for k in DUAL_KEYS}
     st["x"] = state["x"] + step_size * hres["x"]
@@ -241,9 +260,11 @@ def ame_line_search(fa, step, state, lbfgs_dir, value_ref, *,
                   "psi": state["prim"]["psi"] +
                   step_size * hres["prim_psi"]}
     comb = {k: lbfgs_dir[k] - step_size * res[k] for k in DUAL_KEYS}
-    hcomb = oracle(fa, comb["xi"], comb["psi"], prefix_stages=prefix_stages)
+    hcomb = oracle(fa, comb["xi"], comb["psi"], prefix_stages=prefix_stages,
+                   mesh=mesh)
     return tau_line_search(fa, step, st, comb, hcomb, value_ref, dval,
-                           prox_kwargs=prox_kwargs, step_size=step_size)
+                           prox_kwargs=prox_kwargs, step_size=step_size,
+                           mesh=mesh)
 
 
 def make_solver(*, algorithm: str, prefix_stages: tuple, inv_step: float,
@@ -252,7 +273,8 @@ def make_solver(*, algorithm: str, prefix_stages: tuple, inv_step: float,
                 max_iterations: int, lbfgs_buffer_size: int,
                 tolerance: float | None = None,
                 trace_control: bool = False,
-                trace_magnitude: bool = False, _lbfgs_storage=None):
+                trace_magnitude: bool = False, mesh=None,
+                _lbfgs_storage=None):
     """Build the FBE or NAMA solve function fn(fa, step, y0=None).
 
     * ``y0``: optional dual warm start {"xi", "psi"} (the previous
@@ -265,6 +287,8 @@ def make_solver(*, algorithm: str, prefix_stages: tuple, inv_step: float,
     * ``trace_magnitude``: also return ``residual_magnitude``, the true
       residual magnitude that ``tolerance`` tests, after every iteration
       (zero past the exit).
+    * ``mesh``: the solve of this rank of a scenario mesh on its slot
+      block (module docstring).
     * ``_lbfgs_storage``: private, the plain version of the whole-solve
       kernel's history storage (``ops/qn_solve.qn_solve_plain``); the
       JAX ``make_solver`` has no such knob.
@@ -280,20 +304,22 @@ def make_solver(*, algorithm: str, prefix_stages: tuple, inv_step: float,
         raise ValueError(f"unknown quasi-Newton algorithm {algorithm}")
     prox_kwargs = dict(inv_step=inv_step, penalty_state=penalty_state,
                        penalty_safety=penalty_safety, xs_upper=xs_upper)
+    need_mag = tolerance is not None or trace_magnitude
 
     def one_iteration(fa, step, carry, it):
         w = carry["w"]
         sol = ss.solve_step(
             fa, w["xi"], w["psi"], step["beta"], step["uhat"], step["e"],
             step["x0"], step["prev_u"], step["prev_uhat"],
-            prefix_stages=prefix_stages)
+            prefix_stages=prefix_stages, mesh=mesh)
         prim = {"xi": sol["prim_xi"], "psi": sol["prim_psi"]}
         dual_xi, dual_psi, value_g = ss.prox_g(
-            fa, prim["xi"], prim["psi"], w["xi"], w["psi"], **prox_kwargs)
+            fa, prim["xi"], prim["psi"], w["xi"], w["psi"], mesh=mesh,
+            **prox_kwargs)
         res = {"xi": prim["xi"] - dual_xi, "psi": prim["psi"] - dual_psi}
         if is_fbe:
             hdir = oracle(fa, -res["xi"], -res["psi"],
-                          prefix_stages=prefix_stages)
+                          prefix_stages=prefix_stages, mesh=mesh)
             yvec = {"xi": -res["xi"] + step_size * hdir["prim_xi"],
                     "psi": -res["psi"] + step_size * hdir["prim_psi"]}
         else:
@@ -305,13 +331,14 @@ def make_solver(*, algorithm: str, prefix_stages: tuple, inv_step: float,
         if it > 0:
             value = value_fbe(fa, step, state["w"], state["u"],
                               state["res"], state["value_g"],
-                              step_size=step_size)
+                              step_size=step_size, mesh=mesh)
             lb, lbfgs_dir = lbfgs_update_and_direction(
                 fa, lb, carry["y"], carry["y_prev"], yvec,
                 carry["yvec_prev"], buffer_size=lbfgs_buffer_size,
-                storage=_lbfgs_storage)
+                storage=_lbfgs_storage, mesh=mesh)
             ls_kw = dict(prefix_stages=prefix_stages,
-                         prox_kwargs=prox_kwargs, step_size=step_size)
+                         prox_kwargs=prox_kwargs, step_size=step_size,
+                         mesh=mesh)
             if is_fbe:
                 state, tau = fbe_line_search(fa, step, state, yvec,
                                              lbfgs_dir, value, **ls_kw)
@@ -322,8 +349,10 @@ def make_solver(*, algorithm: str, prefix_stages: tuple, inv_step: float,
         # dual update (src/SmpcController.cu:865-880)
         y_new = {k: state["w"][k] + step_size * state["res"][k]
                  for k in DUAL_KEYS}
-        infeas = ss.signed_max_abs(state["res"]["xi"], state["res"]["psi"])
-        mag = ss.max_abs_residual(state["res"]["xi"], state["res"]["psi"])
+        infeas = ss.signed_max_abs(state["res"]["xi"], state["res"]["psi"],
+                                   mesh)
+        mag = (ss.max_abs_residual(state["res"]["xi"], state["res"]["psi"],
+                                   mesh) if need_mag else None)
         new_carry = {"y": y_new, "y_prev": carry["y"], "yvec_prev": yvec,
                      "w": y_new, "lbfgs": lb, "x": state["x"],
                      "u": state["u"], "v": sol["v"]}
@@ -355,7 +384,8 @@ def make_solver(*, algorithm: str, prefix_stages: tuple, inv_step: float,
             traces["primal_infeasibility"][it] = infeas
             traces["value_fbe"][it] = value
             traces["tau"][it] = tau
-            mags[it] = mag
+            if need_mag:
+                mags[it] = mag
             controls.append(carry["u"][0, 0])
             it += 1
             if tolerance is not None and not bool(mag > tolerance):

@@ -21,6 +21,16 @@ arrays (the duals, beta, uhat, e, x0, prev_u, prev_uhat): B independent
 instances over one factor step, with the stage, slot and feature axes
 last.  The norms, champions and residual magnitudes are then per
 instance (over the last three axes).
+
+``mesh``: a ``parallel.Mesh``, the counterpart of the JAX functions'
+``axis_name``.  Every rank then holds its block of the slot axis (the
+factor dict cut by ``parallel.shard_factor_arrays``) and the collectives
+stand where the JAX module has them: the prefix parent block's ``psum``
+in the backward sweep (only the (Rp, nx+nv) block crosses ranks), the
+``psum`` of the penalty norms in ``prox_g``, the gather of each rank's
+champion in ``signed_max_abs`` (the trace stays the same on every rank)
+and the ``pmax`` of ``max_abs_residual``.  ``mesh=None`` is the
+single-device function.
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ import torch
 
 
 def backward_sweep(fa: dict, w_xi: torch.Tensor, w_psi: torch.Tensor,
-                   beta: torch.Tensor, *, prefix_stages: tuple
+                   beta: torch.Tensor, *, prefix_stages: tuple, mesh=None
                    ) -> torch.Tensor:
     """Backward substitution: dual gradient recursion over stages N-1..0.
 
@@ -38,7 +48,9 @@ def backward_sweep(fa: dict, w_xi: torch.Tensor, w_psi: torch.Tensor,
         v_s     = nhp_s * inner_s invWbar'
 
     with (t, inner) aggregated child->parent through the factored
-    ``prefix_Cp``/``prefix_Bp`` after each stage of ``prefix_stages``.
+    ``prefix_Cp``/``prefix_Bp`` after each stage of ``prefix_stages``;
+    on a ``mesh`` the parent block ``Cp @ [t | inner]`` is summed over
+    the ranks before ``Bp`` hands it back to the rank's slots.
 
     Args:
       fa: factor tensors (fan layout d1/d2/g/nhp + shared Bb/L/invWbar).
@@ -65,8 +77,13 @@ def backward_sweep(fa: dict, w_xi: torch.Tensor, w_psi: torch.Tensor,
         inner.append(r)
         if s > 0 and s in prefix_stages:
             Cp, Bp = fa["prefix_Cp"][s], fa["prefix_Bp"][s]
-            q = Bp @ (Cp @ q)
-            r = Bp @ (Cp @ r)
+            pq, pr = Cp @ q, Cp @ r
+            if mesh is not None:
+                parents = mesh.psum(torch.cat([pq, pr], dim=-1))
+                pq = parents[..., :nx].contiguous()
+                pr = parents[..., nx:].contiguous()
+            q = Bp @ pq
+            r = Bp @ pr
     inner = torch.stack(inner[::-1], dim=-3)
     return fa["nhp"] * (inner @ invWbar.T)
 
@@ -104,13 +121,14 @@ def forward_sweep(fa: dict, v: torch.Tensor, uhat: torch.Tensor,
 
 
 def solve_step(fa: dict, w_xi, w_psi, beta, uhat, e, x0, prev_u, prev_uhat,
-               *, prefix_stages: tuple):
+               *, prefix_stages: tuple, mesh=None):
     """Full dual-gradient oracle (backward + forward + primal).
 
     With beta/uhat/e/x0/prev_* zeroed this is exactly the Hessian oracle
     of the FBE/NAMA algorithms.
     """
-    v = backward_sweep(fa, w_xi, w_psi, beta, prefix_stages=prefix_stages)
+    v = backward_sweep(fa, w_xi, w_psi, beta, prefix_stages=prefix_stages,
+                       mesh=mesh)
     x, u, prim_xi, prim_psi = forward_sweep(
         fa, v, uhat, e, x0, prev_u, prev_uhat)
     return {"v": v, "x": x, "u": u,
@@ -121,6 +139,14 @@ def _masked_sumsq(x, rep):
     """Sum of squares counting each tree node once (rep de-duplicates),
     per instance."""
     return torch.sum((rep[..., None] * x * x).flatten(-3), dim=-1)
+
+
+def psum_all(mesh, *parts):
+    """The tensors ``parts`` (of one shape) each summed over the mesh's
+    ranks, in one all-reduce; unchanged without a mesh."""
+    if mesh is None:
+        return parts
+    return tuple(mesh.psum(torch.stack(parts)).unbind(0))
 
 
 def per_instance(v):
@@ -135,7 +161,8 @@ def _shrink(dist, thresh):
 
 
 def prox_g(fa: dict, prim_xi, prim_psi, w_xi, w_psi, *, inv_step: float,
-           penalty_state: float, penalty_safety: float, xs_upper: float):
+           penalty_state: float, penalty_safety: float, xs_upper: float,
+           mesh=None):
     """Proximal operator of the constraint function g on the dual pair.
 
     Reference: SmpcController::proximalFunG (src/SmpcController.cu:
@@ -157,11 +184,11 @@ def prox_g(fa: dict, prim_xi, prim_psi, w_xi, w_psi, *, inv_step: float,
     diff1 = pre1 - box1
     diff2 = pre2 - box2
 
-    shrink1 = _shrink(torch.sqrt(_masked_sumsq(diff1, rep)),
-                      inv_step * penalty_state)
+    sq1, sq2 = psum_all(mesh, _masked_sumsq(diff1, rep),
+                        _masked_sumsq(diff2, rep))
+    shrink1 = _shrink(torch.sqrt(sq1), inv_step * penalty_state)
     out1 = box1 + per_instance(shrink1) * diff1
-    shrink2 = _shrink(torch.sqrt(_masked_sumsq(diff2, rep)),
-                      inv_step * penalty_safety)
+    shrink2 = _shrink(torch.sqrt(sq2), inv_step * penalty_safety)
     out2 = box2 + per_instance(shrink2) * diff2
 
     dual_xi = torch.cat([out1, out2], dim=-1)
@@ -169,11 +196,12 @@ def prox_g(fa: dict, prim_xi, prim_psi, w_xi, w_psi, *, inv_step: float,
 
     # g-cost pieces (FBE/NAMA value function, src/SmpcController.cu:
     # 798-825): penalty * distance-from-set of the post-prox point.
-    gd1 = torch.sqrt(_masked_sumsq(
-        out1 - torch.clamp(out1, fa["xmin"], fa["xmax"]), rep))
-    gd2 = torch.sqrt(_masked_sumsq(
-        out2 - torch.clamp(torch.maximum(out2, fa["xs"]), max=xs_upper),
-        rep))
+    gd1, gd2 = psum_all(
+        mesh,
+        _masked_sumsq(out1 - torch.clamp(out1, fa["xmin"], fa["xmax"]), rep),
+        _masked_sumsq(out2 - torch.clamp(torch.maximum(out2, fa["xs"]),
+                                         max=xs_upper), rep))
+    gd1, gd2 = torch.sqrt(gd1), torch.sqrt(gd2)
     zero = torch.zeros_like(gd1)
     value_g = (torch.where(shrink1 > 0, penalty_state * gd1, zero) +
                torch.where(shrink2 > 0, penalty_safety * gd2, zero))
@@ -193,26 +221,39 @@ def root_control_bounds(fa: dict):
     return fa["umin"][0, 0], fa["umax"][0, 0]
 
 
-def signed_max_abs(res_xi, res_psi):
+def _champion(flat):
+    """The signed value of the first entry of largest magnitude along the
+    last axis."""
+    at = torch.argmax(torch.abs(flat), dim=-1, keepdim=True)
+    return torch.gather(flat, -1, at).squeeze(-1)
+
+
+def signed_max_abs(res_xi, res_psi, mesh=None):
     """Primal infeasibility diagnostic (the trace).
 
     Reference quirk preserved (src/SmpcController.cu:1480-1496): Isamax
     picks the entry with max |value| but the *signed* value is returned,
     and the max of the xi/psi representatives is taken.  ``torch.argmax``
-    returns the first maximal index, as ``jnp.argmax`` does.
+    returns the first maximal index, as ``jnp.argmax`` does.  On a
+    ``mesh`` each rank's two champions are gathered (one gather) and the
+    champion of the ranks' champions taken per block, so every rank
+    holds the same trace.
     """
-    def champion(res):
-        flat = res.flatten(-3)
-        at = torch.argmax(torch.abs(flat), dim=-1, keepdim=True)
-        return torch.gather(flat, -1, at).squeeze(-1)
+    vx = _champion(res_xi.flatten(-3))
+    vp = _champion(res_psi.flatten(-3))
+    if mesh is not None:
+        ranks = mesh.all_gather(torch.stack([vx, vp], dim=-1)[..., None],
+                                dim=-1)
+        vx, vp = _champion(ranks).unbind(-1)
+    return torch.maximum(vx, vp)
 
-    return torch.maximum(champion(res_xi), champion(res_psi))
 
-
-def max_abs_residual(res_xi, res_psi):
+def max_abs_residual(res_xi, res_psi, mesh=None):
     """True residual magnitude max(|res_xi|, |res_psi|)_max — the
     stopping rule.  The signed trace can cancel to ~0 when the two
     blocks' champions have opposite signs, so it is never used to stop.
+    On a ``mesh`` the ranks' magnitudes are reduced by a ``pmax``.
     """
-    return torch.maximum(torch.abs(res_xi).flatten(-3).amax(dim=-1),
-                         torch.abs(res_psi).flatten(-3).amax(dim=-1))
+    m = torch.maximum(torch.abs(res_xi).flatten(-3).amax(dim=-1),
+                      torch.abs(res_psi).flatten(-3).amax(dim=-1))
+    return m if mesh is None else mesh.pmax(m)

@@ -170,12 +170,37 @@ def qn_job(mesh, fa, step, prefix, kw, runs):
         for alg, dtype in runs})
 
 
-def controller_job(mesh, iterations, steps, seed=7):
+def sharded_plain_job(mesh, fa, step, prefix, cases):
+    """The plain sharded solves of ``cases`` (name -> (algorithm, solver
+    keywords)) on this rank's cut of ``fa``, cold, buffer 5 for FBE and
+    NAMA: their outputs, in the global layout."""
+    from rapidnet_tpu_torch.model.config import ALGORITHM_APG
+    from rapidnet_tpu_torch.parallel import (make_sharded_apg,
+                                             make_sharded_quasi_newton,
+                                             shard_factor_arrays)
+    fa_t, step_t = _tensors(fa, step)
+    fa_l = shard_factor_arrays(fa_t, mesh)
+    out = {}
+    for name, (algorithm, kw) in cases.items():
+        if algorithm == ALGORITHM_APG:
+            run = make_sharded_apg(mesh, fa_t, step_t, prefix_stages=prefix,
+                                   **kw)
+        else:
+            run = make_sharded_quasi_newton(
+                mesh, fa_t, step_t, algorithm=algorithm, prefix_stages=prefix,
+                lbfgs_buffer_size=5, **kw)
+        out[name] = _np(run(fa_l, step_t))
+    return finish(mesh, out)
+
+
+def controller_job(mesh, iterations, steps, seed=7, plain=None):
     """``steps``-step closed loops of ``SmpcController(mesh=...,
     backend="stream")`` on the synthetic problem of the JAX package's
     mesh controller tests (tree [4, 2], N = 6), one per algorithm of
     ``iterations`` (algorithm -> iterations per solve): the controls, the
-    route and the trace; then the refusals on the mesh."""
+    route and the trace; then the APG loops of ``plain`` (name ->
+    controller keywords), which take the plain sharded route (with the
+    last solve's u); then the refusals on the mesh."""
     from rapidnet_tpu_torch import SmpcController
     from rapidnet_tpu_torch.model.config import synthetic_config
     from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
@@ -194,21 +219,24 @@ def controller_job(mesh, iterations, steps, seed=7):
         return SmpcController(cfg, network=net, tree=tree, forecaster=fc,
                               backend=backend, device="cpu", mesh=mesh, **kw)
 
-    out = {}
-    for algorithm, iters in iterations.items():
-        ctrl = build(algorithm, iters=iters)
-        controls = []
+    def loop(ctrl):
+        controls, traces = [], []
         for t in range(steps):
             controls.append(ctrl.control_action(t))
+            traces.append(ctrl.primal_infeasibility)
             ctrl.move_forward_in_time()
-        out[algorithm] = {"controls": np.array(controls),
-                          "route": ctrl.route,
-                          "trace": ctrl.primal_infeasibility}
+        return {"controls": np.array(controls), "route": ctrl.route,
+                "trace": traces[-1], "traces": np.array(traces),
+                "u": ctrl._last["u"].cpu().numpy()}
+
+    out = {}
+    for algorithm, iters in iterations.items():
+        out[algorithm] = loop(build(algorithm, iters=iters))
+    for name, kw in (plain or {}).items():
+        out[name] = loop(build("proximalAlgorithm",
+                               iters=iterations["proximalAlgorithm"], **kw))
     refusals = {}
-    for name, kw in (("auto", {"backend": "auto"}),
-                     ("torch", {"backend": "torch"}),
-                     ("cuda", {"backend": "cuda"}),
-                     ("tolerance", {"tolerance": 1e-3, "backend": "auto"}),
+    for name, kw in (("cuda", {"backend": "cuda"}),
                      ("stream_tolerance", {"tolerance": 1e-3})):
         try:
             ctrl = build(None, **kw)
@@ -236,6 +264,25 @@ def cli_job(rank, n, init, config, output):
     dist.barrier()
     dist.destroy_process_group()
     return rc, buf.getvalue()
+
+
+def example_job(rank, n, init, module, argv):
+    """``rapidnet_tpu_torch.examples.<module>.main`` as one of n ranks,
+    ``--devices n`` over the FileStore ``init``: (its controls, KPIs and
+    route, what it printed)."""
+    import contextlib
+    import importlib
+    import io
+    import torch.distributed as dist
+    os.environ["RANK"], os.environ["WORLD_SIZE"] = str(rank), str(n)
+    mod = importlib.import_module(f"rapidnet_tpu_torch.examples.{module}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = mod.main(argv + ["--devices", str(n), "--dist-init", init])
+    dist.barrier()
+    dist.destroy_process_group()
+    return ({k: got[k] for k in ("controls", "kpis", "route")},
+            buf.getvalue())
 
 
 def stall_job(mesh, wait):

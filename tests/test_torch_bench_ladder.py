@@ -108,6 +108,39 @@ def test_ladder_solvers_match_the_jax_ladder(config2, backend, jax_kw):
             got, ref, rtol=0, atol=1e-5 * max(np.abs(ref).max(), 1.0))
 
 
+def test_shardmap_row_matches_the_jax_sharded_solve(config2):
+    """The ``5_1024scenario_H24_shardmap_1dev`` row's solve, the plain
+    sharded APG on a mesh of one rank (``Mesh(0, 1, "cpu")``, no process
+    group), at config 2 against JAX's ``make_sharded_apg`` on
+    a 1-device mesh (the JAX row's solve, ``sharded_overhead_row``)
+    within 1e-5 * max(|ref|, 1); then the row through ``run_config``:
+    its schema and path, no kernel launched."""
+    import torch.distributed as dist
+    import bench_ladder as JL
+    from rapidnet_tpu.parallel import (make_mesh, make_sharded_apg,
+                                       shard_factor_arrays,
+                                       shard_step_arrays)
+    from rapidnet_tpu_torch import bench_ladder as L
+
+    jp, pp, jstep, pstep = config2
+    mesh = make_mesh(1)
+    jfn = make_sharded_apg(mesh, jp[2], jstep,
+                           prefix_stages=jp[1].factor_step().prefix_stages,
+                           **JL._solver_kw(jp[0]))
+    ref = np.asarray(jfn(shard_factor_arrays(jp[2], mesh),
+                         shard_step_arrays(jstep, mesh))["control"])
+    fn, path = L.solver(pp, "shardmap")
+    got = fn(pstep)["control"].numpy()
+    row = L.run_config("5_1024scenario_H24_shardmap_1dev", pp, 1,
+                       backend="shardmap", max_iter=ITERS)
+    assert not dist.is_initialized()
+    assert path == "make_sharded_apg(1 rank)"
+    np.testing.assert_allclose(
+        got, ref, rtol=0, atol=1e-5 * max(np.abs(ref).max(), 1.0))
+    assert set(row) == ROW_KEYS and row["launches"] == {}
+    assert row["path"] == "cpu:make_sharded_apg(1 rank)"
+
+
 def test_make_apg_bf16_dual_matches_jax():
     import jax
     import jax.numpy as jnp

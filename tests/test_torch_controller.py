@@ -202,6 +202,15 @@ def test_package_never_imports_jax():
         "from rapidnet_tpu_torch.io import (datasource, epanet, matio, "
         "writers, xls)\n"
         "from rapidnet_tpu_torch.utils import checkpoint, timing\n"
+        "from rapidnet_tpu_torch.parallel import (make_sharded_apg, "
+        "make_sharded_quasi_newton, shard_factor_arrays)\n"
+        "from rapidnet_tpu_torch.examples import (barcelona_scale, "
+        "batched_monte_carlo, closed_loop_reference_fixtures, "
+        "epanet_to_controller, large_tree_streaming, "
+        "real_data_closed_loop)\n"
+        "out = batched_monte_carlo.main(['--device', 'cpu', '--batch', '2', "
+        "'--steps', '1', '--iterations', '5'])\n"
+        "assert out['controls'].shape == (1, 2, 18)\n"
         "net = synthetic_network(nx=4, nu=7, nd=3, ne=2, seed=1)\n"
         "tree = generate_tree(N=6, branching=[2, 2], nd=3, nu=7, seed=1)\n"
         "fc = synthetic_forecaster(N=6, nd=3, nu=7, seed=1)\n"
@@ -244,13 +253,14 @@ def test_device_and_backend_requests_raise():
 
 
 def test_unported_options_raise():
-    """The plain multi-GPU solves (a mesh with backend 'torch'; the
-    sharded streaming solves are tests/test_torch_stream_sharded.py's), a
-    mesh that is not a ``parallel.Mesh``, a stream precision that is not
-    measured and a streaming FBE/NAMA history storage other than float32
-    or bfloat16 raise; single-device FBE controllers, one instance or a
-    batch, build, with either history storage, and an unknown algorithm
-    raises."""
+    """A mesh that is not a ``parallel.Mesh``, a stream precision that is
+    not measured and a streaming FBE/NAMA history storage other than
+    float32 or bfloat16 raise; a mesh with backend 'torch' builds the
+    plain sharded solve (route 'plain'; its solves are
+    tests/test_torch_sharded_plain.py's and
+    tests/test_torch_stream_sharded.py's); single-device FBE controllers,
+    one instance or a batch, build, with either history storage, and an
+    unknown algorithm raises."""
     from rapidnet_tpu_torch import BatchedSmpcController, SmpcController
     from rapidnet_tpu_torch.parallel import Mesh
     from rapidnet_tpu_torch.model.config import ALGORITHM_FBE
@@ -266,8 +276,10 @@ def test_unported_options_raise():
     bad.algorithm = "newtonAlgorithm"
     with pytest.raises(ValueError, match="unknown algorithm"):
         SmpcController(bad, **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SmpcController(cfg, mesh=Mesh(0, 2, "cpu"), backend="torch", **kw)
+    on_mesh = SmpcController(cfg, mesh=Mesh(0, 2, "cpu"), backend="torch",
+                             **kw)
+    on_mesh.initialise()        # runs no collective
+    assert on_mesh.route == "plain"
     with pytest.raises(TypeError, match="parallel.Mesh"):
         SmpcController(cfg, mesh=object(), **kw)
     with pytest.raises(ValueError, match="stream_precision"):

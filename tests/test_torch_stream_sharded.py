@@ -461,14 +461,29 @@ def test_a_collective_that_never_comes_fails_the_run():
 
 
 CTRL_ITERS = {"proximalAlgorithm": 30, "globalFbeAlgorithm": 10}
+# The APG loops that take the plain sharded route on a CPU mesh: 'auto'
+# (every tree fits the whole-solve wrapper there), 'torch', a tolerance,
+# and 'auto' with a warm start (step 1 starts from step 0's duals, which
+# the route cuts from the global layout).  Step 0's residual magnitude
+# falls ~1.5 % an iteration, from 0.614 to 0.316 over the 30 (port,
+# single device); 0.45 stops it after iteration 20, 1.4 % from the
+# magnitudes on either side.
+CTRL_TOLERANCE = 0.45
+PLAIN_CASES = {"auto": {"backend": "auto"}, "torch": {"backend": "torch"},
+               "tolerance": {"backend": "auto",
+                             "tolerance": CTRL_TOLERANCE},
+               "warm": {"backend": "auto", "warm_start": True}}
 
 
 @pytest.fixture(scope="module")
 def controller_ranks():
-    return TM.run_ranks(4, TM.controller_job, CTRL_ITERS, 2)
+    return TM.run_ranks(4, TM.controller_job, CTRL_ITERS, 2, 7, PLAIN_CASES)
 
 
-def _jax_controller(algorithm, backend):
+def _jax_controller(algorithm, backend, traces=False, **kw):
+    """JAX's 2-step loop on the problem of ``TM.controller_job``: the
+    controls (with ``traces``, also each step's trace and the last
+    solve's u)."""
     from rapidnet_tpu.model.config import synthetic_config
     from rapidnet_tpu.model.forecaster import synthetic_forecaster
     from rapidnet_tpu.model.network import synthetic_network
@@ -481,11 +496,15 @@ def _jax_controller(algorithm, backend):
                            step_size=1e-3)
     cfg.algorithm = algorithm
     ctrl = SmpcController(cfg, network=net, tree=tree, forecaster=fc,
-                          backend=backend)
-    controls = []
+                          backend=backend, **kw)
+    controls, trace = [], []
     for t in range(2):
         controls.append(ctrl.control_action(t))
+        trace.append(np.asarray(ctrl.primal_infeasibility))
         ctrl.move_forward_in_time()
+    if traces:
+        return np.array(controls), np.array(trace), np.asarray(
+            ctrl._last["u"])
     return np.array(controls)
 
 
@@ -506,17 +525,48 @@ def test_controller_mesh_stream_matches_jax(controller_ranks, algorithm,
                                    atol=bound)
 
 
+@pytest.mark.parametrize("case,backend", [
+    ("auto", "auto"), ("torch", "xla"), ("tolerance", "auto"),
+    ("warm", "auto")])
+def test_controller_mesh_plain_matches_jax(controller_ranks, case, backend):
+    """'auto' on a CPU mesh, 'torch', a tolerance and a warm start take
+    the plain sharded route (``parallel.make_sharded_apg``): each 2-step
+    APG loop on 4 port ranks against JAX's
+    ``SmpcController(mesh=make_mesh(4))``, its XLA
+    shard_map solve, within the APG control bound rtol/atol 1e-5, the
+    trace and the last solve's u within 1e-4 (tests/test_pallas_apg.py:
+    45-51); the ranks' controls equal bit for bit."""
+    from rapidnet_tpu.parallel import make_mesh
+    kw = PLAIN_CASES[case]
+    ref, ref_traces, ref_u = _jax_controller(
+        "proximalAlgorithm", backend, traces=True, mesh=make_mesh(4),
+        tolerance=kw.get("tolerance"),
+        warm_start=kw.get("warm_start", False))
+    got = controller_ranks[0][case]
+    assert got["route"] == "plain"
+    np.testing.assert_allclose(got["controls"], ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got["traces"], ref_traces, rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(got["u"], ref_u, rtol=1e-4, atol=1e-4)
+    if case == "tolerance":
+        assert ((ref_traces != 0).sum(axis=1) < CTRL_ITERS[
+            "proximalAlgorithm"]).all(), "no tolerance exit"
+    if case == "warm":
+        # step 1's controls sit where the bounds clip them either way;
+        # its u does not
+        cold = controller_ranks[0]["auto"]["u"]
+        assert np.abs(got["u"] - cold).max() > 1e-2, \
+            "the warm start changed nothing"
+    for r in controller_ranks[1:]:
+        assert np.array_equal(r[case]["controls"], got["controls"])
+
+
 @pytest.mark.parametrize("case,kind,match", [
-    ("auto", "NotImplementedError", "item 12b"),
-    ("torch", "NotImplementedError", "item 12b"),
-    ("tolerance", "NotImplementedError", "item 12b"),
     ("cuda", "ValueError", "single-device"),
     ("stream_tolerance", "ValueError", "tolerance")])
 def test_controller_mesh_refusals(controller_ranks, case, kind, match):
-    """On a CPU mesh: 'auto' (every tree fits the whole-solve wrapper
-    there), 'torch' and a tolerance need the plain shard_map solves (not
-    ported: ROADMAP item 12b); 'cuda' is single-device; 'stream' with a
-    tolerance raises as it does on one device."""
+    """On a CPU mesh: 'cuda' is single-device; 'stream' with a tolerance
+    raises as it does on one device."""
     got = controller_ranks[0]["refusals"][case]
     assert got is not None and got[0] == kind and match in got[1], got
 
