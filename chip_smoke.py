@@ -261,7 +261,8 @@ every phase; rank 0 prints:
     DOTS_BODY_ITER-iteration solve of each profiled on rank 0, whose
     dots must run the vector body with the bf16 history and the
     one-value body with the float32 one;
-26. the main path: 4-step loops through ``SmpcController(mesh=...,
+26. the main path: MESH_LOOP_STEPS-step loops (cut from 4 to keep the
+    run inside its limit on slower hosts) through ``SmpcController(mesh=...,
     backend="auto")`` for APG (500 iterations) and FBE and NAMA
     (MESH_LOOP_ITER iterations a step, cut from 500 to fit the time
     limit): the route, every sharded wrapper's calls and no other
@@ -336,7 +337,11 @@ Then this slice's kernels and its main path:
     trace names a kernel of ``csrc/apg_solve.cu``; step 0 of an
     in-process warm APG controller equals the CLI's control0, and,
     checkpointed after it (``utils/checkpoint.py``), the controller
-    resumes step 1 bit for bit with the uninterrupted warm loop;
+    resumes step 1 bit for bit with the uninterrupted warm loop; so do
+    warm FBE and NAMA controllers on the whole-solve kernel (route
+    ``kernel``) and warm APG, FBE and NAMA controllers on the streaming
+    route at config 5 (``auto``, route ``stream``) at RESUME_STREAM_ITER
+    iterations a step;
 32. (run by phases 23-27's two ranks, after them) the plain sharded
     solves (``parallel.make_sharded_apg``, ``make_sharded_quasi_newton``)
     through ``SmpcController(mesh=..., backend="auto")`` on the Barcelona
@@ -358,7 +363,25 @@ Then this slice's kernels and its main path:
     ``stream``, ``apg_stream`` once a step) and ``epanet_to_controller``
     into a temporary directory (``apg_solve`` once a step), each with no
     other kernel, finite controls inside the physical bounds and finite
-    KPIs, its wall s printed (the JSON entries' ``example_launches``).
+    KPIs, its wall s printed (the JSON entries' ``example_launches``);
+34. the 2-D mesh, the dry run and the mesh resume (``run_mesh_2d_phase``):
+    MESH2D_RANKS = 4 spawned ranks share card 0 over a gloo group, every
+    rank running: 34a ``examples.dryrun.dryrun_multichip(4)`` (the plain
+    sharded APG, the sharded streaming APG within 1e-3 of it, 3 sharded
+    streaming FBE iterations, the 2-D mesh at B = 4), every count zeroed
+    just before it: rows 7 (K1a, K2), 8 (the sharded S1, S2) and the
+    partial parent block launched as phases 23-27 count them (the JSON
+    entries' ``dryrun_launches``); 34b 2-step
+    ``BatchedSmpcController(mesh=make_mesh_2d(2, 2))`` loops at B = 4 on
+    the Barcelona network over MESH2D_BRANCHING, APG and FBE (a shared
+    forecaster), route ``plain`` and no kernel launched, the ranks'
+    controls equal bit for bit and within 2e-4 (rtol and atol, the JAX
+    package's bound, tests/test_batch.py:189-190) of the single-device
+    plain batched loop; 34c ``multichip_sharded --devices 4 --iterations
+    40`` (finite controls, no kernel); 34d a warm save after step 0 and a
+    resume of step 1 on the 1-D mesh of each row (``SmpcController(mesh=
+    ...)``, 2 ranks, the plain route), bit for bit against the
+    uninterrupted run.
 
 Each phase prints its own line.  The last lines are the card's name and
 power limit, one JSON line describing each kernel (with its bound: the
@@ -2729,6 +2752,8 @@ def stream_qn_phases(ref_libs, device, problem, kq_b, kc_b, step_b,
 
 MESH_RANKS = 2        # phases 23-27: two ranks share card 0 over gloo
 MESH_TIMEOUT = 1500   # s the parent waits for the ranks' results
+MESH_LOOP_STEPS = 2   # phase 26's loops: steps (cut from 4: the run took
+                      # 1067 s of its 1200 on a slow host)
 MESH_LOOP_ITER = 50   # phase 26's QN loops: iterations per step (cut from
                       # 500: a sharded QN iteration takes ~35 ms here)
 MESH_QN_ITER = 100    # phases 25/27's sharded QN solves (cut from 500,
@@ -3115,11 +3140,11 @@ def mesh_phases(mesh, ref_paths=None):
         ctrl._solver = kept
         zero_counts()
         t_0 = time.perf_counter()
-        log = ctrl.closed_loop(STREAM_LOOP_STEPS)
-        loop_ms = (time.perf_counter() - t_0) * 1e3 / STREAM_LOOP_STEPS
+        log = ctrl.closed_loop(MESH_LOOP_STEPS)
+        loop_ms = (time.perf_counter() - t_0) * 1e3 / MESH_LOOP_STEPS
         n = {k: fn.launches for k, fn in wrappers().items() if fn.launches}
         controls = np.array([log[f"control{t}"]
-                             for t in range(STREAM_LOOP_STEPS)])
+                             for t in range(MESH_LOOP_STEPS)])
         kpis = {k: log[k] for k in KPI_KEYS}
         return (ctrl.route, controls, kpis, n, solves, inputs, loop_ms,
                 log)
@@ -3131,14 +3156,14 @@ def mesh_phases(mesh, ref_paths=None):
         route, ctl, kpis, n, solves, inputs, loop_ms, log = loop(
             algorithm, True, iters)
         if name == "apg":
-            want = {k: STREAM_LOOP_STEPS * iters for k in
+            want = {k: MESH_LOOP_STEPS * iters for k in
                     ("apg_stream_sharded.k1a", "apg_stream_sharded.k2",
                      "stream_sharded.partial_parents")}
         else:
-            want = mesh_qn_counts(algorithm, iters, STREAM_LOOP_STEPS)
-        print(f"[mesh] 26.{name}: route {route}, {STREAM_LOOP_STEPS} steps "
+            want = mesh_qn_counts(algorithm, iters, MESH_LOOP_STEPS)
+        print(f"[mesh] 26.{name}: route {route}, {MESH_LOOP_STEPS} steps "
               f"of {iters} iterations, launches {json.dumps(n)}; solve ms "
-              f"per step {', '.join(f'{log[f'time{t}'][0]:.3f}' for t in range(STREAM_LOOP_STEPS))}"
+              f"per step {', '.join(f'{log[f'time{t}'][0]:.3f}' for t in range(MESH_LOOP_STEPS))}"
               f"; whole step {loop_ms:.3f} ms; kpis {json.dumps(kpis)}")
         if n != want:
             raise SmokeFailure(f"26.{name}: launches {n}, expected {want}")
@@ -3528,18 +3553,16 @@ def mesh_rank(rank, init, results, ref_paths):
         results.put((rank, traceback.format_exc()))
 
 
-def run_mesh_phases(ref_paths=None):
-    """Phases 23-27: MESH_RANKS processes (spawned: this one has
-    initialised CUDA) share card 0 over a gloo group; returns rank 0's
-    entries.  ``ref_paths``: the libraries of the reference source's
-    ``stream_qn.cu`` and ``stream_sharded.cu`` by name, which the ranks
-    load by their paths (``--reference-kernel``), or None.  Every
-    process started is stopped."""
+def spawn_ranks(tag, target, n, timeout, *args):
+    """n processes (spawned: this one has initialised CUDA) each running
+    ``target(rank, init, results, *args)``, which joins a gloo group over
+    the FileStore ``init`` and puts (rank, outcome) on ``results``;
+    returns the outcomes by rank.  A rank that fails, dies or is late
+    fails the phases ``tag``.  Every process started is stopped."""
     import multiprocessing as mp
     import queue
     import tempfile
 
-    import numpy as np
     import torch
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3547,26 +3570,25 @@ def run_mesh_phases(ref_paths=None):
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     init = f"{tmp}/store"
-    procs = [ctx.Process(target=mesh_rank,
-                         args=(r, init, results, ref_paths))
-             for r in range(MESH_RANKS)]
+    procs = [ctx.Process(target=target, args=(r, init, results) + args)
+             for r in range(n)]
     out = {}
     try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + MESH_TIMEOUT
-        while len(out) < MESH_RANKS:
+        deadline = time.monotonic() + timeout
+        while len(out) < n:
             try:
                 rank, res = results.get(timeout=5)
             except queue.Empty:
                 if time.monotonic() > deadline:
-                    raise SmokeFailure("23-27: the ranks timed out")
+                    raise SmokeFailure(f"{tag}: the ranks timed out")
                 if any(not p.is_alive() and p.exitcode for p in procs):
-                    raise SmokeFailure("23-27: a rank died (exit codes "
+                    raise SmokeFailure(f"{tag}: a rank died (exit codes "
                                        f"{[p.exitcode for p in procs]})")
                 continue
             if isinstance(res, str):
-                raise SmokeFailure(f"23-27: rank {rank} failed:\n{res}")
+                raise SmokeFailure(f"{tag}: rank {rank} failed:\n{res}")
             out[rank] = res
         for p in procs:
             p.join(60)
@@ -3575,6 +3597,18 @@ def run_mesh_phases(ref_paths=None):
             if p.is_alive():
                 p.terminate()
                 p.join(10)
+    return out
+
+
+def run_mesh_phases(ref_paths=None):
+    """Phases 23-27: MESH_RANKS processes share card 0 over a gloo group;
+    returns rank 0's entries.  ``ref_paths``: the libraries of the
+    reference source's ``stream_qn.cu`` and ``stream_sharded.cu`` by
+    name, which the ranks load by their paths (``--reference-kernel``),
+    or None."""
+    import numpy as np
+    out = spawn_ranks("23-27", mesh_rank, MESH_RANKS, MESH_TIMEOUT,
+                      ref_paths)
     entries, counts, peak0, plain0 = out[0]
     peak1, plain1 = out[1][2], out[1][3]
     for short in plain0:
@@ -3591,6 +3625,189 @@ def run_mesh_phases(ref_paths=None):
         raise SmokeFailure(f"26: the ranks' counts differ: {counts} and "
                            f"{out[1][1]}")
     return entries
+
+
+MESH2D_RANKS = 4          # phase 34: four ranks share card 0 over gloo
+MESH2D_TIMEOUT = 900      # s the parent waits for phase 34's ranks
+MESH2D_BRANCHING = (2, 2)  # 34b, 34d: the Barcelona network over 4
+                           # scenarios, 2 a scenario column
+MESH2D_BATCH = 4          # 34b: instances, 2 a batch row
+MESH2D_STEPS = 2          # 34b: closed-loop steps
+MESH2D_ITER = {"apg": 50, "fbe": 10}   # 34b: iterations a step (34d: APG's);
+                          # FBE inside the ~13 iterations over which two
+                          # float32 FBE solves of the Barcelona network
+                          # track (ROADMAP.md queue 3)
+MESH2D_FACTOR = 2e-4      # 34b: rtol and atol against the single-device
+                          # loop (the JAX package's, tests/test_batch.py:189)
+MULTICHIP_ARGV = ["--devices", "4", "--iterations", "40"]
+# phase 34a's launches by the JSON entry they are reported in
+DRYRUN_ENTRIES = {"apg_stream_sharded.k1a": "apg_stream_sharded.k1a",
+                  "apg_stream_sharded.k2": "apg_stream_sharded.k2",
+                  "stream_sharded.partial_parents":
+                      "stream_sharded.partial_parents",
+                  "stream_qn.s1a": "stream_qn.s1a",
+                  "stream_qn.s2.sharded": "stream_qn.s2"}
+
+
+def dryrun_counts():
+    """The wrapper calls of ``dryrun_multichip``'s sharded streaming
+    solves, as phases 23-27 count them: a K1a, a K2 and a partial parent
+    block an APG iteration, and ``mesh_qn_counts`` of the FBE solve."""
+    from rapidnet_tpu_torch.examples import dryrun
+    want = mesh_qn_counts(QN_ALGORITHMS["fbe"], dryrun.QN_ITERATIONS)
+    for k in ("apg_stream_sharded.k1a", "apg_stream_sharded.k2",
+              "stream_sharded.partial_parents"):
+        want[k] = want.get(k, 0) + dryrun.APG_ITERATIONS
+    return want
+
+
+def mesh_2d_phase(devices, directory):
+    """Phase 34 on this rank of MESH2D_RANKS (module docstring, 34a-d);
+    ``devices``: every rank's card; ``directory``: where 34d's rows write
+    their checkpoints.  Returns this rank's controls and 34a's counts,
+    for the parent to hold the ranks to each other."""
+    import numpy as np
+    from rapidnet_tpu_torch.examples import dryrun, multichip_sharded
+    from rapidnet_tpu_torch.model.config import ALGORITHM_APG
+    from rapidnet_tpu_torch.parallel import make_mesh_2d
+    from rapidnet_tpu_torch.solver.batch import BatchedSmpcController
+    from rapidnet_tpu_torch.solver.controller import SmpcController
+
+    t_phase = time.perf_counter()
+    card = card_name()
+
+    def launched():
+        return {k: fn.launches for k, fn in wrappers().items()
+                if fn.launches}
+
+    # 34a. the dry run, its sharded streaming solves counted
+    zero_counts()
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(MESH2D_RANKS, devices=devices)
+    counts = check_counts("34a", dryrun_counts())
+    print(f"[mesh2d] 34a: dryrun_multichip({MESH2D_RANKS}) passed in "
+          f"{time.perf_counter() - t0:.3f} s (4 ranks sharing the card); "
+          f"launches {json.dumps(counts)}; 2-D controls "
+          f"{dry['batch_control'].shape}")
+    out = {"counts": counts, "dryrun": dry}
+
+    # 34b. BatchedSmpcController on the 2-D mesh against the single-device
+    # plain batched loop
+    m2 = make_mesh_2d(2, 2, devices=devices)
+    dev = m2.device
+    cfg, _, net, tree, _, _, _ = build_problem(dev, MESH2D_BRANCHING)
+    x0s = perturbed(cfg.current_x, np.random.default_rng(7), MESH2D_BATCH)
+    for short, algorithm in (("apg", ALGORITHM_APG),
+                             ("fbe", QN_ALGORITHMS["fbe"])):
+        c = copy.deepcopy(cfg)
+        c.algorithm, c.max_iterations = algorithm, MESH2D_ITER[short]
+
+        def batched(**kw):
+            return BatchedSmpcController(c, net, tree, forecaster(net), x0s,
+                                         device=dev, **kw)
+        ctrl = batched(mesh=m2)
+        zero_counts()
+        log = ctrl.closed_loop(MESH2D_STEPS)
+        if ctrl.route != "plain" or launched():
+            raise SmokeFailure(f"34b.{short}: route {ctrl.route!r}, kernel "
+                               f"launches {launched()}")
+        controls = log["controls"]
+        if not np.isfinite(controls).all():
+            raise SmokeFailure(f"34b.{short}: controls not finite")
+        if m2.rank == 0:
+            ref = batched(backend="torch").closed_loop(MESH2D_STEPS)
+            err = float(np.abs(controls - ref["controls"]).max())
+            ok = np.allclose(controls, ref["controls"], rtol=MESH2D_FACTOR,
+                             atol=MESH2D_FACTOR)
+            ms = log["solve_times_ms"]
+            print(f"[mesh2d] 34b.{short}: route plain, no kernel launched, "
+                  f"{MESH2D_STEPS} steps of B = {MESH2D_BATCH} at "
+                  f"{c.max_iterations} iterations on a (2, 2) mesh; max "
+                  f"|controls - single-device| {err:.4g} (rtol and atol "
+                  f"{MESH2D_FACTOR}): {ok}; ms per step "
+                  f"{', '.join(f'{m:.3f}' for m in ms)} (single device "
+                  f"{', '.join(f'{m:.3f}' for m in ref['solve_times_ms'])})"
+                  f" on {card}")
+            if not ok:
+                raise SmokeFailure(f"34b.{short}: the 2-D loop's controls "
+                                   f"differ from the single-device loop's "
+                                   f"by {err}")
+        out[short] = controls
+
+    # 34c. the multichip example on the 4 ranks
+    zero_counts()
+    t0 = time.perf_counter()
+    got = multichip_sharded.main(["--device", "cuda"] + MULTICHIP_ARGV)
+    if launched() or not np.isfinite(got["control"]).all():
+        raise SmokeFailure(f"34c: kernel launches {launched()} or controls "
+                           "not finite")
+    print(f"[mesh2d] 34c: multichip_sharded {' '.join(MULTICHIP_ARGV)}: "
+          f"finite controls, no kernel, {time.perf_counter() - t0:.3f} s")
+    out["multichip"] = got["control"]
+
+    # 34d. a warm resume on the 1-D mesh of this rank's row
+    c = copy.deepcopy(cfg)
+    c.algorithm, c.max_iterations = ALGORITHM_APG, MESH2D_ITER["apg"]
+    warm_resume("34d", "plain", lambda: SmpcController(
+        c, network=net, tree=tree, forecaster=forecaster(net), device=dev,
+        warm_start=True, mesh=m2.scen),
+        f"{directory}/row{m2.batch.rank}")
+    print(f"[time] phase 34: {time.perf_counter() - t_phase:.3f} s on "
+          f"rank {m2.rank}")
+    return out
+
+
+def mesh_2d_rank(rank, init, results, directory):
+    """One rank of phase 34 (a process of its own): LOCAL_RANK 0, so that
+    every rank's default card is card 0; joins the gloo group; puts
+    (rank, outcome) on ``results``.  Rank 0 alone prints."""
+    import os
+    import traceback
+    import torch
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        os.environ["LOCAL_RANK"] = "0"
+        from rapidnet_tpu_torch.parallel import distributed
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        distributed.initialize(backend="gloo", init_method=f"file://{init}",
+                               rank=rank, world_size=MESH2D_RANKS)
+        results.put((rank, mesh_2d_phase(["cuda:0"] * MESH2D_RANKS,
+                                         directory)))
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+
+
+def run_mesh_2d_phase():
+    """Phase 34: MESH2D_RANKS processes share card 0 over a gloo group;
+    the ranks' controls must be equal bit for bit and their counts too.
+    Returns 34a's launches."""
+    import tempfile
+
+    import numpy as np
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh2d_") as tmp:
+        out = spawn_ranks("34", mesh_2d_rank, MESH2D_RANKS, MESH2D_TIMEOUT,
+                          tmp)
+    first = out[0]
+    for rank in range(1, MESH2D_RANKS):
+        other = out[rank]
+        same = (other["counts"] == first["counts"] and all(
+            np.array_equal(other[k], first[k])
+            for k in ("apg", "fbe", "multichip")) and all(
+            np.array_equal(other["dryrun"][k], first["dryrun"][k])
+            for k in first["dryrun"]))
+        if not same:
+            raise SmokeFailure(f"34: rank {rank}'s controls or counts differ "
+                               "from rank 0's")
+    print(f"[mesh2d] 34: the {MESH2D_RANKS} ranks' controls (34a-c) and "
+          f"counts equal bit for bit; phase {time.perf_counter() - t0:.3f} "
+          f"s with the spawn")
+    return first["counts"]
 
 
 def fused_streamed_bytes(kc, iterations):
@@ -4130,7 +4347,44 @@ def read_back(tag, paths, cfg, eng, net, tree):
         raise SmokeFailure(f"{tag}: config.algorithm read back differs")
 
 
-def cli_phase(cfg, eng, net, tree):
+RESUME_STREAM_ITER = 20    # phase 31d: iterations a step on the streaming
+                           # route at config 5
+
+
+def warm_resume(tag, route, build, path):
+    """A warm controller (``build()``) on ``route``: step 0, a checkpoint
+    after it, step 1; a fresh controller resumed from the file runs step
+    1: its control and duals must equal the uninterrupted run's bit for
+    bit.  On a mesh only its rank 0 reads the file: the other ranks pass
+    a path with no file there.  Returns the line for the phase's
+    report."""
+    import numpy as np
+    import torch
+    from rapidnet_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+    a = build()
+    a.control_action(0)
+    a.move_forward_in_time()
+    save_checkpoint(a, path, sim_time=1)
+    t0 = time.perf_counter()
+    u_ref = a.control_action(1)
+    ms = (time.perf_counter() - t0) * 1e3
+    b = build()
+    here = path if b.mesh is None or b.mesh.rank == 0 else path + "_elsewhere"
+    u = b.control_action(load_checkpoint(b, here))
+    same = (np.array_equal(u, u_ref) and all(
+        torch.equal(b._last["y"][k], a._last["y"][k]) for k in ("xi", "psi")))
+    print(f"[resume] {tag}: route {a.route}, step 1 resumed from the "
+          f"checkpoint equals the uninterrupted warm loop's (control and "
+          f"duals) bit for bit: {same}; step 1 {ms:.3f} ms")
+    if a.route != route or b.route != route or not same:
+        raise SmokeFailure(f"{tag}: route {a.route}/{b.route} (expected "
+                           f"{route}), or the resumed step differs by "
+                           f"{np.abs(u - u_ref).max()}")
+    return f"{tag} resume bit for bit ({route})"
+
+
+def cli_phase(cfg, eng, net, tree, problem5):
     """Phase 31: the closed-loop CLI on the card, on a problem directory
     the port writes (phase 2's Barcelona-scale objects): the files read
     back bit for bit; ``rapidnet_tpu_torch.cli.main`` for 2 APG steps
@@ -4146,7 +4400,8 @@ def cli_phase(cfg, eng, net, tree):
     import numpy as np
 
     from rapidnet_tpu_torch.io.writers import config_to_json, export_problem
-    from rapidnet_tpu_torch.model.config import ALGORITHM_FBE
+    from rapidnet_tpu_torch.model.config import (ALGORITHM_APG, ALGORITHM_FBE,
+                                                 ALGORITHM_NAMA)
     from rapidnet_tpu_torch.solver.controller import SmpcController
     from rapidnet_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                      save_checkpoint)
@@ -4230,6 +4485,33 @@ def cli_phase(cfg, eng, net, tree):
               "the APG CLI's control0, and step 1 resumed from its "
               "checkpoint equals the uninterrupted warm loop's, bit for "
               "bit")
+        nama_config = str(tmp / "nama" / "controllerConfig.json")
+        (tmp / "nama").mkdir()
+        nama = copy.deepcopy(cfg)
+        nama.algorithm = ALGORITHM_NAMA
+        config_to_json(nama, nama_config, network_path=paths["network"],
+                       tree_path=paths["tree"],
+                       forecaster_path=paths["forecaster"], mat_l=eng.L,
+                       mat_lhat=eng.Lhat)
+        for short, config in (("fbe", fbe_config), ("nama", nama_config)):
+            report.append(warm_resume(
+                f"31d.{short}", "kernel",
+                lambda config=config: SmpcController(
+                    config, device="cuda", warm_start=True),
+                str(tmp / f"ckpt_{short}")))
+        cfg5, net5, tree5 = problem5[:3]
+        for short, algorithm in (("apg", ALGORITHM_APG),
+                                 ("fbe", QN_ALGORITHMS["fbe"]),
+                                 ("nama", QN_ALGORITHMS["nama"])):
+            c5 = copy.deepcopy(cfg5)
+            c5.algorithm, c5.max_iterations = algorithm, RESUME_STREAM_ITER
+            report.append(warm_resume(
+                f"31d.stream.{short}", "stream",
+                lambda c5=c5: SmpcController(
+                    c5, network=net5, tree=tree5,
+                    forecaster=forecaster(net5), device="cuda",
+                    warm_start=True),
+                str(tmp / f"ckpt_stream_{short}")))
     print(f"[cli] 31: {'; '.join(report)}; phase "
           f"{time.perf_counter() - t_phase:.3f} s")
     return counts
@@ -4346,7 +4628,7 @@ def main() -> int:
     fused["launches"] = ladder_phase().get("apg_stream_fused", 0)
     entries.append(fused)
     lap("30")
-    cli = cli_phase(cfg, eng, net, tree)
+    cli = cli_phase(cfg, eng, net, tree, problem5)
     for e in entries:
         if e["name"] in cli:
             e["cli_launches"] = cli[e["name"]]
@@ -4356,6 +4638,11 @@ def main() -> int:
         if e["name"] in examples:
             e["example_launches"] = examples[e["name"]]
     lap("33")
+    dry = run_mesh_2d_phase()
+    for e in entries:
+        if e["name"] in DRYRUN_ENTRIES:
+            e["dryrun_launches"] = dry[DRYRUN_ENTRIES[e["name"]]]
+    lap("34")
 
     print(card_name())
     print(json.dumps({"kernels": entries}))

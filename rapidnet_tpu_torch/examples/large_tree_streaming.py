@@ -30,7 +30,8 @@ import time
 
 import numpy as np
 
-from rapidnet_tpu_torch.examples import add_device, kpis
+from rapidnet_tpu_torch.examples import (add_device, add_mesh, join_mesh,
+                                         kpis)
 
 
 def main(argv=None) -> dict:
@@ -41,11 +42,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--algorithm", default="proximalAlgorithm",
                     choices=["proximalAlgorithm", "globalFbeAlgorithm",
                              "namaAlgorithm"])
-    ap.add_argument("--devices", type=int, default=0,
-                    help="shard the scenario axis over N processes")
-    ap.add_argument("--dist-init", default=None,
-                    help="the process group's init method (default env://, "
-                         "torchrun's variables)")
+    add_mesh(ap, default=0)
     ap.add_argument("--steps", type=int, default=2)
     args = ap.parse_args(argv)
 
@@ -74,12 +71,7 @@ def main(argv=None) -> dict:
 
     mesh, rank = None, 0
     if args.devices:
-        from rapidnet_tpu_torch.parallel import distributed, make_mesh
-        cpu = device.type == "cpu"
-        distributed.initialize(backend="gloo" if cpu else "nccl",
-                               init_method=args.dist_init)
-        mesh = make_mesh(args.devices,
-                         devices=["cpu"] * args.devices if cpu else None)
+        mesh = join_mesh(device, args.devices, args.dist_init)
         rank = mesh.rank
     ctrl = SmpcController(cfg, network=net, tree=tree, forecaster=fc,
                           backend="stream", mesh=mesh, device=device)

@@ -27,9 +27,9 @@ import os
 import torch
 import torch.distributed as dist
 
-from rapidnet_tpu_torch.parallel.sharding import Mesh, make_mesh
-
-DEFAULT_TIMEOUT = datetime.timedelta(seconds=120)
+from rapidnet_tpu_torch.parallel import sharding
+from rapidnet_tpu_torch.parallel.sharding import (DEFAULT_TIMEOUT, Mesh,
+                                                  make_mesh)
 
 
 def initialize(backend: str | None = None, init_method: str | None = None,
@@ -42,7 +42,8 @@ def initialize(backend: str | None = None, init_method: str | None = None,
     ``init_method`` to ``env://`` (MASTER_ADDR, MASTER_PORT).
     ``backend``: 'nccl' when CUDA is available, else 'gloo'.  Two ranks
     on one card need 'gloo' (NCCL refuses them).  ``timeout``: how long a
-    collective waits for the other ranks before it fails."""
+    collective waits for the other ranks before it fails (also on the
+    row and column groups of ``make_mesh_2d``)."""
     if dist.is_initialized():
         return
     if rank is None:
@@ -55,6 +56,7 @@ def initialize(backend: str | None = None, init_method: str | None = None,
                             init_method=init_method or "env://",
                             rank=rank, world_size=world_size,
                             timeout=timeout)
+    sharding._world_timeout = timeout
 
 
 def scenario_mesh(devices=None) -> Mesh:

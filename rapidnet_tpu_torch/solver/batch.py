@@ -29,6 +29,18 @@ FBE and NAMA (``config.algorithm``; FBE and NAMA with the config's
 ``'stream'`` is refused, as the JAX package's batched controller refuses
 it: the streaming kernels run one solve.
 
+``mesh``: a ``parallel.Mesh2D`` (``parallel.make_mesh_2d``), the 2-D
+(batch, scenario) mesh of ``rapidnet_tpu/solver/batch.py:128-161``: the
+instances shard the batch axis and each instance's tree the scenario
+axis, every rank calling ``control_action`` with the same global state.
+The solves are the plain batched ones (``parallel.make_sharded_batch_shared``
+with a shared forecaster, else ``make_sharded_apg_batch`` or
+``make_sharded_qn_batch``; route ``'plain'``), as the JAX controller
+forces its XLA path on a mesh; ``backend='cuda'`` with a mesh raises
+instead of being dropped.  The controls, the warm start's duals and the
+outputs come back global on every rank, so the simulator and the KPIs
+run alike on every rank.
+
 The built-in simulator advances each instance as ``SmpcController``
 does, so an instance of a batch with its own forecaster runs the single
 closed loop.
@@ -46,6 +58,7 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from rapidnet_tpu_torch.convert import (factor_arrays, factor_tensors,
                                         shared_step_tensors, step_arrays,
@@ -56,6 +69,9 @@ from rapidnet_tpu_torch.model.forecaster import Forecaster
 from rapidnet_tpu_torch.model.network import DwnNetwork
 from rapidnet_tpu_torch.model.scenario_tree import ScenarioTree
 from rapidnet_tpu_torch.ops import apg_solve, qn_solve
+from rapidnet_tpu_torch.parallel.sharding import (
+    Mesh2D, make_sharded_apg_batch, make_sharded_batch_shared,
+    make_sharded_qn_batch, shard_factor_arrays)
 from rapidnet_tpu_torch.solver import apg as apg_mod
 from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
 from rapidnet_tpu_torch.solver.controller import (ALGORITHMS, BACKENDS,
@@ -81,19 +97,33 @@ class BatchedSmpcController:
                  device="cuda",
                  mesh=None):
         """device: where the solves run ('cuda' by default; raises when
-        no GPU is present).  mesh, the JAX batched controller's 2-D
-        (batch, scenario) mesh, is not ported yet."""
+        no GPU is present).  mesh: a ``parallel.Mesh2D``, the batched
+        solves sharded over its (batch, scenario) ranks (module
+        docstring); they then run on the mesh's device, and ``device``
+        must name the same kind (cpu or cuda)."""
         backends = tuple(b for b in BACKENDS if b != "stream")
         if backend not in backends:
             raise ValueError(f"unknown backend '{backend}' "
                              f"(expected one of {backends})")
         if mesh is not None:
-            raise NotImplementedError(
-                "batched solves on a mesh (the 2-D batch x scenario mesh) "
-                "are not ported yet (ROADMAP queue 1, item 12c)")
+            if not isinstance(mesh, Mesh2D):
+                raise TypeError(f"mesh must be a rapidnet_tpu_torch."
+                                f"parallel.Mesh2D (make_mesh_2d), got "
+                                f"{type(mesh).__name__}")
+            if backend == "cuda":
+                raise ValueError(
+                    "backend='cuda' with a mesh: the batched whole-solve "
+                    "kernels are single-device; the 2-D mesh runs the "
+                    "plain batched solves (backend 'auto' or 'torch')")
         if config.algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm '{config.algorithm}'")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if self.device.type != mesh.device.type:
+                raise ValueError(f"device '{device}' and the mesh's device "
+                                 f"{mesh.device} differ")
+            self.device = mesh.device
         if backend == "cuda" and self.device.type != "cuda":
             raise ValueError(
                 f"backend='cuda' needs a CUDA device, got '{device}'")
@@ -121,6 +151,7 @@ class BatchedSmpcController:
         self._y_carry = None     # picked
         self._solver = None
         self._fa = None
+        self._last = None
         self._last_control: Optional[np.ndarray] = None
         self.solve_times_ms: list[float] = []
 
@@ -162,6 +193,9 @@ class BatchedSmpcController:
                      else qn_mod.make_solver_batch)
             kernel = (qn_solve.make_qn_kernel_batch_shared if shared
                       else qn_solve.make_qn_kernel_batch)
+        if self.mesh is not None:
+            self._initialise_sharded(kw)
+            return
         fits = apg_solve.fits if cfg.algorithm == ALGORITHM_APG \
             else qn_solve.fits
         past_limits = (self.backend == "auto" and self.device.type == "cuda"
@@ -173,6 +207,26 @@ class BatchedSmpcController:
         else:
             self.route = "kernel"
             self._solver = kernel(self._fa, **kw)
+
+    def _initialise_sharded(self, kw: dict) -> None:
+        """The batched solves on the 2-D mesh
+        (``rapidnet_tpu/solver/batch.py:128-161``): the shared-base form
+        with a shared forecaster, else the stacked APG or FBE/NAMA form;
+        the factor cut of this rank's column."""
+        N, ns = self._fa["d1"].shape[:2]
+        template = {"beta": torch.empty(N, ns, self._fa["invWbar"].shape[0],
+                                        device="meta")}
+        if self._shared_forecast:
+            kw.setdefault("algorithm", self.config.algorithm)
+            run = make_sharded_batch_shared(self.mesh, self._fa, template,
+                                            **kw)
+        elif self.config.algorithm == ALGORITHM_APG:
+            run = make_sharded_apg_batch(self.mesh, self._fa, template, **kw)
+        else:
+            run = make_sharded_qn_batch(self.mesh, self._fa, template, **kw)
+        fa = shard_factor_arrays(self._fa, self.mesh)
+        self.route = "plain"
+        self._solver = lambda *args: run(fa, *args)
 
     # ------------------------------------------------------------------
     def _forecast(self, fc: Forecaster, sim_time: int) -> None:
@@ -205,6 +259,7 @@ class BatchedSmpcController:
         self.solve_times_ms.append((time.perf_counter() - t0) * 1e3)
         if self.warm_start:
             self._y_carry = out["y"]
+        self._last = out
         self._last_control = control
         return control
 

@@ -11,8 +11,18 @@ starts, as an .npz plus a JSON manifest.
 The port has one dual layout, ``{"xi", "psi"}`` unpadded (the JAX
 package's XLA layout), saved as float32 and restored as tensors on the
 controller's device.  A file holding the JAX package's padded Pallas
-layout (``dual_xi1``/``dual_xi2``) is refused, and so is a controller on
-a mesh, whose ranks each hold only their slice of the duals.
+layout (``dual_xi1``/``dual_xi2``) is refused.
+
+On a mesh (``SmpcController(mesh=...)``) both routes return the duals in
+the global layout on every rank, so a mesh run's file is the
+single-device file: the same keys, shapes and dtypes.  Saving, loading
+and ``checkpoint_exists(path, mesh)`` are then collective, and only the
+mesh's rank 0 touches ``path``: it writes while every rank waits on
+``mesh.barrier()``, and it reads and broadcasts what it read (or the
+error it met) to the other ranks.  So ``path`` need exist only on rank
+0's file system, and the ranks of a mesh that spans hosts resume from
+the same state.  The global carry is what each sharded solve cuts its
+block from.
 """
 
 from __future__ import annotations
@@ -24,21 +34,22 @@ import numpy as np
 import torch
 
 DUAL_KEYS = {"xi", "psi"}
-MESH_CHECKPOINT = ("checkpoints of a controller on a mesh are not ported "
-                   "(each rank holds only its slice of the duals; "
-                   "ROADMAP.md queue 1, item 11b)")
-
-
-def _refuse_mesh(controller) -> None:
-    if controller.mesh is not None:
-        raise NotImplementedError(MESH_CHECKPOINT)
 
 
 def save_checkpoint(controller, path: str, *, sim_time: int,
                     include_duals: bool = True) -> None:
     """Atomic checkpoint: tmp-file + rename for both artifacts, so a
-    crash mid-save never corrupts the previous checkpoint."""
-    _refuse_mesh(controller)
+    crash mid-save never corrupts the previous checkpoint.  On a mesh,
+    collective: rank 0 writes, every rank returns after it has."""
+    mesh = controller.mesh
+    if mesh is None or mesh.rank == 0:
+        _write(controller, path, sim_time, include_duals)
+    if mesh is not None:
+        mesh.barrier()
+
+
+def _write(controller, path: str, sim_time: int, include_duals: bool
+           ) -> None:
     arrays = {
         "current_x": controller.config.current_x,
         "prev_u": controller.config.prev_u,
@@ -69,12 +80,23 @@ def save_checkpoint(controller, path: str, *, sim_time: int,
 def load_checkpoint(controller, path: str) -> int:
     """Restore controller state; returns the sim_time to resume from.
     The duals become the warm-start carry of a ``warm_start``
-    controller."""
-    _refuse_mesh(controller)
-    with open(path + ".json") as f:
-        manifest = json.load(f)
-    with np.load(path + ".npz") as data:
-        arrays = {k: data[k] for k in data.files}
+    controller (global, on a mesh too).  On a mesh every rank calls it:
+    rank 0 reads ``path`` and the others receive what it read, or raise
+    the error it met."""
+    mesh = controller.mesh
+    if mesh is None:
+        manifest, arrays = _read(path)
+    else:
+        got = None
+        if mesh.rank == 0:
+            try:
+                got = _read(path)
+            except Exception as exc:     # raised on every rank below
+                got = exc
+        got = mesh.broadcast_object(got)
+        if isinstance(got, Exception):
+            raise got
+        manifest, arrays = got
     duals = {k[len("dual_"):]: v for k, v in arrays.items()
              if k.startswith("dual_")}
     if duals and set(duals) != DUAL_KEYS:
@@ -99,5 +121,16 @@ def load_checkpoint(controller, path: str) -> int:
     return int(manifest["sim_time"])
 
 
-def checkpoint_exists(path: str) -> bool:
-    return os.path.exists(path + ".json") and os.path.exists(path + ".npz")
+def _read(path: str) -> tuple:
+    with open(path + ".json") as f:
+        manifest = json.load(f)
+    with np.load(path + ".npz") as data:
+        arrays = {k: data[k] for k in data.files}
+    return manifest, arrays
+
+
+def checkpoint_exists(path: str, mesh=None) -> bool:
+    """Whether both files are there; on a ``mesh`` (collective) rank 0's
+    answer on every rank."""
+    found = os.path.exists(path + ".json") and os.path.exists(path + ".npz")
+    return found if mesh is None else bool(mesh.broadcast_object(found))

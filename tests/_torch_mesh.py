@@ -7,7 +7,9 @@ TCP port, so parallel test workers cannot collide), builds the CPU
 returns the ranks' results in rank order, and raises when a rank fails
 or when they are not all done within ``timeout`` seconds (then every
 rank is stopped).  The group's own timeout (``GROUP_TIMEOUT``) makes a
-rank that waits on a collective that never comes fail.
+rank that waits on a collective that never comes fail.  ``Ranks`` starts
+them and returns at once, so that a test module can compute its JAX
+references while the ranks run (``wait()`` collects them).
 
 The jobs below run in the ranks.  This module imports neither JAX nor
 the JAX package, and the ranks import nothing that does: the tests hand
@@ -51,49 +53,73 @@ class RankFailure(RuntimeError):
     pass
 
 
+class Ranks:
+    """n spawned ranks running ``job`` (``run_ranks``' arguments), started
+    at construction so that the caller can work meanwhile; ``wait()``
+    returns their results in rank order, ``stop()`` stops every rank
+    still running."""
+
+    def __init__(self, n, job, *args, group=True, timeout=RUN_TIMEOUT,
+                 group_timeout=GROUP_TIMEOUT):
+        ctx = mp.get_context("spawn")
+        self.n, self.name = n, job.__name__
+        self.results = ctx.Queue()
+        tmp = tempfile.mkdtemp(prefix="torch_mesh_")
+        init = f"file://{os.path.join(tmp, 'store')}"
+        self.procs = [ctx.Process(target=_entry,
+                                  args=(r, n, init, job, args, group,
+                                        group_timeout, self.results))
+                      for r in range(n)]
+        self.deadline = time.monotonic() + timeout
+        self.timeout = timeout
+        try:
+            for p in self.procs:
+                p.start()
+        except BaseException:
+            self.stop()
+            raise
+
+    def wait(self):
+        out = {}
+        try:
+            while len(out) < self.n:
+                try:
+                    rank, res = self.results.get(timeout=1.0)
+                except queue.Empty:
+                    if time.monotonic() > self.deadline:
+                        raise RankFailure(f"{self.n} ranks of {self.name} "
+                                          f"not done within {self.timeout} "
+                                          "s")
+                    dead = [p.exitcode for p in self.procs
+                            if not p.is_alive() and p.exitcode]
+                    if dead:
+                        raise RankFailure(f"a rank of {self.name} died "
+                                          f"(exit codes {dead})")
+                    continue
+                if isinstance(res, str):
+                    raise RankFailure(f"rank {rank} of {self.name} "
+                                      f"failed:\n{res}")
+                out[rank] = res
+            for p in self.procs:
+                p.join(30)
+        finally:
+            self.stop()
+        return [out[r] for r in range(self.n)]
+
+    def stop(self):
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(5)
+
+
 def run_ranks(n, job, *args, group=True, timeout=RUN_TIMEOUT,
               group_timeout=GROUP_TIMEOUT):
     """``job(mesh, *args)`` on each of n CPU ranks (``group=False``:
     ``job(rank, n, init_method, *args)``, the job joins the group
     itself); the results in rank order."""
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    tmp = tempfile.mkdtemp(prefix="torch_mesh_")
-    init = f"file://{os.path.join(tmp, 'store')}"
-    procs = [ctx.Process(target=_entry,
-                         args=(r, n, init, job, args, group, group_timeout,
-                               results))
-             for r in range(n)]
-    out = {}
-    try:
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + timeout
-        while len(out) < n:
-            try:
-                rank, res = results.get(timeout=1.0)
-            except queue.Empty:
-                if time.monotonic() > deadline:
-                    raise RankFailure(f"{n} ranks of {job.__name__} not done "
-                                      f"within {timeout} s")
-                dead = [p.exitcode for p in procs
-                        if not p.is_alive() and p.exitcode]
-                if dead:
-                    raise RankFailure(f"a rank of {job.__name__} died "
-                                      f"(exit codes {dead})")
-                continue
-            if isinstance(res, str):
-                raise RankFailure(f"rank {rank} of {job.__name__} failed:\n"
-                                  f"{res}")
-            out[rank] = res
-        for p in procs:
-            p.join(30)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-                p.join(5)
-    return [out[r] for r in range(n)]
+    return Ranks(n, job, *args, group=group, timeout=timeout,
+                 group_timeout=group_timeout).wait()
 
 
 # ---------------------------------------------------------------- jobs
@@ -300,3 +326,192 @@ def stall_job(mesh, wait):
     except Exception as exc:
         return type(exc).__name__, time.monotonic() - start
     return "no error", time.monotonic() - start
+
+
+def batched_controller(pkg, algorithm, forecasts, iterations, steps_ahead=6,
+                       B=4, **kw):
+    """``pkg``'s ``BatchedSmpcController`` on tests/test_batch.py's problem
+    (nx 4, nu 7, N 8, branching [2, 2], seed 3) with B instances from
+    x0 * linspace(0.9, 1.1, B): one shared forecaster (seed 3) or one per
+    instance (seeds 3 + b).  Imports only ``pkg``."""
+    import importlib
+    m = {k: importlib.import_module(f"{pkg}.model.{k}")
+         for k in ("network", "scenario_tree", "forecaster", "config")}
+    cls = importlib.import_module(f"{pkg}.solver.batch").BatchedSmpcController
+    net = m["network"].synthetic_network(nx=4, nu=7, nd=3, ne=2, seed=3)
+    tree = m["scenario_tree"].generate_tree(N=8, branching=[2, 2], nd=3,
+                                            nu=7, seed=3)
+
+    def fc(seed):
+        return m["forecaster"].synthetic_forecaster(
+            N=8, nd=3, nu=7, sim_horizon=steps_ahead, seed=seed)
+
+    cfg = m["config"].synthetic_config(net, tree, max_iterations=iterations,
+                                       step_size=1e-3)
+    cfg.algorithm = algorithm
+    fcs = fc(3) if forecasts == "shared" else [fc(3 + b) for b in range(B)]
+    x0s = (cfg.current_x * np.linspace(0.9, 1.1, B)[:, None]
+           ).astype(np.float32)
+    return cls(cfg, net, tree, fcs, x0s, **kw)
+
+
+def mesh_2d_job(mesh, fa, steps, base, inst, prefix, cases, loops,
+                loop_steps):
+    """On a (2, 2) ``make_mesh_2d`` of the 4 ranks: each rank's place;
+    the 2-D batched solves of ``cases`` (name -> (form 'stacked' or
+    'shared', algorithm, solver keywords)) on the global (B, ...) steps
+    or (base, inst), cold, buffer 5; the ``loop_steps``-step closed
+    loops of ``BatchedSmpcController(mesh=...)`` of ``loops`` (name ->
+    (algorithm, forecasts, iterations, warm start)); and the refusals on
+    the mesh (B the batch rows do not divide, a wrong world size)."""
+    import torch
+    from rapidnet_tpu_torch.convert import (factor_tensors,
+                                            shared_step_tensors,
+                                            stacked_step_tensors)
+    from rapidnet_tpu_torch.parallel import (make_mesh_2d,
+                                             make_sharded_apg_batch,
+                                             make_sharded_batch_shared,
+                                             make_sharded_qn_batch,
+                                             shard_factor_arrays)
+    m2 = make_mesh_2d(2, 2, devices=["cpu"] * 4)
+    out = {"place": (m2.rank, m2.scen.rank, m2.scen.size, m2.batch.rank,
+                     m2.batch.size, repr(m2))}
+    fa_t = factor_tensors(fa, "cpu")
+    st = stacked_step_tensors(steps, "cpu")
+    sh = shared_step_tensors(base, inst, "cpu")
+    fa_l = shard_factor_arrays(fa_t, m2)
+    for name, (form, algorithm, kw) in cases.items():
+        kw = dict(kw, prefix_stages=prefix)
+        if form == "shared":
+            run = make_sharded_batch_shared(m2, fa_t, sh[0],
+                                            algorithm=algorithm,
+                                            lbfgs_buffer_size=5, **kw)
+            out[name] = _np(run(fa_l, *sh))
+        elif algorithm == "proximalAlgorithm":
+            out[name] = _np(make_sharded_apg_batch(m2, fa_t, st, **kw)(
+                fa_l, st))
+        else:
+            out[name] = _np(make_sharded_qn_batch(
+                m2, fa_t, st, algorithm=algorithm, lbfgs_buffer_size=5,
+                **kw)(fa_l, st))
+    for name, (algorithm, forecasts, iterations, warm) in loops.items():
+        ctrl = batched_controller("rapidnet_tpu_torch", algorithm,
+                                  forecasts, iterations, device="cpu",
+                                  mesh=m2, warm_start=warm)
+        log = ctrl.closed_loop(loop_steps)
+        out[name] = {"controls": log["controls"], "route": ctrl.route,
+                     "kpis": {k: log[k] for k in (
+                         "economicKpi", "smoothKpi", "safetyKpi",
+                         "networkKpi")},
+                     "last": _np(ctrl._last),
+                     "carry": None if ctrl._y_carry is None
+                     else _np(ctrl._y_carry)}
+    refusals = {}
+    odd = {k: v[:3] for k, v in st.items()}
+    for name, call in (
+            ("batch", lambda: make_sharded_apg_batch(
+                m2, fa_t, st, prefix_stages=prefix,
+                **cases["apg"][2])(fa_l, odd)),
+            ("world", lambda: make_mesh_2d(3, 2, devices=["cpu"] * 6))):
+        try:
+            call()
+            refusals[name] = None
+        except Exception as exc:          # the test asserts on the type
+            refusals[name] = (type(exc).__name__, str(exc))
+    out["refusals"] = refusals
+    return finish(mesh, out)
+
+
+def _capture(fn, *args):
+    """(fn(*args), what it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = fn(*args)
+    return got, buf.getvalue()
+
+
+def mesh_controller(mesh, algorithm, backend, iterations=10, seed=7,
+                    **kw):
+    """``SmpcController`` on the problem of ``controller_job`` (tree
+    [4, 2], N 6), on ``mesh`` (None: one device), on the CPU."""
+    from rapidnet_tpu_torch import SmpcController
+    from rapidnet_tpu_torch.model.config import synthetic_config
+    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
+    from rapidnet_tpu_torch.model.network import synthetic_network
+    from rapidnet_tpu_torch.model.scenario_tree import generate_tree
+    net = synthetic_network(nx=4, nu=7, nd=3, ne=2, seed=seed)
+    tree = generate_tree(N=6, branching=[4, 2], nd=3, nu=7, seed=seed)
+    fc = synthetic_forecaster(N=6, nd=3, nu=7, sim_horizon=4, seed=seed)
+    cfg = synthetic_config(net, tree, max_iterations=iterations,
+                           step_size=1e-3)
+    cfg.algorithm = algorithm
+    return SmpcController(cfg, network=net, tree=tree, forecaster=fc,
+                          backend=backend, device="cpu", mesh=mesh, **kw)
+
+
+def warm_resume(ctrl_factory, path):
+    """A warm controller's step 0, saved to ``path``, and step 1 both
+    uninterrupted and resumed in a fresh controller from the file:
+    (the two step-1 controls, the two last duals, the two economic KPI
+    accumulators, the resumed time, the route).  On a mesh the ranks
+    other than its rank 0 pass a path where no file is, as on a host
+    that does not see rank 0's disk (only rank 0 may read); ``exists``
+    is then ``checkpoint_exists`` of the path each rank passed, and
+    ``missing`` the error each rank raised loading a path rank 0 lacks
+    too."""
+    from rapidnet_tpu_torch.utils.checkpoint import (checkpoint_exists,
+                                                     load_checkpoint,
+                                                     save_checkpoint)
+    a = ctrl_factory()
+    mesh = a.mesh
+    a.control_action(0)
+    a.move_forward_in_time()
+    save_checkpoint(a, path, sim_time=1)
+    u_ref = a.control_action(1)
+    a.move_forward_in_time()
+    b = ctrl_factory()
+    here = path if mesh is None or mesh.rank == 0 else path + "_elsewhere"
+    out = {"exists": checkpoint_exists(here, mesh)}
+    t = load_checkpoint(b, here)
+    u = b.control_action(t)
+    b.move_forward_in_time()
+    if mesh is not None:
+        try:
+            load_checkpoint(ctrl_factory(), path + "_missing")
+            out["missing"] = None
+        except Exception as exc:          # the test asserts on the type
+            out["missing"] = type(exc).__name__
+    return dict(out, u=u, u_ref=u_ref, y=_np(b._last["y"]),
+                y_ref=_np(a._last["y"]),
+                kpi=(b.economic_kpi_acc, a.economic_kpi_acc), t=t,
+                route=a.route)
+
+
+def multichip_job(mesh, directory, resumes):
+    """On the 4 ranks: ``multichip_sharded --devices 4 --iterations 40``
+    (its result and what it printed); ``dryrun.dryrun_multichip(4)``
+    and its refusal of a 3-rank mesh; then on the two rows of a (2, 2)
+    ``make_mesh_2d`` (2-rank scenario meshes) the warm checkpoint resumes
+    of ``resumes`` (name -> (algorithm, backend)) into ``directory``, a
+    file per row."""
+    from rapidnet_tpu_torch.examples import dryrun, multichip_sharded
+    from rapidnet_tpu_torch.parallel import make_mesh_2d
+    out = {"example": _capture(multichip_sharded.main, [
+        "--device", "cpu", "--devices", "4", "--iterations", "40"])}
+    out["example"][0].pop("network")
+    out["dryrun"] = dryrun.dryrun_multichip(4, devices=["cpu"] * 4)
+    try:
+        dryrun.dryrun_multichip(3, devices=["cpu"] * 3)
+        out["dryrun_3"] = None
+    except Exception as exc:              # the test asserts on the type
+        out["dryrun_3"] = (type(exc).__name__, str(exc))
+    m2 = make_mesh_2d(2, 2, devices=["cpu"] * 4)
+    row = m2.batch.rank
+    for name, (algorithm, backend) in resumes.items():
+        out[name] = warm_resume(
+            lambda: mesh_controller(m2.scen, algorithm, backend,
+                                    warm_start=True),
+            os.path.join(directory, f"{name}_row{row}"))
+    return finish(mesh, out)

@@ -296,7 +296,9 @@ def test_batched_backends_agree_on_cpu():
 
 
 def test_batched_controller_requests_raise():
-    """No silent fallback, and the options not ported yet say so."""
+    """No silent fallback: unknown or impossible requests raise (a mesh
+    that is not a ``parallel.Mesh2D`` too; tests/test_torch_mesh_2d.py
+    has the 2-D mesh's own refusals)."""
     from rapidnet_tpu_torch import BatchedSmpcController
     from rapidnet_tpu_torch.model.config import (ALGORITHM_FBE,
                                                  ALGORITHM_NAMA)
@@ -308,7 +310,7 @@ def test_batched_controller_requests_raise():
         BatchedSmpcController(cfg, net, tree, fc, x0s, backend="cuda", **kw)
     with pytest.raises(ValueError, match="unknown backend"):
         BatchedSmpcController(cfg, net, tree, fc, x0s, backend="xla", **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="Mesh2D"):
         BatchedSmpcController(cfg, net, tree, fc, x0s, mesh=object(), **kw)
     for algorithm in (ALGORITHM_FBE, ALGORITHM_NAMA):
         qn = copy.deepcopy(cfg)

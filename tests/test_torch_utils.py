@@ -144,13 +144,10 @@ def test_jax_xla_checkpoint_resumes_in_the_port(tmp_path):
 def test_checkpoint_refusals(tmp_path):
     """A file holding the JAX package's padded Pallas duals
     (dual_xi1/dual_xi2), written by its own save under backend='pallas',
-    raises and names them; a controller on a mesh raises on save and on
-    load."""
+    raises and names them.  (A controller on a mesh is no longer refused:
+    tests/test_torch_multichip.py and the one-rank test below.)"""
     from rapidnet_tpu.utils.checkpoint import save_checkpoint as jsave
-    from rapidnet_tpu_torch import SmpcController
-    from rapidnet_tpu_torch.parallel import Mesh
-    from rapidnet_tpu_torch.utils.checkpoint import (load_checkpoint,
-                                                     save_checkpoint)
+    from rapidnet_tpu_torch.utils.checkpoint import load_checkpoint
 
     src = _jax(warm_start=True, backend="pallas")
     src.control_action(0)
@@ -165,16 +162,71 @@ def test_checkpoint_refusals(tmp_path):
         load_checkpoint(port, path)
     np.testing.assert_array_equal(port.config.current_x, x_before)
 
+
+@pytest.mark.parametrize("algorithm,backend", [
+    ("proximalAlgorithm", "stream"), ("globalFbeAlgorithm", "auto"),
+    ("globalFbeAlgorithm", "stream"), ("namaAlgorithm", "auto"),
+    ("namaAlgorithm", "stream")])
+def test_qn_and_stream_warm_resume_is_the_uninterrupted_loop(
+        tmp_path, algorithm, backend):
+    """The warm resume of test_warm_resume_is_the_uninterrupted_loop on
+    the other routes: FBE and NAMA on the whole-solve route ('auto' on the
+    CPU runs the kernel wrapper's plain version) and on the streaming
+    route (the kernels' plain halves), APG streaming; ``out["y"]`` is
+    {xi, psi} on each (ops/qn_solve.py, solver/qn_stream.py), and step 1
+    of the resumed controller equals the uninterrupted loop's bit for
+    bit."""
+    from rapidnet_tpu_torch import SmpcController
+    from tests import _torch_mesh as TM
+
+    def warm():
+        cfg, net, tree, fc = _problem("rapidnet_tpu_torch",
+                                      max_iterations=10, step_size=1e-3)
+        cfg.algorithm = algorithm
+        return SmpcController(cfg, network=net, tree=tree, forecaster=fc,
+                              device="cpu", warm_start=True,
+                              backend=backend)
+
+    got = TM.warm_resume(warm, str(tmp_path / "ckpt"))
+    assert got["route"] == ("kernel" if backend == "auto" else "stream")
+    assert got["t"] == 1
+    np.testing.assert_array_equal(got["u"], got["u_ref"])
+    for k in ("xi", "psi"):
+        np.testing.assert_array_equal(got["y"][k], got["y_ref"][k])
+    assert got["kpi"][0] == got["kpi"][1]
+
+
+def test_one_rank_mesh_checkpoint_is_the_single_device_file(tmp_path):
+    """A controller on a mesh of one rank (``Mesh(0, 1, "cpu")``, no
+    process group) saves the file a single-device controller saves, bit
+    for bit (its plain sharded solve is the single-device one), and
+    loads it as its global warm carry."""
+    from rapidnet_tpu_torch import SmpcController
+    from rapidnet_tpu_torch.parallel import Mesh
+    from rapidnet_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+    paths = {}
+    for name, mesh in (("single", None), ("mesh", Mesh(0, 1, "cpu"))):
+        cfg, net, tree, fc = _problem("rapidnet_tpu_torch")
+        ctrl = SmpcController(cfg, network=net, tree=tree, forecaster=fc,
+                              device="cpu", warm_start=True, backend="torch",
+                              mesh=mesh)
+        ctrl.control_action(0)
+        ctrl.move_forward_in_time()
+        paths[name] = str(tmp_path / name)
+        save_checkpoint(ctrl, paths[name], sim_time=1)
+    with np.load(paths["single"] + ".npz") as a, \
+            np.load(paths["mesh"] + ".npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k])
+            assert a[k].dtype == b[k].dtype
     cfg, net, tree, fc = _problem("rapidnet_tpu_torch")
     meshed = SmpcController(cfg, network=net, tree=tree, forecaster=fc,
-                            device="cpu", backend="stream",
-                            mesh=Mesh(0, 2, "cpu"))
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        save_checkpoint(meshed, str(tmp_path / "mesh"), sim_time=0)
-    ok = _port()
-    save_checkpoint(ok, str(tmp_path / "plain"), sim_time=0)
-    with pytest.raises(NotImplementedError, match="on a mesh"):
-        load_checkpoint(meshed, str(tmp_path / "plain"))
+                            device="cpu", warm_start=True, backend="torch",
+                            mesh=Mesh(0, 1, "cpu"))
+    assert load_checkpoint(meshed, paths["mesh"]) == 1
+    assert meshed._y_carry["xi"].shape == (6, 2, 8)
 
 
 # -- timing -------------------------------------------------------------
