@@ -247,7 +247,19 @@ every phase; rank 0 prints:
     phase 15's stressed state, each within PASS_FACTOR * max(|plain|, 1)
     of the plain halves on the same card; with ``--reference-kernel
     DIR``, the partial parent block equal to DIR's ``stream_sharded.cu``
-    bit for bit on both ranks;
+    bit for bit on both ranks; 23d, one K1a pass (its parent block
+    rounding each child's carry), one K2 pass on the block from K1a's
+    duals and v, and one sharded S1 pass (solve step and oracle) at
+    ``precision="default"`` against their "default" plain
+    halves by phase 35's rule (``DefaultHeld``), each unequal to the
+    "highest" pass; 23e, the main path at "default": 1-step
+    ``SmpcController(mesh=..., backend="auto",
+    stream_precision="default")`` loops, APG and FBE at
+    MESH_PRECISION_ITER iterations, every count zeroed just before each:
+    only the ``_bf16`` wrappers of the sharded kernels launch (their
+    JSON entries' launches), and each one's ms per pass on rank 0's
+    block beside its plain half's and its bound (the products at the
+    bf16 rate);
 24. the 500-iteration sharded APG solve against the single-device
     streaming solve (phase 16's kernels): control, u, x and the trace
     within 1e-3 * max(|ref|, 1) or under the float64 witness rule; a warm
@@ -382,6 +394,36 @@ Then this slice's kernels and its main path:
     resume of step 1 on the 1-D mesh of each row (``SmpcController(mesh=
     ...)``, 2 ranks, the plain route), bit for bit against the
     uninterrupted run.
+
+Then the reduced-precision streaming path (``stream_precision=
+"default"``: each in-kernel product's operands rounded to bfloat16,
+summed in float32, the ``_bf16`` C entries of ``csrc/apg_stream.cu``,
+``csrc/stream_qn.cu`` and ``csrc/stream_sharded.cu``):
+
+35. (``precision_phases``) 35a, in each variant (staged at config 5,
+    from phase 15's stressed state; unstaged on WIDE_WIDTHS' tree), one
+    K1, K2, S1 and S2 pass (solve step and oracle) and one fused
+    iteration at "default" against their "default" plain halves, each
+    within PASS_FACTOR * max(|plain|, 1) (``DefaultHeld``, which also
+    counts the outputs equal bit for bit) and unequal to the "highest"
+    pass;
+    35b, the partial parent block at "default" against
+    ``partial_parents_plain`` on one process (rank 0's shard of 2);
+    35c, the 500-iteration fused solve at "default" against the
+    two-kernel solve at "default" (bit for bit, else SAME_FACTOR); 35d,
+    500-iteration APG, FBE and NAMA solves at "default": the control
+    within PRECISION_TIER * max(|highest|, 1) of the "highest" solve's,
+    the deviation printed, two calls equal bit for bit; 35e, the main
+    path: PRECISION_LOOP_STEPS-step ``SmpcController(backend="auto",
+    stream_precision="default")`` loops (APG; FBE at
+    PRECISION_QN_LOOP_ITER iterations) and a
+    ``make_apg_stream_fused(precision="default")`` solve, every count
+    zeroed just before each: only the ``_bf16`` wrappers launch; 35f,
+    each kernel's ms per pass and the APG solve's ms at "default" and
+    "highest" in turns (highest, default, default, highest), the plain
+    versions, the bounds with the products at the bf16 rate (989
+    TFLOP/s).  The JSON entries of the ``_bf16`` entries carry
+    ``highest_ms``, the "highest" time measured in the same turns.
 
 Each phase prints its own line.  The last lines are the card's name and
 power limit, one JSON line describing each kernel (with its bound: the
@@ -836,7 +878,19 @@ def wrappers():
             "apg_stream_sharded.k1a": SS.k1a_call,
             "apg_stream_sharded.k2": SS.k2_local,
             "stream_sharded.partial_parents": SS.partial_parents,
-            "stream_qn.s1a": SQ.s1a_call}
+            "stream_qn.s1a": SQ.s1a_call,
+            # the "default" entries (one bf16 pass a product)
+            "apg_stream_bf16": S.apg_stream_bf16,
+            "apg_stream.k1_bf16": S.k1_call_bf16,
+            "apg_stream.k2_bf16": S.k2_call_bf16,
+            "apg_stream_fused_bf16": S.apg_stream_fused_bf16,
+            "apg_stream.fused_bf16": S.fused_call_bf16,
+            "stream_qn.s1_bf16": SQ.s1_call_bf16,
+            "stream_qn.s2_bf16": SQ.s2_call_bf16,
+            "apg_stream_sharded.k1a_bf16": SS.k1a_call_bf16,
+            "apg_stream_sharded.k2_bf16": SS.k2_local_bf16,
+            "stream_sharded.partial_parents_bf16": SS.partial_parents_bf16,
+            "stream_qn.s1a_bf16": SQ.s1a_call_bf16}
 
 
 def zero_counts():
@@ -2751,6 +2805,7 @@ def stream_qn_phases(ref_libs, device, problem, kq_b, kc_b, step_b,
 
 
 MESH_RANKS = 2        # phases 23-27: two ranks share card 0 over gloo
+MESH_PRECISION_ITER = 20   # phase 23e: iterations of each default loop
 MESH_TIMEOUT = 1500   # s the parent waits for the ranks' results
 MESH_LOOP_STEPS = 2   # phase 26's loops: steps (cut from 4: the run took
                       # 1067 s of its 1200 on a slow host)
@@ -2982,7 +3037,159 @@ def mesh_phases(mesh, ref_paths=None):
           f"(both variants) hold their plain halves on this rank's block; "
           f"largest deviation {ratio:.6g} x max(|plain|, 1) (bound "
           f"{PASS_FACTOR:g})")
-    del ps, st_k, st_p, st_2, w, v_in
+    # 23d. one K1a pass (with its parent block), one K2 pass on the block
+    # and one sharded S1 pass at "default" against their "default" plain
+    # halves (phase 35's rule), each unequal to the "highest" pass
+    D = "default"
+    held_d = DefaultHeld(f"23.default.rank{mesh.rank}")
+    st_k, st_p = stressed(), stressed()
+    ext_k, par_k = SS.k1a_call(kc, stl, st_k, precision=D, **hyper)
+    ext_p, par_p = SS.k1a_plain(kc, stl, st_p, precision=D, **hyper)
+    for k in ("y_xi", "y_psi", "z_xi", "z_psi", "v"):
+        held_d(f"k1a.{k}", st_k[k][hs], st_p[k][hs])
+    held_d("k1a.extrema", ext_k, ext_p)
+    held_d("k1a.parents", par_k, par_p)
+    if torch.equal(par_k, SS.k1a_call(kc, stl, stressed(), **hyper)[1]):
+        raise SmokeFailure("23d: the default parent block equals the "
+                           "highest one")
+    # one K2 pass on the block at default from K1a's default duals and v
+    # (zero below s_hi), against the default plain half and unequal to the
+    # highest pass from the same state
+    st_p["v"][:kc["s_hi"]] = 0.0
+    st_2, st_h = stressed(), stressed()
+    for k in ("y_xi", "y_psi", "z_xi", "z_psi", "v"):
+        st_2[k].copy_(st_p[k])
+        st_h[k].copy_(st_p[k])
+    d_k = SS.k2_local(kc, stl, st_2, precision=D, **hyper)
+    x_p, u_p, pre_p, d1_p, d2_p = S.k2_plain(
+        kc, st_p["v"], stl["uhat"], stl["e"], stl["x0"], pdu,
+        {"xi": st_p["y_xi"], "psi": st_p["y_psi"]},
+        {"xi": st_p["z_xi"], "psi": st_p["z_psi"]}, lam_i=sc[1],
+        c=hyper["inv_step"], xs_upper=hyper["xs_upper"], precision=D)
+    held_d("k2.x", st_2["x"], x_p)
+    held_d("k2.u", st_2["u"], u_p)
+    held_d("k2.pre.xi", st_2["pre_xi"], pre_p["xi"])
+    held_d("k2.pre.psi", st_2["pre_psi"], pre_p["psi"])
+    held_d("k2.dsq", d_k, torch.stack([d1_p, d2_p]))
+    SS.k2_local(kc, stl, st_h, **hyper)
+    if torch.equal(st_2["x"], st_h["x"]):
+        raise SmokeFailure("23d: the default K2 pass on the block equals "
+                           "the highest one")
+    del st_2, st_h
+    w = torch.cat([ps["y"]["xi"], ps["y"]["psi"]], dim=-1)[:, sl].contiguous()
+    for name, beta in (("solve", stl["beta"]), ("oracle", None)):
+        got = SQ.s1a_call(kc, w, mesh, beta, precision=D)
+        held_d(f"s1a.{name}", got, SQ.s1a_plain(kc, w, mesh, beta,
+                                                precision=D))
+        if torch.equal(got, SQ.s1a_call(kc, w, mesh, beta)):
+            raise SmokeFailure("23d: the default sharded S1 equals the "
+                               "highest one")
+    print(f"[mesh] 23d: K1a, its parent block, K2 and the sharded S1 at "
+          f"default hold their default plain halves on rank {mesh.rank}'s "
+          f"block; {held_d.summary()}")
+
+    # 23e. the main path at default: 1-step SmpcController(mesh=...,
+    # backend="auto", stream_precision="default") loops, every count
+    # zeroed just before each: only the _bf16 wrappers launch
+    bf16_counts = {}
+    for name, alg, iters in (("apg", cfg.algorithm, MESH_PRECISION_ITER),
+                             ("fbe", QN_ALGORITHMS["fbe"],
+                              MESH_PRECISION_ITER)):
+        c = copy.deepcopy(cfg)
+        c.algorithm = alg
+        c.max_iterations = iters
+        ctrl = SmpcController(c, network=net, tree=tree,
+                              forecaster=forecaster(net), backend="auto",
+                              device="cuda", mesh=mesh, stream_precision=D)
+        ctrl.initialise()
+        zero_counts()
+        log = ctrl.closed_loop(1)
+        n = {k: fn.launches for k, fn in wrappers().items() if fn.launches}
+        if name == "apg":
+            want = {k: iters for k in (
+                "apg_stream_sharded.k1a_bf16", "apg_stream_sharded.k2_bf16",
+                "stream_sharded.partial_parents_bf16")}
+        else:
+            want = {k if k.startswith("lbfgs") else f"{k}_bf16": v
+                    for k, v in mesh_qn_counts(alg, iters).items()}
+        print(f"[mesh] 23e.{name}: route {ctrl.route}, 1 step of {iters} "
+              f"iterations at default, launches {json.dumps(n)}; solve "
+              f"{log['time0'][0]:.3f} ms; control finite: "
+              f"{bool(np.isfinite(log['control0']).all())}")
+        if n != want or ctrl.route != "stream" or not np.isfinite(
+                log["control0"]).all():
+            raise SmokeFailure(f"23e.{name}: route {ctrl.route}, launches "
+                               f"{n}, expected {want}")
+        for k, v in n.items():
+            bf16_counts[k] = bf16_counts.get(k, 0) + v
+        del ctrl
+    # per pass on this rank's block at default and highest in turns
+    # (highest, default, default, highest), rank 1 at a barrier
+    work = shard_work(kc)
+    st_t = stressed()
+    v_t = torch.zeros(kc["sq"].shape + (kc["iWT"].shape[0],), device=dev)
+    carry = torch.empty(2, kc["nsl"], net.nx + kc["iWT"].shape[0],
+                        device=dev)
+    last = carry[(len(kc["ranges"]) - 1) & 1]
+    sharded = "rapidnet_tpu/ops/pallas_stream_sharded.py"
+
+    def k2_plain_at(p):
+        return S.k2_plain(kc, st_t["v"], stl["uhat"], stl["e"], stl["x0"],
+                          pdu, {"xi": st_t["y_xi"], "psi": st_t["y_psi"]},
+                          {"xi": st_t["z_xi"], "psi": st_t["z_psi"]},
+                          lam_i=sc[1], c=hyper["inv_step"],
+                          xs_upper=hyper["xs_upper"], precision=p)
+
+    # (entry, source, TPU kernel, 23d's error, kernel call at a precision,
+    #  plain half at a precision, its work)
+    bf16_rows = (
+        ("apg_stream_sharded.k1a_bf16", "apg_stream.cu", f"{sharded}:264",
+         max(held_d.errs[k] for k in held_d.errs if k.startswith("k1a")),
+         lambda p: SS.k1a_call(kc, stl, st_t, precision=p, **hyper),
+         lambda p: SS.k1a_plain(kc, stl, st_t, precision=p, **hyper),
+         work["k1a"]),
+        ("apg_stream_sharded.k2_bf16", "apg_stream.cu", f"{sharded}:361",
+         max(held_d.errs[k] for k in held_d.errs if k.startswith("k2")),
+         lambda p: SS.k2_local(kc, stl, st_t, precision=p, **hyper),
+         k2_plain_at, work["k2"]),
+        ("stream_sharded.partial_parents_bf16", "stream_sharded.cu",
+         f"{sharded}:354", held_d.errs["k1a.parents"],
+         lambda p: SS.partial_parents(kc, last, precision=p),
+         lambda p: SS.partial_parents_plain(kc, last, precision=p),
+         work["partial_parents"]),
+        ("stream_qn.s1a_bf16", "stream_qn.cu", f"{sharded}:830",
+         max(held_d.errs[k] for k in held_d.errs if k.startswith("s1a")),
+         lambda p: SQ._launch(kc, 1, True, w=w, v=v_t, beta=stl["beta"],
+                              carry=carry, precision=p),
+         lambda p: SQ._s1_high_plain(kc, w, stl["beta"], precision=p),
+         work["s1a"][:2]))
+    bf16_entries = []
+    for key, src, line, err, call, plain, (flops, nbytes) in bf16_rows:
+        mesh.barrier()
+        turns = {"highest": [], D: []}
+        p_ms = 0.0
+        if mesh.rank == 0:
+            for p in ("highest", D, D, "highest"):
+                turns[p].append(event_ms(lambda: call(p), 20))
+            p_ms = event_ms(lambda: plain(D), 3)
+        mesh.barrier()
+        ms = float(np.median(turns[D])) if turns[D] else 0.0
+        high = float(np.median(turns["highest"])) if turns[D] else 0.0
+        b_ms, by = bf16_bound(flops, nbytes)
+        print(f"[timing] 23e {key}: {ms:.6f} ms per pass on rank 0's "
+              f"block, highest {high:.6f} ms, in turns "
+              f"({', '.join(f'{t:.6f}' for t in turns[D])} / "
+              f"{', '.join(f'{t:.6f}' for t in turns['highest'])}); plain "
+              f"{p_ms:.6f} ms; bound {b_ms:.6f} ms ({by}, the products at "
+              f"the bf16 rate)")
+        bf16_entries.append({
+            "name": key, "route": "cuda",
+            "source": f"rapidnet_tpu_torch/csrc/{src}", "replaces": line,
+            "launches": bf16_counts.get(key, 0), "max_abs_err": err,
+            "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None, "highest_ms": high})
+    del st_t, v_t, carry, last
+    del ps, st_k, st_p, w, v_in
     lap(23)
 
     # 24. the 500-iteration sharded APG solve against the single-device
@@ -3370,7 +3577,7 @@ def mesh_phases(mesh, ref_paths=None):
     print(f"[bound] sharded APG solve, both ranks' work on one card: "
           f"{b1[0]:.6f} ms ({b1[1]}), as the single-device solve's")
     lap(27)
-    return entries, counts, torch.cuda.max_memory_allocated()
+    return entries + bf16_entries, counts, torch.cuda.max_memory_allocated()
 
 
 def sweeps_against_reference(mesh, kc, w, v, stl, pdu, rows, ref_libs):
@@ -4517,6 +4724,433 @@ def cli_phase(cfg, eng, net, tree, problem5):
     return counts
 
 
+PRECISION_TIER = 1e-1   # phase 35: a "default" solve's control within this
+                        # x max(|highest|, 1) of the "highest" solve's (the
+                        # reference's solver-numerics tier,
+                        # docs/roofline.md:125-132)
+PRECISION_LOOP_STEPS = 2
+PRECISION_QN_LOOP_ITER = 50   # phase 35's FBE loop: iterations a step
+BF16_FLOPS = 989e12   # H100 SXM, bf16 on the tensor cores (dense)
+# phase 35's unstaged variant: twice config 5's widths (nx, nu, nd, ne;
+# nv = 194: the matrices ~425 KB), past every staged variant's shared
+# memory, over a tree of 12 scenarios (tests/test_torch_cuda.py's)
+WIDE_WIDTHS = (126, 228, 44, 34)
+WIDE_BRANCHING = (3, 2, 2)
+WIDE_N = 8
+
+
+def bf16_bound(flops, nbytes):
+    """(ms, what sets it) of a "default" pass: its products, bf16 x bf16
+    summed in float32, over the tensor cores' bf16 rate (989 TFLOP/s), and
+    its bytes (float32 inputs and outputs, each once) over 3.35 TB/s."""
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+class DefaultHeld:
+    """Phase 35's (and 23d's) rule for a "default" pass against its
+    "default" plain version.  Both round the same operands in the same
+    places (K1's dual update one operation at a time, in PyTorch's order),
+    so the kernel is held to PASS_FACTOR * max(|plain|, 1), as a
+    "highest" pass is.  Keeps each output's largest deviation and counts
+    the outputs equal to their plain version bit for bit."""
+
+    def __init__(self, tag):
+        self.tag = tag
+        self.worst = 0.0
+        self.errs = {}
+        self.equal = self.held = 0
+
+    def __call__(self, name, got, ref):
+        import torch
+        err = check_close(f"{self.tag}.{name}", got, ref, PASS_FACTOR)
+        self.held += 1
+        self.equal += bool(torch.equal(got, ref))
+        self.worst = max(self.worst,
+                         err / max(float(ref.abs().max()), 1.0))
+        self.errs[name] = max(self.errs.get(name, 0.0), err)
+        return err
+
+    def summary(self):
+        return (f"largest deviation {self.worst:.6g} x max(|plain|, 1) "
+                f"(PASS_FACTOR {PASS_FACTOR:g}); {self.equal} of "
+                f"{self.held} outputs bit for bit")
+
+
+def wide_problem(device):
+    """Phase 35's tree past the staged variants: WIDE_WIDTHS over
+    WIDE_BRANCHING, horizon WIDE_N, seeds 11, tanks at 1.2 times their
+    maximum, step size 1e-3 (tests/test_torch_cuda.py's ``unstaged``
+    case).  Returns (fa, prefix stages, step, solver keywords)."""
+    import numpy as np
+    from rapidnet_tpu_torch.convert import (factor_arrays, factor_tensors,
+                                            step_arrays, step_tensors)
+    from rapidnet_tpu_torch.engine.engine import XS_UPPER, Engine
+    from rapidnet_tpu_torch.model.config import synthetic_config
+    from rapidnet_tpu_torch.model.forecaster import synthetic_forecaster
+    from rapidnet_tpu_torch.model.network import synthetic_network
+    from rapidnet_tpu_torch.model.scenario_tree import generate_tree
+
+    nx, nu, nd, ne = WIDE_WIDTHS
+    net = synthetic_network(nx=nx, nu=nu, nd=nd, ne=ne, seed=11)
+    tree = generate_tree(N=WIDE_N, branching=list(WIDE_BRANCHING), nd=nd,
+                         nu=nu, seed=11)
+    fc = synthetic_forecaster(N=WIDE_N, nd=nd, nu=nu, sim_horizon=4,
+                              seed=11)
+    cfg = synthetic_config(net, tree, max_iterations=MAX_ITER,
+                           step_size=1e-3)
+    cfg.current_x = (1.2 * net.xmax).astype(np.float32)
+    eng = Engine(net, tree, cfg)
+    fc.predict_demand(0)
+    fc.predict_prices(0)
+    fa = factor_tensors(factor_arrays(eng), device)
+    step = step_tensors(step_arrays(eng.prepare_step(
+        fc.nominal_demand, fc.nominal_prices, cfg.current_x, cfg.prev_u,
+        cfg.prev_demand)), device)
+    hyper = dict(inv_step=1.0 / cfg.step_size, step_size=cfg.step_size,
+                 penalty_state=cfg.penalty_state,
+                 penalty_safety=cfg.penalty_safety,
+                 xs_upper=float(XS_UPPER), max_iterations=MAX_ITER)
+    return fa, eng.factor_step().prefix_stages, step, hyper
+
+
+def default_passes(tag, kc, step, hyper, want_staged, held):
+    """Phase 35a on one tree: the variant the source picks for each
+    "default" kernel (``want_staged``), then one K1 and one K2 pass, one
+    S1 and one S2 pass (solve step and oracle) and one fused iteration
+    at "default" from the duals after PASS_ITER plain iterations, held
+    by ``held`` to their "default" plain versions, each output also
+    unequal to the "highest" pass's."""
+    import torch
+    from rapidnet_tpu_torch.ops import apg_stream as S
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+    D = "default"
+    dims = S._dims(kc)
+    picked = dict(S.staged(*dims, precision=D))
+    picked.update({k: v for k, v in SQ.staged(*dims, precision=D).items()
+                   if k in ("s1", "s2")})
+    print(f"[precision] {tag}: N {dims[0]} ns {dims[1]} nx {dims[2]} nu "
+          f"{dims[3]} nv {dims[4]}; the _bf16 entries pick {picked} "
+          f"(True: staged)")
+    if set(picked.values()) != {want_staged}:
+        raise SmokeFailure(f"{tag}: expected every variant "
+                           f"{'staged' if want_staged else 'unstaged'}")
+    ps = S.plain_iterations(kc, step, iterations=PASS_ITER, **hyper)
+    lams = kc["lams"]
+    sc = (lams[PASS_ITER - 1], lams[PASS_ITER], 1.0) + PASS_SHRINKS
+    scal = dict(lam_prev=sc[0], lam_i=sc[1], upd=1.0, k1f=sc[3], k2f=sc[4],
+                c=hyper["inv_step"], xs_upper=hyper["xs_upper"])
+    pdu = (step["prev_u"] - step["prev_uhat"]).contiguous()
+    # K1, K2
+    yk, zk, vk, chk = S.k1_call(kc, step, ps["pre"], ps["y"], ps["z"], sc,
+                                precision=D, **hyper)
+    yp, zp, vp, chp = S.k1_plain(kc, step["beta"], ps["pre"], ps["y"],
+                                 ps["z"], step=hyper["step_size"],
+                                 precision=D, **scal)
+    vh = S.k1_call(kc, step, ps["pre"], ps["y"], ps["z"], sc, **hyper)[2]
+    for k in ("xi", "psi"):
+        held(f"k1.y.{k}", yk[k], yp[k])
+        held(f"k1.z.{k}", zk[k], zp[k])
+    held("k1.v", vk, vp)
+    held("k1.champion", chk, chp)
+    xk, uk, prek, d1k, d2k = S.k2_call(kc, step, vp, yp, zp, sc, precision=D,
+                                       **hyper)
+    xp, up, prep, d1p, d2p = S.k2_plain(
+        kc, vp, step["uhat"], step["e"], step["x0"], pdu, yp, zp,
+        lam_i=sc[1], c=hyper["inv_step"], xs_upper=hyper["xs_upper"],
+        precision=D)
+    xh = S.k2_call(kc, step, vp, yp, zp, sc, **hyper)[0]
+    held("k2.x", xk, xp)
+    held("k2.u", uk, up)
+    held("k2.pre.xi", prek["xi"], prep["xi"])
+    held("k2.pre.psi", prek["psi"], prep["psi"])
+    held("k2.d1sq", d1k, d1p)
+    held("k2.d2sq", d2k, d2p)
+    if torch.equal(vk, vh) or torch.equal(xk, xh):
+        raise SmokeFailure(f"{tag}: a default K1 or K2 pass equals the "
+                           "highest one")
+    # S1, S2 (solve step and oracle)
+    w_in = torch.cat([ps["y"]["xi"], ps["y"]["psi"]], dim=-1).contiguous()
+    v_in = SQ.s1_plain(kc, w_in, step["beta"], precision=D)
+    for label, a1, a2 in (
+            ("solve", (step["beta"],),
+             (step["uhat"], step["e"], step["x0"], pdu)),
+            ("oracle", (), ())):
+        got_v = SQ.s1_call(kc, w_in, *a1, precision=D)
+        held(f"s1.{label}.v", got_v, SQ.s1_plain(kc, w_in, *a1, precision=D))
+        got = SQ.s2_call(kc, v_in, *a2, precision=D)
+        ref = SQ.s2_plain(kc, v_in, *a2, precision=D)
+        held(f"s2.{label}.x", got[0], ref[0])
+        held(f"s2.{label}.u", got[1], ref[1])
+        held(f"s2.{label}.images", got[2], ref[2])
+        if torch.equal(got_v, SQ.s1_call(kc, w_in, *a1)) or torch.equal(
+                got[0], SQ.s2_call(kc, v_in, *a2)[0]):
+            raise SmokeFailure(f"{tag}: a default S1 or S2 pass equals the "
+                               "highest one")
+    # one fused iteration
+    state = {"pre": ps["pre"], "y": ps["y"], "z": ps["z"]}
+    got = S.fused_call(kc, step, state, sc, precision=D, **hyper)
+    ref = S.fused_iteration_plain(kc, step, state, sc, precision=D, **hyper)
+    held("fused.v", got["v"], ref["v"])
+    held("fused.x", got["x"], ref["x"])
+    held("fused.champion", got["champion"], ref["champion"])
+    return picked
+
+
+def precision_phases(problem):
+    """Phase 35, the reduced-precision streaming path
+    (``stream_precision="default"``: one bf16 pass a product, the
+    ``_bf16`` C entries) on phase 15's config-5 problem (``problem``, as
+    ``stream_phases`` returns it) and on WIDE_WIDTHS' tree.  Returns the
+    JSON entries of the _bf16 entries of single-device kernels."""
+    import numpy as np
+    import torch
+    from rapidnet_tpu_torch.ops import apg_stream as S
+    from rapidnet_tpu_torch.ops import apg_stream_sharded as SS
+    from rapidnet_tpu_torch.ops import stream_qn as SQ
+    from rapidnet_tpu_torch.solver import qn_stream as QS
+    from rapidnet_tpu_torch.solver.controller import SmpcController
+
+    t0 = time.perf_counter()
+    D = "default"
+    cfg, net, tree, fa, make_step, kc, prefix, hyper = problem
+    held = DefaultHeld("35")
+
+    # 35a. the passes in each variant: staged at config 5, unstaged on
+    # the wide tree
+    step_hot = make_step((1.2 * net.xmax).astype(np.float32))
+    default_passes("35a.config5", kc, step_hot, hyper, True, held)
+    fa_w, prefix_w, step_w, hyper_w = wide_problem(fa["d1"].device)
+    kc_w = S.stream_constants(fa_w, prefix_stages=prefix_w,
+                              max_iterations=MAX_ITER)
+    default_passes("35a.wide", kc_w, step_w, hyper_w, False, held)
+    del fa_w, kc_w, step_w
+
+    # 35b. the partial parent block on one process: rank 0's shard of
+    # config 5 over 2, a K1 pass's exit carries of its block
+    kc_s = SS.pack_stream_sharded(fa, 2, 0, prefix_stages=prefix,
+                                  max_iterations=MAX_ITER)
+    gen = torch.Generator(device=fa["d1"].device).manual_seed(35)
+    carry = torch.randn((kc_s["nsl"], kc_s["x_width"]), generator=gen,
+                        device=fa["d1"].device)
+    got_pp = SS.partial_parents(kc_s, carry, precision=D)
+    held("partial_parents", got_pp,
+         SS.partial_parents_plain(kc_s, carry, precision=D))
+    if torch.equal(got_pp, SS.partial_parents(kc_s, carry)):
+        raise SmokeFailure("35b: the default parent block equals the "
+                           "highest one")
+    del kc_s
+    print(f"[precision] 35a-b: the _bf16 kernels hold their default plain "
+          f"versions; {held.summary()}")
+
+    # 35c. 500 iterations: the fused solve against the two-kernel solve
+    step = make_step(cfg.current_x)
+    keys = ("x", "u", "v", "control", "primal_infeasibility")
+    fused = S.apg_stream_fused(kc, step, None, precision=D, **hyper)
+    two = S.apg_stream(kc, step, None, precision=D, **hyper)
+    same = outputs_equal(fused, two, keys)
+    print(f"[precision] 35c: the default fused solve equals the default "
+          f"two-kernel solve bit for bit: {same}")
+    if not same:
+        for k in keys:
+            check_close(f"35c.{k}", fused[k], two[k], SAME_FACTOR)
+
+    # 35d. the 500-iteration APG, FBE and NAMA solves at default against
+    # highest, and two calls equal
+    def solvers(precision):
+        run_qn = {name: QS.make_qn_stream(
+            fa, algorithm=alg, consts=kc, prefix_stages=prefix,
+            lbfgs_buffer_size=int(cfg.lbfgs_buffer_size), precision=precision,
+            **hyper) for name, alg in QN_ALGORITHMS.items()}
+        run_qn["apg"] = S.make_apg_stream_kernel(
+            fa, prefix_stages=prefix, consts=kc, precision=precision, **hyper)
+        return run_qn
+
+    deviation = {}
+    high, low = solvers("highest"), solvers(D)
+    for name in ("apg", "fbe", "nama"):
+        a, b = low[name](step), high[name](step)
+        err = float((a["control"] - b["control"]).abs().max())
+        scale = max(float(b["control"].abs().max()), 1.0)
+        deviation[name] = err / scale
+        tail = float(a["primal_infeasibility"][-20:].abs().median())
+        print(f"[precision] 35d.{name}: {MAX_ITER} iterations at default "
+              f"against highest: max |control difference| {err:.6g} = "
+              f"{err / scale:.6g} x max(|highest|, 1) (bound "
+              f"{PRECISION_TIER:g}); residual tail {tail:.6g} (highest "
+              f"{float(b['primal_infeasibility'][-20:].abs().median()):.6g})")
+        if not (torch.isfinite(a["control"]).all() and
+                err <= PRECISION_TIER * scale):
+            raise SmokeFailure(f"35d.{name}: the default control is off "
+                               "the highest one's tier")
+        if torch.equal(a["control"], b["control"]):
+            raise SmokeFailure(f"35d.{name}: default equals highest")
+        again = low[name](step)
+        if not all(torch.equal(again[k], a[k]) for k in
+                   ("control", "u", "x", "primal_infeasibility")):
+            raise SmokeFailure(f"35d.{name}: two default solves differ")
+    del high, low
+
+    # 35e. the main path: SmpcController(backend="auto",
+    # stream_precision="default") loops, every count zeroed just before
+    # each: only the _bf16 wrappers of the streaming kernels launch
+    counts = {}
+    for name, alg, iters in (("apg", cfg.algorithm, MAX_ITER),
+                             ("fbe", QN_ALGORITHMS["fbe"],
+                              PRECISION_QN_LOOP_ITER)):
+        c = copy.deepcopy(cfg)
+        c.algorithm = alg
+        c.max_iterations = iters
+        ctrl = SmpcController(c, network=net, tree=tree,
+                              forecaster=forecaster(net), backend="auto",
+                              device="cuda", stream_precision=D)
+        ctrl.initialise()
+        zero_counts()
+        log = ctrl.closed_loop(PRECISION_LOOP_STEPS)
+        n = {k: fn.launches for k, fn in wrappers().items() if fn.launches}
+        if name == "apg":
+            want = {"apg_stream_bf16": PRECISION_LOOP_STEPS}
+        else:
+            want = {f"{k}_bf16" if k.startswith("stream_qn") else k: v
+                    for k, v in stream_qn_counts(
+                        alg, iters, PRECISION_LOOP_STEPS).items()}
+        controls = np.array([log[f"control{t}"]
+                             for t in range(PRECISION_LOOP_STEPS)])
+        print(f"[precision] 35e.{name}: route {ctrl.route}, "
+              f"{PRECISION_LOOP_STEPS} steps of {iters} iterations at "
+              f"default, launches {json.dumps(n)}; solve ms per step "
+              f"{', '.join(f'{log[f'time{t}'][0]:.3f}' for t in range(PRECISION_LOOP_STEPS))}")
+        if n != want or ctrl.route != "stream" or not np.isfinite(
+                controls).all():
+            raise SmokeFailure(f"35e.{name}: route {ctrl.route}, launches "
+                               f"{n}, expected {want}")
+        for k, v in n.items():
+            counts[k] = counts.get(k, 0) + v
+        del ctrl
+    # the fused kernel's entry point at default (its only caller in the
+    # JAX package is its ladder), counted alone
+    zero_counts()
+    S.make_apg_stream_fused(fa, prefix_stages=prefix, consts=kc,
+                            precision=D, **hyper)(step)
+    counts["apg_stream_fused_bf16"] = check_counts(
+        "35e.fused", {"apg_stream_fused_bf16": 1})["apg_stream_fused_bf16"]
+
+    # 35f. timing: each kernel's ms per pass and the APG solves' ms at
+    # default and highest, in turns (highest, default, default, highest)
+    ps = S.plain_iterations(kc, step_hot, iterations=PASS_ITER, **hyper)
+    w_in = torch.cat([ps["y"]["xi"], ps["y"]["psi"]], dim=-1).contiguous()
+    pdu = (step_hot["prev_u"] - step_hot["prev_uhat"]).contiguous()
+    v_in = SQ.s1_plain(kc, w_in, step_hot["beta"])
+    aff = {True: ((step_hot["beta"],), (step_hot["uhat"], step_hot["e"],
+                                        step_hot["x0"], pdu)),
+           False: ((), ())}
+
+    def sweep_mix(fn, which, precision):
+        """One solve-step pass and two oracle passes of S1 or S2."""
+        def run():
+            for a in (True, False, False):
+                a1, a2 = aff[a]
+                if which == "S1":
+                    fn(kc, w_in, *a1, precision=precision)
+                else:
+                    fn(kc, v_in, *a2, precision=precision)
+        return run
+
+    def sweeps(precision):
+        return {"S1": sweep_mix(SQ.s1_call, "S1", precision),
+                "S2": sweep_mix(SQ.s2_call, "S2", precision)}
+
+    def solve(fn, precision):
+        return lambda: fn(kc, step, None, precision=precision, **hyper)
+
+    turns = {p: sweeps(p) for p in ("highest", D)}
+    ms = {p: {k: [] for k in turns[p]} for p in turns}
+    solve_ms = {p: {"apg": [], "fused": []} for p in turns}
+    device_us = {p: [] for p in turns}
+    for p in ("highest", D, D, "highest"):
+        for k, fn in turns[p].items():
+            ms[p][k].append(event_ms(fn, 10) / 3)
+        for k, fn in (("apg", S.apg_stream), ("fused", S.apg_stream_fused)):
+            solve_ms[p][k] += [timed(solve(fn, p))[0] for _ in range(3)]
+        device_us[p].append(kernel_times(
+            solve(S.apg_stream, p), MAX_ITER,
+            ("k1_kernel", "k2_kernel", "scalars_kernel")))
+    med = {p: {k: float(np.median(v)) for k, v in ms[p].items()}
+           for p in ms}
+    med_solve = {p: {k: float(np.median(v)) for k, v in solve_ms[p].items()}
+                 for p in solve_ms}
+    for k in med[D]:
+        print(f"[timing] 35f {k}: default {med[D][k]:.6f} ms per pass "
+              f"(one solve step and two oracles, as phase 22), highest "
+              f"{med['highest'][k]:.6f} ms, in turns "
+              f"({', '.join(f'{t:.6f}' for t in ms[D][k])} / "
+              f"{', '.join(f'{t:.6f}' for t in ms['highest'][k])})")
+    for k in ("apg", "fused"):
+        print(f"[timing] 35f {k} solve ({MAX_ITER} iterations, config 5): "
+              f"default {med_solve[D][k]:.3f} ms, highest "
+              f"{med_solve['highest'][k]:.3f} ms, in turns "
+              f"({', '.join(f'{t:.3f}' for t in solve_ms[D][k])} / "
+              f"{', '.join(f'{t:.3f}' for t in solve_ms['highest'][k])})")
+    for p in ("highest", D):
+        shown = ("not measured (no device time in the trace)"
+                 if None in device_us[p] else "; ".join(
+                     ", ".join(f"{k} {v:.3f}" for k, v in u.items())
+                     for u in device_us[p]))
+        print(f"[timing] 35f {p}: device us an iteration of the APG solve "
+              f"by the profiler, two turns: {shown}")
+    plain_solve_ms = timed(lambda: S.apg_stream_plain(
+        kc, step, None, precision=D, **hyper))[0]
+    plain = {"S1": event_ms(sweep_mix(SQ.s1_plain, "S1", D), 2) / 3,
+             "S2": event_ms(sweep_mix(SQ.s2_plain, "S2", D), 2) / 3}
+
+    # the bounds: the products at the bf16 rate
+    out = S.apg_stream(kc, step, None, precision=D, **hyper)
+    sb = stream_bound(kc, step, out, MAX_ITER)
+    b_solve = bf16_bound(sb[2], sb[3])
+    work = stream_qn_work(kc)
+    entries = [
+        {"name": "apg_stream_bf16", "route": "cuda",
+         "source": "rapidnet_tpu_torch/csrc/apg_stream.cu",
+         "replaces": "rapidnet_tpu/ops/pallas_stream.py:251",
+         "launches": counts.get("apg_stream_bf16", 0),
+         "max_abs_err": max(held.errs["k1.v"], held.errs["k2.x"]),
+         "ms": med_solve[D]["apg"], "plain_ms": plain_solve_ms,
+         "bound_ms": b_solve[0], "bound_by": b_solve[1],
+         "library_ms": None, "highest_ms": med_solve["highest"]["apg"]},
+        {"name": "apg_stream_fused_bf16", "route": "cuda",
+         "source": "rapidnet_tpu_torch/csrc/apg_stream.cu",
+         "replaces": "rapidnet_tpu/ops/pallas_stream.py:686",
+         "launches": counts["apg_stream_fused_bf16"],
+         "max_abs_err": max(held.errs["fused.v"], held.errs["fused.x"]),
+         "ms": med_solve[D]["fused"], "plain_ms": plain_solve_ms,
+         "bound_ms": b_solve[0], "bound_by": b_solve[1],
+         "library_ms": None, "highest_ms": med_solve["highest"]["fused"]}]
+    for name, key, line in (
+            ("S1", "stream_qn.s1_bf16",
+             "rapidnet_tpu/ops/pallas_stream_qn.py:79"),
+            ("S2", "stream_qn.s2_bf16",
+             "rapidnet_tpu/ops/pallas_stream_qn.py:129")):
+        flops, b_aff, b_orc = work[name]
+        b_ms = (bf16_bound(flops, b_aff)[0] +
+                2 * bf16_bound(flops, b_orc)[0]) / 3
+        errs_k = [e for k, e in held.errs.items()
+                  if k.startswith(name.lower())]
+        entries.append({
+            "name": key, "route": "cuda",
+            "source": "rapidnet_tpu_torch/csrc/stream_qn.cu",
+            "replaces": line, "launches": counts.get(key, 0),
+            "max_abs_err": max(errs_k), "ms": med[D][name],
+            "plain_ms": plain[name], "bound_ms": b_ms,
+            "bound_by": bf16_bound(flops, b_orc)[1], "library_ms": None,
+            "highest_ms": med["highest"][name]})
+    for e in entries:
+        print(f"[bound] 35 {e['name']}: {e['bound_ms']:.6f} ms "
+              f"({e['bound_by']}, the products at the bf16 rate)")
+    print(f"[time] phase 35: {time.perf_counter() - t0:.3f} s")
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reference-kernel", default=None, metavar="DIR",
@@ -4643,6 +5277,8 @@ def main() -> int:
         if e["name"] in DRYRUN_ENTRIES:
             e["dryrun_launches"] = dry[DRYRUN_ENTRIES[e["name"]]]
     lap("34")
+    entries += precision_phases(problem5)
+    lap("35")
 
     print(card_name())
     print(json.dumps({"kernels": entries}))

@@ -59,9 +59,10 @@ def main(argv=None):
                         "kernels; torch: the plain PyTorch solve (the "
                         "kernels' plain versions run on the CPU)")
     p.add_argument("--stream-precision", default=None,
-                   choices=["highest"],
+                   choices=["highest", "default"],
                    help="the streaming kernels' products: highest (full "
-                        "float32, the only precision measured so far)")
+                        "float32, the default) or default (one bf16 pass "
+                        "a product, as the TPU's MXU takes it)")
     p.add_argument("--stream-lbfgs-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="the storage of the streaming FBE/NAMA solve's "

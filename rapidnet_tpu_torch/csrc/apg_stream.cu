@@ -100,6 +100,19 @@
 //
 // Products are this file's own FP32 FMA loops (no cuBLAS, no tensor
 // cores, no TF32): the JAX package computes them at Precision.HIGHEST.
+// Its stream_precision="default" (one bf16 MXU pass a product) is the
+// BF16 instantiation of every kernel, reached through the C entries
+// apg_stream_bf16 and apg_stream_fused_bf16: each product's vector operand
+// is rounded to bfloat16 (to nearest, ties to even) once per element, and
+// the caller passes the matrices rounded the same way, so the same FP32
+// FMA chain sums exact bf16 x bf16 products.  The rounded copies of t, of
+// inner and of u (which stay float32 as the carries and the pre-images
+// read them) take (nx + nv) x TILE more floats of K1's work area and
+// nu x TILE more of K2's; v and g wp are rounded where they are stored.
+// The handoff gather rounds each child's carry before its sum and the sum
+// after it, as the TPU kernel's one-hot CpT and BpT products at that
+// precision do (pallas_stream.py:401-404).  The "highest" instantiation is
+// the code as it was, with its shared memory and bits.
 //
 // Layout: every per-row array is row-major (N, ns, d) with row
 // r = s * ns + i (stage s, slot i), the unpadded layout of the JAX
@@ -107,6 +120,7 @@
 // psi (N, ns, nu), as the whole-solve kernel keeps it.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -158,6 +172,17 @@ __device__ __forceinline__ float residual(float pre, float lo, float hi,
 }
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
+
+// x rounded to bfloat16 (to nearest, ties to even) and widened back: a
+// product's operand under BF16.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// x as a product under BF16 reads it (rounded), else x.
+template <bool BF16>
+__device__ __forceinline__ float operand(float x) {
+  return BF16 ? bf16r(x) : x;
+}
 
 // The parts of a block's stage that the instrumented build times
 // (nvcc -DAPG_STREAM_CLOCK): SM cycles on thread 0 between barriers,
@@ -553,6 +578,26 @@ __device__ __forceinline__ Scalars given_scalars(const Args& p) {
   return {p.sc[0], p.sc[1], p.sc[2], p.sc[3], p.sc[4]};
 }
 
+// K1's dual update under BF16, each operation rounded on its own in
+// PyTorch's order (k1_plain), never contracted to an FMA: t, inner and g wp
+// are rounded to bfloat16 from these values, and a contraction moves some
+// of them across a bf16 tie.  y + lam z (also K2's w under BF16):
+__device__ __forceinline__ float extrapolate_rn(float y, float lam, float z) {
+  return __fadd_rn(y, __fmul_rn(lam, z));
+}
+// keep (pre - clip(pre, lo, hi)) - c w
+__device__ __forceinline__ float residual_rn(float pre, float lo, float hi,
+                                             float keep, float c, float w) {
+  return __fsub_rn(__fmul_rn(keep, __fsub_rn(pre, clip(pre, lo, hi))),
+                   __fmul_rn(c, w));
+}
+// y + upd (lam_prev z + step r)
+__device__ __forceinline__ float update_rn(float y, float z, float r,
+                                           const Scalars& q, float step) {
+  return __fadd_rn(y, __fmul_rn(q.upd, __fadd_rn(__fmul_rn(q.lam_prev, z),
+                                                 __fmul_rn(step, r))));
+}
+
 // The scalars of iteration `it` from the squared distances s1, s2 that
 // K2 of iteration it - 1 left.
 __device__ __forceinline__ Scalars scalars_of(const Args& p, int it,
@@ -668,12 +713,15 @@ __device__ __forceinline__ void store_champion(Champ h, float* red,
 }
 
 // A launch's shared memory, in floats: the carries and product operands
-// (`work`), the staged matrices (`mats`) and NBUF operand buffers.
-__host__ __device__ inline int k1_work_floats(int nx, int nu, int nv) {
-  return (nx + nv + nu) * TILE;
+// (`work`; with bf16, K1's rounded t and inner and K2's rounded u too),
+// the staged matrices (`mats`) and NBUF operand buffers.
+__host__ __device__ inline int k1_work_floats(int nx, int nu, int nv,
+                                              bool bf16) {
+  return (nx + nv + nu + (bf16 ? nx + nv : 0)) * TILE;
 }
-__host__ __device__ inline int k2_work_floats(int nx, int nu, int nv) {
-  return (2 * nu + nx + nv) * TILE;
+__host__ __device__ inline int k2_work_floats(int nx, int nu, int nv,
+                                              bool bf16) {
+  return (2 * nu + nx + nv + (bf16 ? nu : 0)) * TILE;
 }
 __host__ __device__ inline int k1_mats_floats(int nx, int nu, int nv) {
   return room(nx * nv) + room(nu * nv) + room(nv * nv);
@@ -730,13 +778,16 @@ __device__ __forceinline__ void k2_matrices(const Args& p, const float** M,
 // and v; with
 // `wout` also w = y' + lam_i z' (rows of 2nx + nu, [w1 | w2 | wp]), and
 // with `vkeep` also v as the (nv, TILE) tile that K2 multiplies (zero
-// past nt).
-template <bool STAGED, int NBUF>
+// past nt).  BF16: the dual update, the extrapolation and t are rounded
+// one operation at a time (the *_rn helpers), the products read t and
+// inner rounded, from tR (nx, TILE) and aR (nv, TILE), and g wp and v's
+// tile are rounded where they are stored.
+template <bool STAGED, int NBUF, bool BF16>
 __device__ __forceinline__ void k1_stage(
     const Args& p, const Scalars& q, int s, int s_next, int i0, int nt,
-    float* tS, float* aS, float* gS, float* nhpS, const float* BbT,
-    const float* L, const float* iWT, Staging& sg, Champ& h, float* wout,
-    float* vkeep) {
+    float* tS, float* aS, float* gS, float* tR, float* aR, float* nhpS,
+    const float* BbT, const float* L, const float* iWT, Staging& sg,
+    Champ& h, float* wout, float* vkeep) {
   const int nx = p.nx, nu = p.nu, nv = p.nv, ns = p.ns, D = 2 * nx + nu;
   const float c = p.c, step = p.step;
   const size_t row0 = (size_t)s * ns + i0;
@@ -746,9 +797,15 @@ __device__ __forceinline__ void k1_stage(
   __syncthreads();
   clock_mark(P_K1_WAIT);
   const Ops<K1_OPS> o = k1_ops<NBUF>(p, s, i0, buffer<NBUF>(sg, s));
-  // the dual update of the x blocks, the extrapolation and t
-  for (int idx = threadIdx.x; idx < nt * nx; idx += blockDim.x) {
+  // the dual update of the x blocks, the extrapolation and t (BF16: and t
+  // rounded, zero past nt)
+  for (int idx = threadIdx.x; idx < (BF16 ? TILE : nt) * nx;
+       idx += blockDim.x) {
     const int j = idx / nx, k = idx - j * nx;
+    if (BF16 && j >= nt) {
+      tR[k * TILE + j] = 0.f;
+      continue;
+    }
     const size_t r = row0 + j;
     const size_t o1 = r * 2 * nx + k, o2 = o1 + nx;
     const int l1 = j * 2 * nx + k, l2 = l1 + nx;
@@ -756,13 +813,23 @@ __device__ __forceinline__ void k1_stage(
     const float y1 = o.f[O1_YX][l1], y2 = o.f[O1_YX][l2];
     const float z1 = o.f[O1_ZX][l1], z2 = o.f[O1_ZX][l2];
     const float pr1 = o.f[O1_PX][l1], pr2 = o.f[O1_PX][l2];
-    const float w1p = y1 + q.lam_prev * z1, w2p = y2 + q.lam_prev * z2;
-    const float r1 = residual(pr1, o.f[O1_BXMIN][k] * sqv,
-                              o.f[O1_BXMAX][k] * sqv, 1.f - q.k1f, c * w1p);
-    const float r2 = residual(pr2, o.f[O1_BXS][k] * sqv, p.xs_upper,
-                              1.f - q.k2f, c * w2p);
-    const float y1n = y1 + q.upd * (q.lam_prev * z1 + step * r1);
-    const float y2n = y2 + q.upd * (q.lam_prev * z2 + step * r2);
+    float r1, r2, y1n, y2n;
+    if constexpr (BF16) {
+      r1 = residual_rn(pr1, o.f[O1_BXMIN][k] * sqv, o.f[O1_BXMAX][k] * sqv,
+                       1.f - q.k1f, c, extrapolate_rn(y1, q.lam_prev, z1));
+      r2 = residual_rn(pr2, o.f[O1_BXS][k] * sqv, p.xs_upper, 1.f - q.k2f,
+                       c, extrapolate_rn(y2, q.lam_prev, z2));
+      y1n = update_rn(y1, z1, r1, q, step);
+      y2n = update_rn(y2, z2, r2, q, step);
+    } else {
+      const float w1p = y1 + q.lam_prev * z1, w2p = y2 + q.lam_prev * z2;
+      r1 = residual(pr1, o.f[O1_BXMIN][k] * sqv, o.f[O1_BXMAX][k] * sqv,
+                    1.f - q.k1f, c * w1p);
+      r2 = residual(pr2, o.f[O1_BXS][k] * sqv, p.xs_upper, 1.f - q.k2f,
+                    c * w2p);
+      y1n = y1 + q.upd * (q.lam_prev * z1 + step * r1);
+      y2n = y2 + q.upd * (q.lam_prev * z2 + step * r2);
+    }
     const float z1n = y1n - y1, z2n = y2n - y2;
     p.y_xi[o1] = y1n;
     p.y_xi[o2] = y2n;
@@ -770,13 +837,23 @@ __device__ __forceinline__ void k1_stage(
     p.z_xi[o2] = z2n;
     h.hx = fmaxf(h.hx, fmaxf(r1, r2));
     h.lx = fminf(h.lx, fminf(r1, r2));
-    const float w1 = y1n + q.lam_i * z1n, w2 = y2n + q.lam_i * z2n;
+    const float d1 = o.f[O1_CX1][k] * sqv, d2 = o.f[O1_CX2][k] * sqv;
+    float w1, w2;
+    if constexpr (BF16) {
+      w1 = extrapolate_rn(y1n, q.lam_i, z1n);
+      w2 = extrapolate_rn(y2n, q.lam_i, z2n);
+      tS[k * TILE + j] = __fadd_rn(
+          __fadd_rn(__fmul_rn(d1, w1), __fmul_rn(d2, w2)), tS[k * TILE + j]);
+      tR[k * TILE + j] = bf16r(tS[k * TILE + j]);
+    } else {
+      w1 = y1n + q.lam_i * z1n;
+      w2 = y2n + q.lam_i * z2n;
+      tS[k * TILE + j] = d1 * w1 + d2 * w2 + tS[k * TILE + j];
+    }
     if (wout) {
       wout[r * D + k] = w1;
       wout[r * D + nx + k] = w2;
     }
-    const float d1 = o.f[O1_CX1][k] * sqv, d2 = o.f[O1_CX2][k] * sqv;
-    tS[k * TILE + j] = d1 * w1 + d2 * w2 + tS[k * TILE + j];
   }
   clock_mark(P_X);
   // the dual update of the u block, the extrapolation and g wp
@@ -790,18 +867,26 @@ __device__ __forceinline__ void k1_stage(
       const float sqv = o.f[O1_SQ][j];
       const float yv = o.f[O1_YP][l], zv = o.f[O1_ZP][l];
       const float pr = o.f[O1_PP][l];
-      const float wpp = yv + q.lam_prev * zv;
-      const float rp = residual(pr, o.f[O1_BUMIN][k] * sqv,
-                                o.f[O1_BUMAX][k] * sqv, 1.f, c * wpp);
-      const float ypn = yv + q.upd * (q.lam_prev * zv + step * rp);
+      float rp, ypn;
+      if constexpr (BF16) {
+        rp = residual_rn(pr, o.f[O1_BUMIN][k] * sqv, o.f[O1_BUMAX][k] * sqv,
+                         1.f, c, extrapolate_rn(yv, q.lam_prev, zv));
+        ypn = update_rn(yv, zv, rp, q, step);
+      } else {
+        const float wpp = yv + q.lam_prev * zv;
+        rp = residual(pr, o.f[O1_BUMIN][k] * sqv, o.f[O1_BUMAX][k] * sqv,
+                      1.f, c * wpp);
+        ypn = yv + q.upd * (q.lam_prev * zv + step * rp);
+      }
       const float zpn = ypn - yv;
       p.y_psi[og] = ypn;
       p.z_psi[og] = zpn;
       h.hp = fmaxf(h.hp, rp);
       h.lp = fminf(h.lp, rp);
-      const float wp = ypn + q.lam_i * zpn;
+      const float wp = BF16 ? extrapolate_rn(ypn, q.lam_i, zpn)
+                            : ypn + q.lam_i * zpn;
       if (wout) wout[r * D + 2 * nx + k] = wp;
-      gw = (o.f[O1_CU][k] * sqv) * wp;
+      gw = operand<BF16>((o.f[O1_CU][k] * sqv) * wp);
     }
     gS[k * TILE + j] = gw;
   }
@@ -823,20 +908,23 @@ __device__ __forceinline__ void k1_stage(
     });
   // Both products give a thread the same (c, slots), so the second reads
   // what the first wrote without a barrier.
-  tile_product<STAGED>(tS, BbT, nx, nv, [&](int cc, int j, float acc) {
+  tile_product<STAGED>(BF16 ? tR : tS, BbT, nx, nv,
+                       [&](int cc, int j, float acc) {
     aS[cc * TILE + j] = j < nt ? aS[cc * TILE + j] + acc : 0.f;
   });
   clock_mark(P_BBT);
   tile_product<STAGED>(gS, L, nu, nv, [&](int cc, int j, float acc) {
     aS[cc * TILE + j] += acc;
+    if (BF16) aR[cc * TILE + j] = bf16r(aS[cc * TILE + j]);
   });
   __syncthreads();
   clock_mark(P_L);
   // v = nhp * iW inner
-  tile_product<STAGED>(aS, iWT, nv, nv, [&](int cc, int j, float acc) {
+  tile_product<STAGED>(BF16 ? aR : aS, iWT, nv, nv,
+                       [&](int cc, int j, float acc) {
     const float v = j < nt ? nhpS[j] * acc : 0.f;
     if (j < nt) p.v[(row0 + j) * nv + cc] = v;
-    if (vkeep) vkeep[cc * TILE + j] = v;
+    if (vkeep) vkeep[cc * TILE + j] = operand<BF16>(v);
   });
   clock_mark(P_IWT);
   // the next stage writes tS, gS and, after its first barrier, aS
@@ -848,6 +936,9 @@ __device__ __forceinline__ void k1_stage(
 // in the order of the index list; -1: zero.  The first KIDS child slots
 // of each slot's parent (and their count) go to kidS first, so that each
 // (slot, feature) issues its loads at once, GATHER of them a thread.
+// BF16: each child's carry is rounded before it is added and the sum
+// after (the TPU kernel's one-hot products at one bf16 pass).
+template <bool BF16>
 __device__ __forceinline__ void gather_carries(const Args& p, int gather,
                                                int i0, int nt, int W,
                                                const float* __restrict__ qin,
@@ -888,9 +979,10 @@ __device__ __forceinline__ void gather_carries(const Args& p, int gather,
         const int n0 = min(KIDS, m1 - m0);
 #pragma unroll
         for (int t = 0; t < KIDS; ++t)
-          if (t < n0) acc += val[b][t];
+          if (t < n0) acc += operand<BF16>(val[b][t]);
         for (int m = m0 + KIDS; m < m1; ++m)
-          acc += qin[(size_t)p.agg_idx[m] * W + k];
+          acc += operand<BF16>(qin[(size_t)p.agg_idx[m] * W + k]);
+        acc = operand<BF16>(acc);
       }
       if (k < nx)
         tS[k * TILE + j] = acc;
@@ -909,7 +1001,7 @@ __device__ __forceinline__ void gather_carries(const Args& p, int gather,
 // range; -1: they start at zero.  Writes y', z', v (and w, v's tile, as
 // k1_stage), its exit carries (buffer launch & 1) and its champion
 // partials (row launch * nblocks + block).
-template <bool STAGED, int NBUF>
+template <bool STAGED, int NBUF, bool BF16>
 __device__ __forceinline__ void k1_range(const Args& p, const Scalars& q,
                                          int s_hi, int s_lo, int gather,
                                          int launch, float* work,
@@ -921,6 +1013,8 @@ __device__ __forceinline__ void k1_range(const Args& p, const Scalars& q,
   float* tS = work;              // (nx, TILE) t
   float* aS = tS + nx * TILE;    // (nv, TILE) a, inner
   float* gS = aS + nv * TILE;    // (nu, TILE) g * wp
+  float* tR = gS + nu * TILE;    // BF16: (nx, TILE) t rounded
+  float* aR = tR + nx * TILE;    // BF16: (nv, TILE) inner rounded
   const int i0 = blockIdx.x * TILE;
   const int nt = min(TILE, ns - i0);
   const int W = nx + nv;
@@ -945,15 +1039,16 @@ __device__ __forceinline__ void k1_range(const Args& p, const Scalars& q,
         k1_visit(p, s_hi, i0, nt, buffer<NBUF>(sg, s_hi), f);
       });
   } else {
-    gather_carries(p, gather, i0, nt, W, qin, tS, aS, kidS, team);
+    gather_carries<BF16>(p, gather, i0, nt, W, qin, tS, aS, kidS, team);
   }
   clock_mark(P_K1_START);
 
   Champ h = {-inf(), inf(), -inf(), inf()};
   for (int s = s_hi; s >= s_lo; --s)
-    k1_stage<STAGED, NBUF>(p, q, s, s > s_lo ? s - 1 : -1, i0, nt, tS, aS,
-                           gS, nhpS, at[0], at[1], at[2], sg, h, wout,
-                           vkeep ? vkeep + (size_t)s * nv * TILE : nullptr);
+    k1_stage<STAGED, NBUF, BF16>(
+        p, q, s, s > s_lo ? s - 1 : -1, i0, nt, tS, aS, gS, tR, aR, nhpS,
+        at[0], at[1], at[2], sg, h, wout,
+        vkeep ? vkeep + (size_t)s * nv * TILE : nullptr);
   __syncthreads();
 
   for (int idx = threadIdx.x; idx < nt * W; idx += blockDim.x) {
@@ -983,7 +1078,7 @@ __device__ __forceinline__ Staging staging(float* smem, int first,
   return {smem + first, smem + first + mats, buf_floats, bars, 0u};
 }
 
-template <bool STAGED>
+template <bool STAGED, bool BF16>
 __global__ void __launch_bounds__(THREADS)
 k1_kernel(Args p, int s_hi, int s_lo, int gather, int launch) {
   extern __shared__ float4 smem4[];
@@ -993,12 +1088,12 @@ k1_kernel(Args p, int s_hi, int s_lo, int gather, int launch) {
   __shared__ uint64_t bars[2];
   float* smem = reinterpret_cast<float*>(smem4);
   Staging sg = staging<STAGED>(
-      smem, k1_work_floats(p.nx, p.nu, p.nv),
+      smem, k1_work_floats(p.nx, p.nu, p.nv, BF16),
       k1_mats_floats(p.nx, p.nu, p.nv), k1_buf_floats(p.nx, p.nu, p.nv),
       bars);
-  k1_range<STAGED, STAGED ? 1 : 0>(p, given_scalars(p), s_hi, s_lo, gather,
-                                   launch, smem, sg, true, red, nhpS, kidS,
-                                   nullptr, nullptr);
+  k1_range<STAGED, STAGED ? 1 : 0, BF16>(p, given_scalars(p), s_hi, s_lo,
+                                         gather, launch, smem, sg, true, red,
+                                         nhpS, kidS, nullptr, nullptr);
 }
 
 // K2's stage s for the block's tile from vX, the stage's (nv, TILE) tile
@@ -1006,11 +1101,13 @@ k1_kernel(Args p, int s_hi, int s_lo, int gather, int launch) {
 // distances into s1, s2.  du, u and x are carried in duS, uS (nu, TILE)
 // and xS (nx, TILE).  w comes from the fused kernel's scratch (FUSED) or
 // is rebuilt from y and z.  The caller's barrier precedes it; mid() runs
-// between the two products.
-template <bool STAGED, bool FUSED, class Mid>
+// between the two products.  BF16: vX holds v rounded, B u reads u
+// rounded from uR (nu, TILE), and w is rebuilt as K1 stores it for the
+// fused kernel (extrapolate_rn), so that both routes read the same w.
+template <bool STAGED, bool FUSED, bool BF16, class Mid>
 __device__ __forceinline__ void k2_stage(const Args& p, float lam_i, int s,
                                          int i0, int nt, float* duS,
-                                         float* uS, float* xS,
+                                         float* uS, float* uR, float* xS,
                                          const float* vX,
                                          const Ops<K2_OPS>& o,
                                          const float* LT, const float* BT,
@@ -1028,12 +1125,14 @@ __device__ __forceinline__ void k2_stage(const Args& p, float lam_i, int s,
       p.u[(row0 + j) * nu + cc] = uv;
     }
     uS[cc * TILE + j] = uv;
+    if (BF16) uR[cc * TILE + j] = bf16r(uv);
   });
   __syncthreads();
   clock_mark(P_LT);
   mid();
   // x = x_prev + e + B u
-  tile_product<STAGED>(uS, BT, nu, nx, [&](int cc, int j, float acc) {
+  tile_product<STAGED>(BF16 ? uR : uS, BT, nu, nx,
+                       [&](int cc, int j, float acc) {
     if (j < nt) {
       const float xv = xS[cc * TILE + j] + o.f[O2_E][j * nx + cc] + acc;
       xS[cc * TILE + j] = xv;
@@ -1049,10 +1148,14 @@ __device__ __forceinline__ void k2_stage(const Args& p, float lam_i, int s,
     const size_t o1 = r * 2 * nx + k, o2 = o1 + nx;
     const int l1 = j * 2 * nx + k, l2 = l1 + nx;
     const float sqv = o.f[O2_SQ][j], xv = xS[k * TILE + j];
-    const float w1 = FUSED ? o.f[O2_W][j * D + k]
-                           : o.f[O2_YX][l1] + lam_i * o.f[O2_ZX][l1];
-    const float w2 = FUSED ? o.f[O2_W][j * D + nx + k]
-                           : o.f[O2_YX][l2] + lam_i * o.f[O2_ZX][l2];
+    const float w1 =
+        FUSED  ? o.f[O2_W][j * D + k]
+        : BF16 ? extrapolate_rn(o.f[O2_YX][l1], lam_i, o.f[O2_ZX][l1])
+               : o.f[O2_YX][l1] + lam_i * o.f[O2_ZX][l1];
+    const float w2 =
+        FUSED  ? o.f[O2_W][j * D + nx + k]
+        : BF16 ? extrapolate_rn(o.f[O2_YX][l2], lam_i, o.f[O2_ZX][l2])
+               : o.f[O2_YX][l2] + lam_i * o.f[O2_ZX][l2];
     const float pre1 = (o.f[O2_CX1][k] * sqv) * xv + c * w1;
     const float pre2 = (o.f[O2_CX2][k] * sqv) * xv + c * w2;
     p.pre_xi[o1] = pre1;
@@ -1068,8 +1171,10 @@ __device__ __forceinline__ void k2_stage(const Args& p, float lam_i, int s,
   for (int idx = threadIdx.x; idx < nt * nu; idx += blockDim.x) {
     const int j = idx / nu, k = idx - j * nu;
     const int l = j * nu + k;
-    const float wp = FUSED ? o.f[O2_W][j * D + 2 * nx + k]
-                           : o.f[O2_YP][l] + lam_i * o.f[O2_ZP][l];
+    const float wp =
+        FUSED  ? o.f[O2_W][j * D + 2 * nx + k]
+        : BF16 ? extrapolate_rn(o.f[O2_YP][l], lam_i, o.f[O2_ZP][l])
+               : o.f[O2_YP][l] + lam_i * o.f[O2_ZP][l];
     p.pre_psi[(row0 + j) * nu + k] =
         (o.f[O2_CU][k] * o.f[O2_SQ][j]) * uS[k * TILE + j] + c * wp;
   }
@@ -1081,8 +1186,8 @@ __device__ __forceinline__ void k2_stage(const Args& p, float lam_i, int s,
 // with w from `win`) or from device memory; the matrices, NBUF buffers
 // and barriers in `sg` (each stage's operands copied one stage ahead, the
 // matrices with the first).  Its partial sums of the two squared
-// distances into norm_part.
-template <bool STAGED, int NBUF, bool FUSED>
+// distances into norm_part.  BF16: the products read v and u rounded.
+template <bool STAGED, int NBUF, bool FUSED, bool BF16>
 __device__ __forceinline__ void k2_all(const Args& p, float lam_i,
                                        float* work, Staging& sg, float* red,
                                        const float* vkeep,
@@ -1091,7 +1196,9 @@ __device__ __forceinline__ void k2_all(const Args& p, float lam_i,
   float* duS = work;             // (nu, TILE) du
   float* uS = duS + nu * TILE;   // (nu, TILE) u
   float* xS = uS + nu * TILE;    // (nx, TILE) x
-  float* vS = xS + nx * TILE;    // (nv, TILE) v, unless kept
+  float* uR = xS + nx * TILE;    // BF16: (nu, TILE) u rounded
+  // (nv, TILE) v, unless kept
+  float* vS = uR + (BF16 ? nu * TILE : 0);
   const int i0 = blockIdx.x * TILE;
   const int nt = min(TILE, ns - i0);
   const float* M[2];
@@ -1129,7 +1236,8 @@ __device__ __forceinline__ void k2_all(const Args& p, float lam_i,
       // barriers that followed it
       for (int idx = threadIdx.x; idx < TILE * nv; idx += blockDim.x) {
         const int k = idx / TILE, j = idx - k * TILE;
-        vS[k * TILE + j] = j < nt ? o.f[O2_V][j * nv + k] : 0.f;
+        vS[k * TILE + j] =
+            j < nt ? operand<BF16>(o.f[O2_V][j * nv + k]) : 0.f;
       }
     }
     // the last stage's pre-image pass reads uS and xS, which this stage's
@@ -1138,8 +1246,8 @@ __device__ __forceinline__ void k2_all(const Args& p, float lam_i,
     clock_mark(P_K2_LOAD);
     // the next stage's operands, into the buffer of the stage before
     // this one, while B u runs, by the last warp (idle there at config 5)
-    k2_stage<STAGED, FUSED>(
-        p, lam_i, s, i0, nt, duS, uS, xS, vX, o, at[0], at[1], &s1, &s2,
+    k2_stage<STAGED, FUSED, BF16>(
+        p, lam_i, s, i0, nt, duS, uS, uR, xS, vX, o, at[0], at[1], &s1, &s2,
         [&] {
           if (NBUF && s + 1 < p.N && threadIdx.x >= blockDim.x - 32)
             bulk_fill(barrier_of<NBUF>(sg, s + 1), [&](auto f) {
@@ -1159,18 +1267,18 @@ __device__ __forceinline__ void k2_all(const Args& p, float lam_i,
 
 // K2 over stages 0 .. N-1 for the block's TILE slots: u, x, the
 // pre-images and the block's partial sums of the two squared distances.
-template <bool STAGED>
+template <bool STAGED, bool BF16>
 __global__ void __launch_bounds__(THREADS) k2_kernel(Args p) {
   extern __shared__ float4 smem4[];
   __shared__ float red[THREADS];
   __shared__ uint64_t bars[2];
   float* smem = reinterpret_cast<float*>(smem4);
   Staging sg = staging<STAGED>(
-      smem, k2_work_floats(p.nx, p.nu, p.nv),
+      smem, k2_work_floats(p.nx, p.nu, p.nv, BF16),
       k2_mats_floats(p.nx, p.nu, p.nv),
       k2_buf_floats(p.nx, p.nu, p.nv, false), bars);
-  k2_all<STAGED, STAGED ? 2 : 0, false>(p, p.sc[1], smem, sg, red, nullptr,
-                                        nullptr);
+  k2_all<STAGED, STAGED ? 2 : 0, false, BF16>(p, p.sc[1], smem, sg, red,
+                                              nullptr, nullptr);
 }
 
 // The K1 ranges of one iteration, passed by value to the fused kernel:
@@ -1183,9 +1291,10 @@ struct Ranges {
 
 // The fused kernel's work area: the larger of K1's and of K2's without
 // its v tile (v is kept).
-__host__ __device__ inline int fused_work_floats(int nx, int nu, int nv) {
-  const int k1 = k1_work_floats(nx, nu, nv);
-  const int k2 = k2_work_floats(nx, nu, nv) - nv * TILE;
+__host__ __device__ inline int fused_work_floats(int nx, int nu, int nv,
+                                                 bool bf16) {
+  const int k1 = k1_work_floats(nx, nu, nv, bf16);
+  const int k2 = k2_work_floats(nx, nu, nv, bf16) - nv * TILE;
   return k1 > k2 ? k1 : k2;
 }
 __host__ __device__ inline int fused_mats_floats(int nx, int nu, int nv) {
@@ -1213,8 +1322,9 @@ __host__ __device__ inline int fused_bufs_floats(int nx, int nu, int nv) {
 // suffices: a block writes a buffer only after every block has passed
 // the barrier behind the gather that last read it.  Staged, K1's
 // matrices stay in shared memory over its ranges (one operand buffer),
-// then K2's take their place (two buffers).
-template <bool STAGED>
+// then K2's take their place (two buffers).  BF16: the tiles of v are
+// kept rounded, as K2's product reads them.
+template <bool STAGED, bool BF16>
 __global__ void __launch_bounds__(THREADS)
 fused_kernel(Args p, Ranges rg, float* w, int derive) {
   extern __shared__ float4 smem4[];
@@ -1226,7 +1336,7 @@ fused_kernel(Args p, Ranges rg, float* w, int derive) {
   float* vkeep = reinterpret_cast<float*>(smem4);
   float* work = vkeep + (size_t)p.N * p.nv * TILE;
   const int nx = p.nx, nu = p.nu, nv = p.nv;
-  Staging sg = staging<STAGED>(work, fused_work_floats(nx, nu, nv),
+  Staging sg = staging<STAGED>(work, fused_work_floats(nx, nu, nv, BF16),
                                fused_mats_floats(nx, nu, nv),
                                k1_buf_floats(nx, nu, nv), bars);
   Scalars q;
@@ -1251,8 +1361,9 @@ fused_kernel(Args p, Ranges rg, float* w, int derive) {
     // reads, are written by every block
     if (k > 0) grid.sync();
     const int* r = rg.r + 3 * k;
-    k1_range<STAGED, STAGED ? 1 : 0>(p, q, r[0], r[1], r[2], k, work, sg,
-                                     k == 0, red, nhpS, kidS, w, vkeep);
+    k1_range<STAGED, STAGED ? 1 : 0, BF16>(p, q, r[0], r[1], r[2], k, work,
+                                           sg, k == 0, red, nhpS, kidS, w,
+                                           vkeep);
   }
   // no grid barrier: each block's forward pass reads only its own slots.
   // The w rows this block stored are read by the copy engine, and K2's
@@ -1260,7 +1371,8 @@ fused_kernel(Args p, Ranges rg, float* w, int derive) {
   if (STAGED) fence_proxy_global();
   __syncthreads();
   sg.buf_floats = STAGED ? k2_buf_floats(nx, nu, nv, true) : 0;
-  k2_all<STAGED, STAGED ? 2 : 0, true>(p, q.lam_i, work, sg, red, vkeep, w);
+  k2_all<STAGED, STAGED ? 2 : 0, true, BF16>(p, q.lam_i, work, sg, red,
+                                             vkeep, w);
 }
 
 // The final dual update (the tail of pallas_stream.py:629-660, XLA there):
@@ -1320,36 +1432,39 @@ struct Plan {
 };
 
 // K1: one launch per range of stages.
+template <bool BF16>
 cudaError_t enqueue_k1(const Args& p, const Plan& pl, cudaStream_t st) {
   for (int k = 0; k < pl.n_ranges; ++k) {
     const int* r = pl.ranges + 3 * k;
     if (pl.k1_staged)
-      k1_kernel<true><<<p.nblocks, THREADS, pl.smem_k1, st>>>(
+      k1_kernel<true, BF16><<<p.nblocks, THREADS, pl.smem_k1, st>>>(
           p, r[0], r[1], r[2], k);
     else
-      k1_kernel<false><<<p.nblocks, THREADS, pl.smem_k1, st>>>(
+      k1_kernel<false, BF16><<<p.nblocks, THREADS, pl.smem_k1, st>>>(
           p, r[0], r[1], r[2], k);
     SK_TRY(cudaGetLastError());
   }
   return cudaSuccess;
 }
 
+template <bool BF16>
 cudaError_t enqueue_k2(const Args& p, const Plan& pl, cudaStream_t st) {
   if (pl.k2_staged)
-    k2_kernel<true><<<p.nblocks, THREADS, pl.smem_k2, st>>>(p);
+    k2_kernel<true, BF16><<<p.nblocks, THREADS, pl.smem_k2, st>>>(p);
   else
-    k2_kernel<false><<<p.nblocks, THREADS, pl.smem_k2, st>>>(p);
+    k2_kernel<false, BF16><<<p.nblocks, THREADS, pl.smem_k2, st>>>(p);
   return cudaGetLastError();
 }
 
 // One iteration: the scalars, K1's launches and K2.
+template <bool BF16>
 cudaError_t enqueue_iteration(const Args& p, const Plan& pl,
                               cudaStream_t st) {
   scalars_kernel<<<1, SCALAR_THREADS, 0, st>>>(p, pl.n_ranges * p.nblocks,
                                                1);
   SK_TRY(cudaGetLastError());
-  SK_TRY(enqueue_k1(p, pl, st));
-  return enqueue_k2(p, pl, st);
+  SK_TRY(enqueue_k1<BF16>(p, pl, st));
+  return enqueue_k2<BF16>(p, pl, st);
 }
 
 // After the last iteration: the scalars, the tail, and the trace entry of
@@ -1393,44 +1508,46 @@ cudaError_t replay(const Args& p, cudaStream_t st, Enqueue enqueue) {
 
 // The whole solve: the counter reset, max_it replays of one captured
 // iteration, then the tail.
+template <bool BF16>
 cudaError_t run_solve(const Args& p, const Plan& pl, cudaStream_t st) {
   SK_TRY(cudaMemsetAsync(p.ctr, 0, sizeof(int), st));
-  SK_TRY(replay(
-      p, st, [&](cudaStream_t s) { return enqueue_iteration(p, pl, s); }));
+  SK_TRY(replay(p, st, [&](cudaStream_t s) {
+    return enqueue_iteration<BF16>(p, pl, s);
+  }));
   return enqueue_tail(p, pl, st);
 }
 
 // Dynamic shared memory of the unstaged K1 and K2 (bytes): the launch's
-// and, through apg_stream_smem, the routing gate's one formula.
-size_t smem_k1(int nx, int nu, int nv) {
-  return sizeof(float) * (size_t)(nx + nv + nu) * TILE;
+// and, through apg_stream_smem (apg_stream_bf16_smem), the routing gate's
+// one formula.
+size_t smem_k1(int nx, int nu, int nv, bool bf16) {
+  return sizeof(float) * (size_t)k1_work_floats(nx, nu, nv, bf16);
 }
-size_t smem_k2(int nx, int nu, int nv) {
-  return sizeof(float) * (size_t)(2 * nu + nx + nv) * TILE;
+size_t smem_k2(int nx, int nu, int nv, bool bf16) {
+  return sizeof(float) * (size_t)k2_work_floats(nx, nu, nv, bf16);
 }
 // The unstaged fused kernel's: the (N, nv, TILE) tiles of v beside the
 // larger of K1's work and K2's without its v tile.
-size_t smem_fused(int N, int nx, int nu, int nv) {
-  const size_t k2 = sizeof(float) * (size_t)(2 * nu + nx) * TILE;
-  const size_t k1 = smem_k1(nx, nu, nv);
-  return sizeof(float) * (size_t)N * nv * TILE + (k1 > k2 ? k1 : k2);
+size_t smem_fused(int N, int nx, int nu, int nv, bool bf16) {
+  return sizeof(float) * ((size_t)N * nv * TILE +
+                          fused_work_floats(nx, nu, nv, bf16));
 }
 // The staged variants' (bytes): the work areas, the matrices and the
 // operand buffers (one for K1, two for K2; the fused kernel K1's one,
 // then K2's two, in one place).
-size_t staged_k1(int nx, int nu, int nv) {
-  return sizeof(float) * ((size_t)k1_work_floats(nx, nu, nv) +
+size_t staged_k1(int nx, int nu, int nv, bool bf16) {
+  return sizeof(float) * ((size_t)k1_work_floats(nx, nu, nv, bf16) +
                           k1_mats_floats(nx, nu, nv) +
                           k1_buf_floats(nx, nu, nv));
 }
-size_t staged_k2(int nx, int nu, int nv) {
-  return sizeof(float) * ((size_t)k2_work_floats(nx, nu, nv) +
+size_t staged_k2(int nx, int nu, int nv, bool bf16) {
+  return sizeof(float) * ((size_t)k2_work_floats(nx, nu, nv, bf16) +
                           k2_mats_floats(nx, nu, nv) +
                           2 * (size_t)k2_buf_floats(nx, nu, nv, false));
 }
-size_t staged_fused(int N, int nx, int nu, int nv) {
+size_t staged_fused(int N, int nx, int nu, int nv, bool bf16) {
   return sizeof(float) * ((size_t)N * nv * TILE +
-                          fused_work_floats(nx, nu, nv) +
+                          fused_work_floats(nx, nu, nv, bf16) +
                           fused_mats_floats(nx, nu, nv) +
                           fused_bufs_floats(nx, nu, nv));
 }
@@ -1457,29 +1574,33 @@ cudaError_t smem_fits(const void* kernel, size_t bytes, int max_optin,
 // K1's and K2's variants at these sizes: staged where it fits, else the
 // same stage bodies with the matrices and operands read from device
 // memory; their shared memory set.
+template <bool BF16>
 cudaError_t plan_stream(int nx, int nu, int nv, int max_optin, Plan* pl) {
-  SK_TRY(smem_fits((const void*)k1_kernel<true>, staged_k1(nx, nu, nv),
-                   max_optin, &pl->k1_staged));
-  SK_TRY(smem_fits((const void*)k2_kernel<true>, staged_k2(nx, nu, nv),
-                   max_optin, &pl->k2_staged));
-  pl->smem_k1 = pl->k1_staged ? staged_k1(nx, nu, nv) : smem_k1(nx, nu, nv);
-  pl->smem_k2 = pl->k2_staged ? staged_k2(nx, nu, nv) : smem_k2(nx, nu, nv);
-  SK_TRY(set_smem(pl->k1_staged ? (const void*)k1_kernel<true>
-                                : (const void*)k1_kernel<false>,
+  SK_TRY(smem_fits((const void*)k1_kernel<true, BF16>,
+                   staged_k1(nx, nu, nv, BF16), max_optin, &pl->k1_staged));
+  SK_TRY(smem_fits((const void*)k2_kernel<true, BF16>,
+                   staged_k2(nx, nu, nv, BF16), max_optin, &pl->k2_staged));
+  pl->smem_k1 = pl->k1_staged ? staged_k1(nx, nu, nv, BF16)
+                              : smem_k1(nx, nu, nv, BF16);
+  pl->smem_k2 = pl->k2_staged ? staged_k2(nx, nu, nv, BF16)
+                              : smem_k2(nx, nu, nv, BF16);
+  SK_TRY(set_smem(pl->k1_staged ? (const void*)k1_kernel<true, BF16>
+                                : (const void*)k1_kernel<false, BF16>,
                   pl->smem_k1, max_optin));
-  return set_smem(pl->k2_staged ? (const void*)k2_kernel<true>
-                                : (const void*)k2_kernel<false>,
+  return set_smem(pl->k2_staged ? (const void*)k2_kernel<true, BF16>
+                                : (const void*)k2_kernel<false, BF16>,
                   pl->smem_k2, max_optin);
 }
 
 // Whether the fused kernel's variant (staged, with `smem` bytes) runs
 // every block of the grid at once.
+template <bool BF16>
 cudaError_t fused_resident(bool staged, size_t smem, int nblocks, int sms,
                            bool* resident) {
   int per_sm = 0;
   SK_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, staged ? fused_kernel<true> : fused_kernel<false>, THREADS,
-      smem));
+      &per_sm, staged ? fused_kernel<true, BF16> : fused_kernel<false, BF16>,
+      THREADS, smem));
   *resident = (long long)per_sm * sms >= nblocks;
   return cudaSuccess;
 }
@@ -1489,26 +1610,30 @@ cudaError_t fused_resident(bool staged, size_t smem, int nblocks, int sms,
 // Refuses a tree whose v tiles pass the shared memory
 // (cudaErrorInvalidValue) and a grid whose blocks cannot all be resident
 // (cudaErrorCooperativeLaunchTooLarge).
+template <bool BF16>
 cudaError_t plan_fused(int N, int nx, int nu, int nv, int nblocks,
                        int max_optin, int sms, bool* staged, size_t* smem) {
-  *smem = staged_fused(N, nx, nu, nv);
-  SK_TRY(smem_fits((const void*)fused_kernel<true>, *smem, max_optin,
+  *smem = staged_fused(N, nx, nu, nv, BF16);
+  SK_TRY(smem_fits((const void*)fused_kernel<true, BF16>, *smem, max_optin,
                    staged));
   bool resident = false;
   if (*staged) {
-    SK_TRY(set_smem((const void*)fused_kernel<true>, *smem, max_optin));
-    SK_TRY(fused_resident(true, *smem, nblocks, sms, &resident));
+    SK_TRY(set_smem((const void*)fused_kernel<true, BF16>, *smem,
+                    max_optin));
+    SK_TRY(fused_resident<BF16>(true, *smem, nblocks, sms, &resident));
     *staged = resident;
   }
   if (!*staged) {
-    *smem = smem_fused(N, nx, nu, nv);
-    SK_TRY(set_smem((const void*)fused_kernel<false>, *smem, max_optin));
-    SK_TRY(fused_resident(false, *smem, nblocks, sms, &resident));
+    *smem = smem_fused(N, nx, nu, nv, BF16);
+    SK_TRY(set_smem((const void*)fused_kernel<false, BF16>, *smem,
+                    max_optin));
+    SK_TRY(fused_resident<BF16>(false, *smem, nblocks, sms, &resident));
   }
   return resident ? cudaSuccess : cudaErrorCooperativeLaunchTooLarge;
 }
 
 // One cooperative launch of the fused kernel.
+template <bool BF16>
 cudaError_t launch_fused(const Args& p, const Ranges& rg, float* w,
                          int derive, bool staged, size_t smem,
                          cudaStream_t st) {
@@ -1523,8 +1648,10 @@ cudaError_t launch_fused(const Args& p, const Ranges& rg, float* w,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   if (staged)
-    return cudaLaunchKernelEx(&cfg, fused_kernel<true>, p, rg, w, derive);
-  return cudaLaunchKernelEx(&cfg, fused_kernel<false>, p, rg, w, derive);
+    return cudaLaunchKernelEx(&cfg, fused_kernel<true, BF16>, p, rg, w,
+                              derive);
+  return cudaLaunchKernelEx(&cfg, fused_kernel<false, BF16>, p, rg, w,
+                            derive);
 }
 
 Args make_args(
@@ -1590,19 +1717,15 @@ cudaError_t device_limits(int* max_optin, int* sms) {
       x0, pdu, y_xi, y_psi, z_xi, z_psi, pre_xi, pre_psi, v, x, u, carry,  \
       norm_part, champ_part, sc, trace, ctr
 
-// mode 0: the whole solve of max_it iterations and the tail; the caller
-// fills y_xi/y_psi with the warm start, zeroes z, the pre-images and the
-// trace, and reads x, u, v, y and the trace after the stream has run.
-// mode 1: one K1 pass (every range of stages), mode 2: one K2 pass, from
-// the state and the scalars (sc[0..4]) the caller put in place; K1 leaves
-// its champion partials in champ_part (row launch * nblocks + block), K2
-// its squared-distance partials in norm_part.  Enqueued on `stream`
-// without synchronising.  Returns a cudaError_t (0 on success).
-extern "C" int apg_stream(APG_STREAM_ARGS, int N, int ns, int nx, int nu,
-                          int nv, int max_it, const int* ranges,
-                          int n_ranges, float c, float step, float t1c,
-                          float t2c, float xs_upper, int mode,
-                          void* stream) {
+namespace {
+
+// The two-kernel iteration's entry (apg_stream, apg_stream_bf16), BF16
+// the products' precision.
+template <bool BF16>
+int stream_entry(APG_STREAM_ARGS, int N, int ns, int nx, int nu, int nv,
+                 int max_it, const int* ranges, int n_ranges, float c,
+                 float step, float t1c, float t2c, float xs_upper, int mode,
+                 void* stream) {
   if (N < 1 || N > 65535 || ns < 1 || max_it < 1 || n_ranges < 1)
     return cudaErrorInvalidValue;
   const Args p = make_args(APG_STREAM_ARG_NAMES, N, ns, nx, nu, nv, max_it,
@@ -1612,29 +1735,21 @@ extern "C" int apg_stream(APG_STREAM_ARGS, int N, int ns, int nx, int nu,
   pl.n_ranges = n_ranges;
   int max_optin = 0;
   SK_TRY(device_limits(&max_optin, nullptr));
-  SK_TRY(plan_stream(nx, nu, nv, max_optin, &pl));
+  SK_TRY(plan_stream<BF16>(nx, nu, nv, max_optin, &pl));
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == 1) return enqueue_k1(p, pl, st);
-  if (mode == 2) return enqueue_k2(p, pl, st);
+  if (mode == 1) return enqueue_k1<BF16>(p, pl, st);
+  if (mode == 2) return enqueue_k2<BF16>(p, pl, st);
   if (mode != 0) return cudaErrorInvalidValue;
-  return run_solve(p, pl, st);
+  return run_solve<BF16>(p, pl, st);
 }
 
-// The fused iteration (fused_kernel), with the state and outputs of
-// apg_stream and the scratch w (N, ns, 2nx + nu).  mode 0: the whole
-// solve (the counter reset, max_it replays of one captured cooperative
-// launch, the tail of apg_stream's mode 0); mode 1: one iteration from
-// the state and the scalars sc[0..4] the caller put in place, leaving
-// K1's champion partials (row range * nblocks + block) and K2's
-// squared-distance partials.  Refuses a tree whose v tiles pass the
-// shared memory (cudaErrorInvalidValue) and a grid whose blocks cannot
-// all be resident at once (cudaErrorCooperativeLaunchTooLarge).
-extern "C" int apg_stream_fused(APG_STREAM_ARGS, float* w, int N, int ns,
-                                int nx, int nu, int nv, int max_it,
-                                const int* ranges, int n_ranges, float c,
-                                float step, float t1c, float t2c,
-                                float xs_upper, int mode, void* stream) {
+// The fused iteration's entry (apg_stream_fused, apg_stream_fused_bf16).
+template <bool BF16>
+int fused_entry(APG_STREAM_ARGS, float* w, int N, int ns, int nx, int nu,
+                int nv, int max_it, const int* ranges, int n_ranges, float c,
+                float step, float t1c, float t2c, float xs_upper, int mode,
+                void* stream) {
   if (N < 1 || N > 65535 || ns < 1 || max_it < 1 || n_ranges < 1 ||
       n_ranges > MAX_RANGES)
     return cudaErrorInvalidValue;
@@ -1653,29 +1768,126 @@ extern "C" int apg_stream_fused(APG_STREAM_ARGS, float* w, int N, int ns,
   if (!coop) return cudaErrorNotSupported;
   bool staged = false;
   size_t smem = 0;
-  SK_TRY(plan_fused(N, nx, nu, nv, p.nblocks, max_optin, sms, &staged,
-                    &smem));
-  SK_TRY(plan_stream(nx, nu, nv, max_optin, &pl));   // the tail's scalars
+  SK_TRY(plan_fused<BF16>(N, nx, nu, nv, p.nblocks, max_optin, sms, &staged,
+                          &smem));
+  SK_TRY(plan_stream<BF16>(nx, nu, nv, max_optin, &pl));   // the tail's
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == 1) return launch_fused(p, rg, w, 0, staged, smem, st);
+  if (mode == 1) return launch_fused<BF16>(p, rg, w, 0, staged, smem, st);
   if (mode != 0) return cudaErrorInvalidValue;
   SK_TRY(cudaMemsetAsync(p.ctr, 0, sizeof(int), st));
   SK_TRY(replay(p, st, [&](cudaStream_t s) {
-    return launch_fused(p, rg, w, 1, staged, smem, s);
+    return launch_fused<BF16>(p, rg, w, 1, staged, smem, s);
   }));
   return enqueue_tail(p, pl, st);
+}
+
+// Which variants a launch at these sizes takes (apg_stream_staged).
+template <bool BF16>
+int staged_mask(int N, int ns, int nx, int nu, int nv) {
+  int max_optin = 0, sms = 0;
+  cudaError_t err = device_limits(&max_optin, &sms);
+  Plan pl;
+  if (err == cudaSuccess) err = plan_stream<BF16>(nx, nu, nv, max_optin, &pl);
+  if (err != cudaSuccess) return -(int)err;
+  bool fused = false;
+  size_t smem = 0;
+  err = plan_fused<BF16>(N, nx, nu, nv, (ns + TILE - 1) / TILE, max_optin,
+                         sms, &fused, &smem);
+  if (err != cudaSuccess) fused = false;
+  return (int)pl.k1_staged | (int)pl.k2_staged << 1 | (int)fused << 2;
+}
+
+long long stream_smem(int nx, int nu, int nv, bool bf16) {
+  const size_t k1 = smem_k1(nx, nu, nv, bf16), k2 = smem_k2(nx, nu, nv, bf16);
+  return (long long)(k1 > k2 ? k1 : k2);
+}
+
+long long staged_smem(int N, int nx, int nu, int nv, int kernel, bool bf16) {
+  return (long long)(kernel == 0   ? staged_k1(nx, nu, nv, bf16)
+                     : kernel == 1 ? staged_k2(nx, nu, nv, bf16)
+                                   : staged_fused(N, nx, nu, nv, bf16));
+}
+
+}  // namespace
+
+// mode 0: the whole solve of max_it iterations and the tail; the caller
+// fills y_xi/y_psi with the warm start, zeroes z, the pre-images and the
+// trace, and reads x, u, v, y and the trace after the stream has run.
+// mode 1: one K1 pass (every range of stages), mode 2: one K2 pass, from
+// the state and the scalars (sc[0..4]) the caller put in place; K1 leaves
+// its champion partials in champ_part (row launch * nblocks + block), K2
+// its squared-distance partials in norm_part.  Enqueued on `stream`
+// without synchronising.  Returns a cudaError_t (0 on success).  The
+// products in full float32 (stream_precision "highest").
+extern "C" int apg_stream(APG_STREAM_ARGS, int N, int ns, int nx, int nu,
+                          int nv, int max_it, const int* ranges,
+                          int n_ranges, float c, float step, float t1c,
+                          float t2c, float xs_upper, int mode,
+                          void* stream) {
+  return stream_entry<false>(APG_STREAM_ARG_NAMES, N, ns, nx, nu, nv, max_it,
+                             ranges, n_ranges, c, step, t1c, t2c, xs_upper,
+                             mode, stream);
+}
+
+// apg_stream with one bf16 pass a product (stream_precision "default"):
+// the caller passes L, BbT, iWT, LT and BT rounded to bfloat16.
+extern "C" int apg_stream_bf16(APG_STREAM_ARGS, int N, int ns, int nx,
+                               int nu, int nv, int max_it,
+                               const int* ranges, int n_ranges, float c,
+                               float step, float t1c, float t2c,
+                               float xs_upper, int mode, void* stream) {
+  return stream_entry<true>(APG_STREAM_ARG_NAMES, N, ns, nx, nu, nv, max_it,
+                            ranges, n_ranges, c, step, t1c, t2c, xs_upper,
+                            mode, stream);
+}
+
+// The fused iteration (fused_kernel), with the state and outputs of
+// apg_stream and the scratch w (N, ns, 2nx + nu).  mode 0: the whole
+// solve (the counter reset, max_it replays of one captured cooperative
+// launch, the tail of apg_stream's mode 0); mode 1: one iteration from
+// the state and the scalars sc[0..4] the caller put in place, leaving
+// K1's champion partials (row range * nblocks + block) and K2's
+// squared-distance partials.  Refuses a tree whose v tiles pass the
+// shared memory (cudaErrorInvalidValue) and a grid whose blocks cannot
+// all be resident at once (cudaErrorCooperativeLaunchTooLarge).
+extern "C" int apg_stream_fused(APG_STREAM_ARGS, float* w, int N, int ns,
+                                int nx, int nu, int nv, int max_it,
+                                const int* ranges, int n_ranges, float c,
+                                float step, float t1c, float t2c,
+                                float xs_upper, int mode, void* stream) {
+  return fused_entry<false>(APG_STREAM_ARG_NAMES, w, N, ns, nx, nu, nv,
+                            max_it, ranges, n_ranges, c, step, t1c, t2c,
+                            xs_upper, mode, stream);
+}
+
+// apg_stream_fused with one bf16 pass a product, the matrices rounded by
+// the caller (as apg_stream_bf16).
+extern "C" int apg_stream_fused_bf16(APG_STREAM_ARGS, float* w, int N,
+                                     int ns, int nx, int nu, int nv,
+                                     int max_it, const int* ranges,
+                                     int n_ranges, float c, float step,
+                                     float t1c, float t2c, float xs_upper,
+                                     int mode, void* stream) {
+  return fused_entry<true>(APG_STREAM_ARG_NAMES, w, N, ns, nx, nu, nv,
+                           max_it, ranges, n_ranges, c, step, t1c, t2c,
+                           xs_upper, mode, stream);
 }
 
 // The slots per block, which the wrapper sizes its partials by.
 extern "C" int apg_stream_tile() { return TILE; }
 
 // The most dynamic shared memory (bytes) a launch at these sizes asks
-// for; ops/apg_stream.py holds its routing formula to this.
+// for; ops/apg_stream.py holds its routing formula to this (and to
+// apg_stream_bf16_smem for the bf16 entry).
 extern "C" long long apg_stream_smem(int N, int ns, int nx, int nu, int nv) {
   (void)N; (void)ns;
-  const size_t k1 = smem_k1(nx, nu, nv), k2 = smem_k2(nx, nu, nv);
-  return (long long)(k1 > k2 ? k1 : k2);
+  return stream_smem(nx, nu, nv, false);
+}
+extern "C" long long apg_stream_bf16_smem(int N, int ns, int nx, int nu,
+                                          int nv) {
+  (void)N; (void)ns;
+  return stream_smem(nx, nu, nv, true);
 }
 
 // The fused kernel's shared memory (bytes); ops/apg_stream.py holds
@@ -1683,7 +1895,12 @@ extern "C" long long apg_stream_smem(int N, int ns, int nx, int nu, int nv) {
 extern "C" long long apg_stream_fused_smem(int N, int ns, int nx, int nu,
                                            int nv) {
   (void)ns;
-  return (long long)smem_fused(N, nx, nu, nv);
+  return (long long)smem_fused(N, nx, nu, nv, false);
+}
+extern "C" long long apg_stream_fused_bf16_smem(int N, int ns, int nx,
+                                                int nu, int nv) {
+  (void)ns;
+  return (long long)smem_fused(N, nx, nu, nv, true);
 }
 
 // The dynamic shared memory (bytes) of the staged variant of K1 (kernel
@@ -1692,9 +1909,13 @@ extern "C" long long apg_stream_fused_smem(int N, int ns, int nx, int nu,
 extern "C" long long apg_stream_staged_smem(int N, int ns, int nx, int nu,
                                             int nv, int kernel) {
   (void)ns;
-  return (long long)(kernel == 0   ? staged_k1(nx, nu, nv)
-                     : kernel == 1 ? staged_k2(nx, nu, nv)
-                                   : staged_fused(N, nx, nu, nv));
+  return staged_smem(N, nx, nu, nv, kernel, false);
+}
+extern "C" long long apg_stream_bf16_staged_smem(int N, int ns, int nx,
+                                                 int nu, int nv,
+                                                 int kernel) {
+  (void)ns;
+  return staged_smem(N, nx, nu, nv, kernel, true);
 }
 
 // Which variants a launch at these sizes takes on the current device:
@@ -1702,17 +1923,10 @@ extern "C" long long apg_stream_staged_smem(int N, int ns, int nx, int nu,
 // blocks all resident); a negative cudaError_t on failure.  Sets the
 // kernels' shared memory as a launch would.
 extern "C" int apg_stream_staged(int N, int ns, int nx, int nu, int nv) {
-  int max_optin = 0, sms = 0;
-  cudaError_t err = device_limits(&max_optin, &sms);
-  Plan pl;
-  if (err == cudaSuccess) err = plan_stream(nx, nu, nv, max_optin, &pl);
-  if (err != cudaSuccess) return -(int)err;
-  bool fused = false;
-  size_t smem = 0;
-  err = plan_fused(N, nx, nu, nv, (ns + TILE - 1) / TILE, max_optin, sms,
-                   &fused, &smem);
-  if (err != cudaSuccess) fused = false;
-  return (int)pl.k1_staged | (int)pl.k2_staged << 1 | (int)fused << 2;
+  return staged_mask<false>(N, ns, nx, nu, nv);
+}
+extern "C" int apg_stream_bf16_staged(int N, int ns, int nx, int nu, int nv) {
+  return staged_mask<true>(N, ns, nx, nu, nv);
 }
 
 #ifdef APG_STREAM_CLOCK

@@ -67,12 +67,23 @@
 // they were), so both give the bits of the first design.  Nothing is
 // reduced, so a run repeats itself bit for bit.  Products are this
 // file's FP32 FMA loops (no tensor cores, no TF32): the JAX package
-// computes them at Precision.HIGHEST.
+// computes them at Precision.HIGHEST.  Its stream_precision="default"
+// (one bf16 MXU pass a product, pallas_stream_qn.py:73-76) is the BF16
+// instantiation, reached through the C entry stream_qn_bf16 with the
+// matrices rounded to bfloat16 by the caller: each product's vector
+// operand is rounded (to nearest, ties to even) once per element, t and
+// inner into copies beside the float32 carries (S1's work area grows by
+// (nx + nv) x TILE floats) and u into one beside the u the images read
+// (S2's by nu x TILE); g wp and v are rounded where they are stored, and
+// the handoff gather rounds each child's carry and the sum
+// (csrc/apg_stream.cu's rules).  The float32 instantiation is the code as
+// it was, with its shared memory and bits.
 //
 // Layout: every per-row array is row-major (N, ns, d), row r = s * ns + i
 // (stage s, slot i).  The dual triple is one array (N, ns, 2 nx + nu),
 // [w1 | w2 | wp] per row, and so are the images [p1 | p2 | pp].
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -149,6 +160,16 @@ struct Args {
 // the tensor's allocation: PyTorch's blocks are 512-byte aligned and
 // sized); its floats land at src's offset within 16 bytes of the 16-byte
 // aligned segment (`landing`).
+
+// x rounded to bfloat16 (to nearest, ties to even) and widened back: a
+// product's operand under BF16.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+template <bool BF16>
+__device__ __forceinline__ float operand(float x) {
+  return BF16 ? bf16r(x) : x;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* ptr) {
   return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
@@ -408,12 +429,15 @@ __device__ __forceinline__ void s2_matrices(const Args& p, const float** M,
 }
 
 // A launch's shared memory, in floats: the carries and product operands
-// (`work`), the staged matrices (`mats`) and two operand buffers.
-__host__ __device__ inline int s1_work_floats(int nx, int nu, int nv) {
-  return (nx + nv + nu) * TILE;
+// (`work`; with bf16, S1's rounded t and inner and S2's rounded u too),
+// the staged matrices (`mats`) and two operand buffers.
+__host__ __device__ inline int s1_work_floats(int nx, int nu, int nv,
+                                              bool bf16) {
+  return (nx + nv + nu + (bf16 ? nx + nv : 0)) * TILE;
 }
-__host__ __device__ inline int s2_work_floats(int nx, int nu, int nv) {
-  return (2 * nu + nx + nv) * TILE;
+__host__ __device__ inline int s2_work_floats(int nx, int nu, int nv,
+                                              bool bf16) {
+  return (2 * nu + nx + nv + (bf16 ? nu : 0)) * TILE;
 }
 __host__ __device__ inline int s1_mats_floats(int nx, int nu, int nv) {
   return room(nx * nv) + room(nu * nv) + room(nv * nv);
@@ -516,8 +540,9 @@ __device__ __forceinline__ void tile_product(const float* X,
 // KIDS child slots of each slot's parent (and their count) go to kidS
 // (KID_INTS) first, so that each (slot, feature) issues its loads at
 // once, GATHER of them a thread (csrc/apg_stream.cu's gather); else each
-// (slot, feature) walks its parent's list in device memory.
-template <bool LISTED>
+// (slot, feature) walks its parent's list in device memory.  BF16: each
+// child's carry is rounded before it is added and the sum after.
+template <bool LISTED, bool BF16>
 __device__ __forceinline__ void gather_carries(const Args& p, int gather,
                                                int i0, int nt, int W,
                                                const float* __restrict__ qin,
@@ -531,7 +556,8 @@ __device__ __forceinline__ void gather_carries(const Args& p, int gather,
       if (gather >= 0 && j < nt) {
         const int par = p.agg_parent[(size_t)gather * ns + i0 + j];
         for (int m = p.agg_ptr[par]; m < p.agg_ptr[par + 1]; ++m)
-          acc += qin[(size_t)p.agg_idx[m] * W + k];
+          acc += operand<BF16>(qin[(size_t)p.agg_idx[m] * W + k]);
+        acc = operand<BF16>(acc);
       }
       if (k < nx)
         tS[k * TILE + j] = acc;
@@ -574,9 +600,10 @@ __device__ __forceinline__ void gather_carries(const Args& p, int gather,
         const int n0 = min(KIDS, m1 - m0);
 #pragma unroll
         for (int t = 0; t < KIDS; ++t)
-          if (t < n0) acc += val[b][t];
+          if (t < n0) acc += operand<BF16>(val[b][t]);
         for (int m = m0 + KIDS; m < m1; ++m)
-          acc += qin[(size_t)p.agg_idx[m] * W + k];
+          acc += operand<BF16>(qin[(size_t)p.agg_idx[m] * W + k]);
+        acc = operand<BF16>(acc);
       }
       if (k < nx)
         tS[k * TILE + j] = acc;
@@ -590,14 +617,16 @@ __device__ __forceinline__ void gather_carries(const Args& p, int gather,
 // carries t and a in tS (nx, TILE) and aS (nv, TILE), gS (nu, TILE)
 // scratch; the operands in stage s's buffer (STAGED), the next stage's
 // (s_next >= 0) copied into the other buffer while the products run.
-// Writes v.
-template <bool AFFINE, bool STAGED>
+// Writes v.  BF16: t is summed one rounded operation at a time, the
+// products read t and inner rounded, from tR (nx, TILE) and aR (nv, TILE),
+// and g wp is rounded where it is stored.
+template <bool AFFINE, bool STAGED, bool BF16>
 __device__ __forceinline__ void s1_stage(const Args& p, int s, int s_next,
                                          int i0, int nt, float* tS,
-                                         float* aS, float* gS,
-                                         const float* BbT, const float* L,
-                                         const float* iWT, Staging& sg,
-                                         long long& clk) {
+                                         float* aS, float* gS, float* tR,
+                                         float* aR, const float* BbT,
+                                         const float* L, const float* iWT,
+                                         Staging& sg, long long& clk) {
   const int nx = p.nx, nu = p.nu, nv = p.nv, D = p.D;
   const size_t row0 = (size_t)s * p.ns + i0;
   // No barrier first: this stage's passes write tS and gS, which the last
@@ -605,20 +634,35 @@ __device__ __forceinline__ void s1_stage(const Args& p, int s, int s_next,
   if (STAGED) wait_buffer(sg, s);
   clock_mark(P_S1_WAIT, clk);
   const Ops<S1_OPS> o = s1_ops<AFFINE, STAGED>(p, s, i0, buffer(sg, s));
-  // t = d1 w1 + d2 w2 + t
-  for (int idx = threadIdx.x; idx < nt * nx; idx += blockDim.x) {
+  // t = d1 w1 + d2 w2 + t (BF16: and t rounded, zero past nt)
+  for (int idx = threadIdx.x; idx < (BF16 ? TILE : nt) * nx;
+       idx += blockDim.x) {
     const int j = idx / nx, k = idx - j * nx;
+    if (BF16 && j >= nt) {
+      tR[k * TILE + j] = 0.f;
+      continue;
+    }
     const float sqv = o.f[O1_SQ][j];
     const float d1 = o.f[O1_CX1][k] * sqv, d2 = o.f[O1_CX2][k] * sqv;
-    tS[k * TILE + j] = d1 * o.f[O1_W][j * D + k] +
-                       d2 * o.f[O1_W][j * D + nx + k] + tS[k * TILE + j];
+    const float w1 = o.f[O1_W][j * D + k], w2 = o.f[O1_W][j * D + nx + k];
+    if constexpr (BF16) {
+      // each operation rounded on its own, in s1_plain's order: t is
+      // rounded to bfloat16 from this value, and an FMA can move it across
+      // a bf16 tie
+      tS[k * TILE + j] = __fadd_rn(
+          __fadd_rn(__fmul_rn(d1, w1), __fmul_rn(d2, w2)), tS[k * TILE + j]);
+      tR[k * TILE + j] = bf16r(tS[k * TILE + j]);
+    } else {
+      tS[k * TILE + j] = d1 * w1 + d2 * w2 + tS[k * TILE + j];
+    }
   }
   // g wp
   for (int idx = threadIdx.x; idx < TILE * nu; idx += blockDim.x) {
     const int j = idx / nu, k = idx - j * nu;
     float gw = 0.f;
     if (j < nt)
-      gw = (o.f[O1_CU][k] * o.f[O1_SQ][j]) * o.f[O1_W][j * D + 2 * nx + k];
+      gw = operand<BF16>((o.f[O1_CU][k] * o.f[O1_SQ][j]) *
+                         o.f[O1_W][j * D + 2 * nx + k]);
     gS[k * TILE + j] = gw;
   }
   __syncthreads();
@@ -633,7 +677,8 @@ __device__ __forceinline__ void s1_stage(const Args& p, int s, int s_next,
   // inner = a + Bb t + L'(g wp) [+ beta], summed in that order; it is
   // the next stage's a.  Both products give a thread the same (c, slots),
   // so the second reads what the first wrote without a barrier.
-  tile_product<STAGED>(tS, BbT, nx, nv, [&](int cc, int j, float acc) {
+  tile_product<STAGED>(BF16 ? tR : tS, BbT, nx, nv,
+                       [&](int cc, int j, float acc) {
     aS[cc * TILE + j] = j < nt ? aS[cc * TILE + j] + acc : 0.f;
   });
   clock_mark(P_S1_BBT, clk);
@@ -641,11 +686,13 @@ __device__ __forceinline__ void s1_stage(const Args& p, int s, int s_next,
     float a = aS[cc * TILE + j] + acc;
     if (AFFINE && j < nt) a += o.f[O1_BETA][j * nv + cc];
     aS[cc * TILE + j] = a;
+    if (BF16) aR[cc * TILE + j] = bf16r(a);
   });
   __syncthreads();
   clock_mark(P_S1_L, clk);
   // v = nhp * iW inner
-  tile_product<STAGED>(aS, iWT, nv, nv, [&](int cc, int j, float acc) {
+  tile_product<STAGED>(BF16 ? aR : aS, iWT, nv, nv,
+                       [&](int cc, int j, float acc) {
     if (j < nt) p.v[(row0 + j) * nv + cc] = o.f[O1_NHP][j] * acc;
   });
   clock_mark(P_S1_IWT, clk);
@@ -659,7 +706,7 @@ __device__ __forceinline__ void s1_stage(const Args& p, int s, int s_next,
 // -1: they start at zero.  Staged, the matrices and the first stage's
 // operands are copied by the last warp while the others gather.  Writes
 // v and its exit carries (buffer launch & 1).
-template <bool AFFINE, bool STAGED>
+template <bool AFFINE, bool STAGED, bool BF16>
 __global__ void __launch_bounds__(THREADS)
 s1_kernel(Args p, int s_hi, int s_lo, int gather, int launch) {
   extern __shared__ float4 smem4[];
@@ -668,7 +715,9 @@ s1_kernel(Args p, int s_hi, int s_lo, int gather, int launch) {
   float* tS = smem;              // (nx, TILE) t
   float* aS = tS + nx * TILE;    // (nv, TILE) a, inner
   float* gS = aS + nv * TILE;    // (nu, TILE) g * wp
-  Staging sg = staging<STAGED>(smem, s1_work_floats(nx, nu, nv),
+  float* tR = gS + nu * TILE;    // BF16: (nx, TILE) t rounded
+  float* aR = tR + nx * TILE;    // BF16: (nv, TILE) inner rounded
+  Staging sg = staging<STAGED>(smem, s1_work_floats(nx, nu, nv, BF16),
                                s1_mats_floats(nx, nu, nv),
                                s1_buf_floats(nx, nu, nv));
   int* kidS = STAGED ? reinterpret_cast<int*>(sg.bars + 2) : nullptr;
@@ -692,15 +741,17 @@ s1_kernel(Args p, int s_hi, int s_lo, int gather, int launch) {
       s1_visit<AFFINE>(p, s_hi, i0, nt, buffer(sg, s_hi), f);
     });
   } else {
-    gather_carries<STAGED>(p, gather, i0, nt, W, qin, tS, aS, kidS, team);
+    gather_carries<STAGED, BF16>(p, gather, i0, nt, W, qin, tS, aS, kidS,
+                                 team);
   }
   // the carries in place for every thread
   __syncthreads();
   clock_mark(P_S1_START, clk);
 
   for (int s = s_hi; s >= s_lo; --s)
-    s1_stage<AFFINE, STAGED>(p, s, s > s_lo ? s - 1 : -1, i0, nt, tS, aS,
-                             gS, at[0], at[1], at[2], sg, clk);
+    s1_stage<AFFINE, STAGED, BF16>(p, s, s > s_lo ? s - 1 : -1, i0, nt, tS,
+                                   aS, gS, tR, aR, at[0], at[1], at[2], sg,
+                                   clk);
   __syncthreads();
 
   for (int idx = threadIdx.x; idx < nt * W; idx += blockDim.x) {
@@ -714,8 +765,9 @@ s1_kernel(Args p, int s_hi, int s_lo, int gather, int launch) {
 // S2 over stages 0 .. N-1 for the block's TILE slots: u, x and the primal
 // images.  Staged, the matrices are copied with stage 0's operands, and
 // each later stage's into the other buffer while its predecessor's second
-// product runs.
-template <bool AFFINE, bool STAGED>
+// product runs.  BF16: the products read v and u rounded (v where the
+// tile is stored, u from uR).
+template <bool AFFINE, bool STAGED, bool BF16>
 __global__ void __launch_bounds__(THREADS) s2_kernel(Args p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -724,7 +776,8 @@ __global__ void __launch_bounds__(THREADS) s2_kernel(Args p) {
   float* uS = duS + nu * TILE;                   // (nu, TILE) u
   float* xS = uS + nu * TILE;                    // (nx, TILE) x
   float* vS = xS + nx * TILE;                    // (nv, TILE) v
-  Staging sg = staging<STAGED>(smem, s2_work_floats(nx, nu, nv),
+  float* uR = vS + nv * TILE;                    // BF16: (nu, TILE) u rounded
+  Staging sg = staging<STAGED>(smem, s2_work_floats(nx, nu, nv, BF16),
                                s2_mats_floats(nx, nu, nv),
                                s2_buf_floats(nx, nu, nv));
   const int i0 = blockIdx.x * TILE;
@@ -757,7 +810,7 @@ __global__ void __launch_bounds__(THREADS) s2_kernel(Args p) {
     // barriers that followed it
     for (int idx = threadIdx.x; idx < TILE * nv; idx += blockDim.x) {
       const int k = idx / TILE, j = idx - k * TILE;
-      vS[k * TILE + j] = j < nt ? o.f[O2_V][j * nv + k] : 0.f;
+      vS[k * TILE + j] = j < nt ? operand<BF16>(o.f[O2_V][j * nv + k]) : 0.f;
     }
     // and the last stage's image pass, which reads uS and xS, is done
     __syncthreads();
@@ -772,6 +825,7 @@ __global__ void __launch_bounds__(THREADS) s2_kernel(Args p) {
         p.u[(row0 + j) * nu + cc] = uv;
       }
       uS[cc * TILE + j] = uv;
+      if (BF16) uR[cc * TILE + j] = bf16r(uv);
     });
     __syncthreads();
     clock_mark(P_S2_LT, clk);
@@ -783,7 +837,8 @@ __global__ void __launch_bounds__(THREADS) s2_kernel(Args p) {
         s2_visit<AFFINE>(p, s + 1, i0, nt, buffer(sg, s + 1), f);
       });
     // x = x_prev + B u [+ e]
-    tile_product<STAGED>(uS, at[1], nu, nx, [&](int cc, int j, float acc) {
+    tile_product<STAGED>(BF16 ? uR : uS, at[1], nu, nx,
+                         [&](int cc, int j, float acc) {
       if (j < nt) {
         float xv = xS[cc * TILE + j] + acc;
         if (AFFINE) xv += o.f[O2_E][j * nx + cc];
@@ -820,22 +875,22 @@ __global__ void __launch_bounds__(THREADS) s2_kernel(Args p) {
 
 // Dynamic shared memory of the unstaged S1 and S2 (bytes): the launch's
 // and, through stream_qn_smem, the routing gate's one formula.
-size_t smem_s1(int nx, int nu, int nv) {
-  return sizeof(float) * (size_t)s1_work_floats(nx, nu, nv);
+size_t smem_s1(int nx, int nu, int nv, bool bf16) {
+  return sizeof(float) * (size_t)s1_work_floats(nx, nu, nv, bf16);
 }
-size_t smem_s2(int nx, int nu, int nv) {
-  return sizeof(float) * (size_t)s2_work_floats(nx, nu, nv);
+size_t smem_s2(int nx, int nu, int nv, bool bf16) {
+  return sizeof(float) * (size_t)s2_work_floats(nx, nu, nv, bf16);
 }
 // The staged variants' (bytes): the work areas, the matrices, two
 // operand buffers, the barriers and (S1) the child lists.
-size_t staged_s1(int nx, int nu, int nv) {
-  return sizeof(float) * ((size_t)s1_work_floats(nx, nu, nv) +
+size_t staged_s1(int nx, int nu, int nv, bool bf16) {
+  return sizeof(float) * ((size_t)s1_work_floats(nx, nu, nv, bf16) +
                           s1_mats_floats(nx, nu, nv) +
                           2 * (size_t)s1_buf_floats(nx, nu, nv) +
                           BAR_FLOATS + KID_INTS);
 }
-size_t staged_s2(int nx, int nu, int nv) {
-  return sizeof(float) * ((size_t)s2_work_floats(nx, nu, nv) +
+size_t staged_s2(int nx, int nu, int nv, bool bf16) {
+  return sizeof(float) * ((size_t)s2_work_floats(nx, nu, nv, bf16) +
                           s2_mats_floats(nx, nu, nv) +
                           2 * (size_t)s2_buf_floats(nx, nu, nv) +
                           BAR_FLOATS);
@@ -891,64 +946,61 @@ cudaError_t plan(const void* staged_kernel, const void* unstaged_kernel,
   *pl = got;
   return cudaSuccess;
 }
-template <bool AFFINE>
+template <bool AFFINE, bool BF16>
 cudaError_t plan_s1(int nx, int nu, int nv, Plan* pl) {
-  return plan((const void*)s1_kernel<AFFINE, true>,
-              (const void*)s1_kernel<AFFINE, false>, staged_s1(nx, nu, nv),
-              smem_s1(nx, nu, nv), nx, nu, nv, pl);
+  return plan((const void*)s1_kernel<AFFINE, true, BF16>,
+              (const void*)s1_kernel<AFFINE, false, BF16>,
+              staged_s1(nx, nu, nv, BF16), smem_s1(nx, nu, nv, BF16), nx, nu,
+              nv, pl);
 }
-template <bool AFFINE>
+template <bool AFFINE, bool BF16>
 cudaError_t plan_s2(int nx, int nu, int nv, Plan* pl) {
-  return plan((const void*)s2_kernel<AFFINE, true>,
-              (const void*)s2_kernel<AFFINE, false>, staged_s2(nx, nu, nv),
-              smem_s2(nx, nu, nv), nx, nu, nv, pl);
+  return plan((const void*)s2_kernel<AFFINE, true, BF16>,
+              (const void*)s2_kernel<AFFINE, false, BF16>,
+              staged_s2(nx, nu, nv, BF16), smem_s2(nx, nu, nv, BF16), nx, nu,
+              nv, pl);
 }
 
-template <bool AFFINE>
+template <bool AFFINE, bool BF16>
 cudaError_t run(const Args& p, int mode, const int* ranges, int n_ranges,
                 cudaStream_t st) {
   Plan pl;
   if (mode == 1) {
-    SQ_TRY(plan_s1<AFFINE>(p.nx, p.nu, p.nv, &pl));
+    SQ_TRY((plan_s1<AFFINE, BF16>(p.nx, p.nu, p.nv, &pl)));
     for (int k = 0; k < n_ranges; ++k) {
       const int* r = ranges + 3 * k;
       if (pl.staged)
-        s1_kernel<AFFINE, true><<<p.nblocks, THREADS, pl.smem, st>>>(
+        s1_kernel<AFFINE, true, BF16><<<p.nblocks, THREADS, pl.smem, st>>>(
             p, r[0], r[1], r[2], k);
       else
-        s1_kernel<AFFINE, false><<<p.nblocks, THREADS, pl.smem, st>>>(
+        s1_kernel<AFFINE, false, BF16><<<p.nblocks, THREADS, pl.smem, st>>>(
             p, r[0], r[1], r[2], k);
       SQ_TRY(cudaGetLastError());
     }
     return cudaSuccess;
   }
   if (mode != 2) return cudaErrorInvalidValue;
-  SQ_TRY(plan_s2<AFFINE>(p.nx, p.nu, p.nv, &pl));
+  SQ_TRY((plan_s2<AFFINE, BF16>(p.nx, p.nu, p.nv, &pl)));
   if (pl.staged)
-    s2_kernel<AFFINE, true><<<p.nblocks, THREADS, pl.smem, st>>>(p);
+    s2_kernel<AFFINE, true, BF16><<<p.nblocks, THREADS, pl.smem, st>>>(p);
   else
-    s2_kernel<AFFINE, false><<<p.nblocks, THREADS, pl.smem, st>>>(p);
+    s2_kernel<AFFINE, false, BF16><<<p.nblocks, THREADS, pl.smem, st>>>(p);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// mode 1: one S1 pass (every range of stages: (first stage, last stage,
-// aggregation read at the start or -1) per launch) from w to v; mode 2:
-// one S2 pass from v to x, u and the images pr.  affine != 0: the solve
-// step (S1 adds beta; S2 starts from pdu and x0 and adds uhat and e);
-// 0: the Hessian oracle, which reads none of those pointers.  Each kernel
-// runs staged where that fits the device (stream_qn_staged).  Enqueued on
-// `stream` without synchronising.  Returns a cudaError_t (0 on success).
-extern "C" int stream_qn(
-    const float* cx1, const float* cx2, const float* cu, const float* sq,
-    const float* nhp, const float* L, const float* BbT, const float* iWT,
-    const float* LT, const float* BT, const int* agg_parent,
-    const int* agg_ptr, const int* agg_idx, const float* beta,
-    const float* uhat, const float* e, const float* x0, const float* pdu,
-    const float* w, float* v, float* x, float* u, float* pr, float* carry,
-    int N, int ns, int nx, int nu, int nv, const int* ranges, int n_ranges,
-    int affine, int mode, void* stream) {
+// The entries' body (stream_qn, stream_qn_bf16), BF16 the products'
+// precision.
+template <bool BF16>
+int sweep_entry(const float* cx1, const float* cx2, const float* cu,
+                const float* sq, const float* nhp, const float* L,
+                const float* BbT, const float* iWT, const float* LT,
+                const float* BT, const int* agg_parent, const int* agg_ptr,
+                const int* agg_idx, const float* beta, const float* uhat,
+                const float* e, const float* x0, const float* pdu,
+                const float* w, float* v, float* x, float* u, float* pr,
+                float* carry, int N, int ns, int nx, int nu, int nv,
+                const int* ranges, int n_ranges, int affine, int mode,
+                void* stream) {
   if (N < 1 || ns < 1 || n_ranges < 1) return cudaErrorInvalidValue;
   Args p;
   p.N = N; p.ns = ns; p.nx = nx; p.nu = nu; p.nv = nv; p.D = 2 * nx + nu;
@@ -959,8 +1011,57 @@ extern "C" int stream_qn(
   p.beta = beta; p.uhat = uhat; p.e = e; p.x0 = x0; p.pdu = pdu;
   p.w = w; p.v = v; p.x = x; p.u = u; p.pr = pr; p.carry = carry;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return affine ? run<true>(p, mode, ranges, n_ranges, st)
-                : run<false>(p, mode, ranges, n_ranges, st);
+  return affine ? run<true, BF16>(p, mode, ranges, n_ranges, st)
+                : run<false, BF16>(p, mode, ranges, n_ranges, st);
+}
+
+// Which variants a launch at these sizes takes (stream_qn_staged).
+template <bool BF16>
+int staged_mask(int nx, int nu, int nv) {
+  Plan s1, s2;
+  cudaError_t err = plan_s1<true, BF16>(nx, nu, nv, &s1);
+  if (err == cudaSuccess) err = plan_s2<true, BF16>(nx, nu, nv, &s2);
+  if (err != cudaSuccess) return -(int)err;
+  return (int)s1.staged | (int)s2.staged << 1;
+}
+
+long long unstaged_smem(int nx, int nu, int nv, bool bf16) {
+  const size_t s1 = smem_s1(nx, nu, nv, bf16), s2 = smem_s2(nx, nu, nv, bf16);
+  return (long long)(s1 > s2 ? s1 : s2);
+}
+
+}  // namespace
+
+#define STREAM_QN_ARGS                                                      \
+  const float *cx1, const float *cx2, const float *cu, const float *sq,     \
+      const float *nhp, const float *L, const float *BbT, const float *iWT, \
+      const float *LT, const float *BT, const int *agg_parent,              \
+      const int *agg_ptr, const int *agg_idx, const float *beta,            \
+      const float *uhat, const float *e, const float *x0, const float *pdu, \
+      const float *w, float *v, float *x, float *u, float *pr, float *carry, \
+      int N, int ns, int nx, int nu, int nv, const int *ranges,             \
+      int n_ranges, int affine, int mode, void *stream
+#define STREAM_QN_ARG_NAMES                                                 \
+  cx1, cx2, cu, sq, nhp, L, BbT, iWT, LT, BT, agg_parent, agg_ptr, agg_idx, \
+      beta, uhat, e, x0, pdu, w, v, x, u, pr, carry, N, ns, nx, nu, nv,     \
+      ranges, n_ranges, affine, mode, stream
+
+// mode 1: one S1 pass (every range of stages: (first stage, last stage,
+// aggregation read at the start or -1) per launch) from w to v; mode 2:
+// one S2 pass from v to x, u and the images pr.  affine != 0: the solve
+// step (S1 adds beta; S2 starts from pdu and x0 and adds uhat and e);
+// 0: the Hessian oracle, which reads none of those pointers.  Each kernel
+// runs staged where that fits the device (stream_qn_staged).  Enqueued on
+// `stream` without synchronising.  Returns a cudaError_t (0 on success).
+// The products in full float32 (stream_precision "highest").
+extern "C" int stream_qn(STREAM_QN_ARGS) {
+  return sweep_entry<false>(STREAM_QN_ARG_NAMES);
+}
+
+// stream_qn with one bf16 pass a product (stream_precision "default"):
+// the caller passes L, BbT, iWT, LT and BT rounded to bfloat16.
+extern "C" int stream_qn_bf16(STREAM_QN_ARGS) {
+  return sweep_entry<true>(STREAM_QN_ARG_NAMES);
 }
 
 // The slots per block.
@@ -970,8 +1071,12 @@ extern "C" int stream_qn_tile() { return TILE; }
 // sizes asks for; ops/stream_qn.py holds its routing formula to this.
 extern "C" long long stream_qn_smem(int N, int ns, int nx, int nu, int nv) {
   (void)N; (void)ns;
-  const size_t s1 = smem_s1(nx, nu, nv), s2 = smem_s2(nx, nu, nv);
-  return (long long)(s1 > s2 ? s1 : s2);
+  return unstaged_smem(nx, nu, nv, false);
+}
+extern "C" long long stream_qn_bf16_smem(int N, int ns, int nx, int nu,
+                                         int nv) {
+  (void)N; (void)ns;
+  return unstaged_smem(nx, nu, nv, true);
 }
 
 // The dynamic shared memory (bytes) of the staged variant of S1 (kernel
@@ -979,8 +1084,14 @@ extern "C" long long stream_qn_smem(int N, int ns, int nx, int nu, int nv) {
 extern "C" long long stream_qn_staged_smem(int N, int ns, int nx, int nu,
                                            int nv, int kernel) {
   (void)N; (void)ns;
-  return (long long)(kernel == 0 ? staged_s1(nx, nu, nv)
-                                 : staged_s2(nx, nu, nv));
+  return (long long)(kernel == 0 ? staged_s1(nx, nu, nv, false)
+                                 : staged_s2(nx, nu, nv, false));
+}
+extern "C" long long stream_qn_bf16_staged_smem(int N, int ns, int nx,
+                                                int nu, int nv, int kernel) {
+  (void)N; (void)ns;
+  return (long long)(kernel == 0 ? staged_s1(nx, nu, nv, true)
+                                 : staged_s2(nx, nu, nv, true));
 }
 
 // Which variants a launch at these sizes takes on the current device:
@@ -988,11 +1099,11 @@ extern "C" long long stream_qn_staged_smem(int N, int ns, int nx, int nu,
 // Sets the kernels' shared memory as a launch would.
 extern "C" int stream_qn_staged(int N, int ns, int nx, int nu, int nv) {
   (void)N; (void)ns;
-  Plan s1, s2;
-  cudaError_t err = plan_s1<true>(nx, nu, nv, &s1);
-  if (err == cudaSuccess) err = plan_s2<true>(nx, nu, nv, &s2);
-  if (err != cudaSuccess) return -(int)err;
-  return (int)s1.staged | (int)s2.staged << 1;
+  return staged_mask<false>(nx, nu, nv);
+}
+extern "C" int stream_qn_bf16_staged(int N, int ns, int nx, int nu, int nv) {
+  (void)N; (void)ns;
+  return staged_mask<true>(nx, nu, nv);
 }
 
 #ifdef STREAM_QN_CLOCK

@@ -31,13 +31,21 @@
 // no atomics are used.  Layout: carry row-major (nsl, W), out row-major
 // (R, W), W = nx + nv; ptr (R + 1) and idx int32, slots numbered within
 // the shard.
+//
+// stream_precision "default" (the entry partial_parents_bf16): the TPU
+// kernels compute the block as a product at one bf16 pass (:357-358,
+// :875-876), so each child's carry is rounded to bfloat16 (to nearest,
+// ties to even) before it is added; the sum stays float32, as the
+// all-reduce and the broadcast after it (HIGHEST there, :567-568) do.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
 
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS)
 partial_parents_kernel(const float* __restrict__ carry,
                        const int* __restrict__ ptr,
@@ -47,9 +55,22 @@ partial_parents_kernel(const float* __restrict__ carry,
   const int m0 = ptr[r], m1 = ptr[r + 1];
   for (int k = threadIdx.x; k < W; k += blockDim.x) {
     float acc = 0.f;
-    for (int m = m0; m < m1; ++m) acc += carry[(size_t)idx[m] * W + k];
+    for (int m = m0; m < m1; ++m) {
+      const float c = carry[(size_t)idx[m] * W + k];
+      acc += BF16 ? __bfloat162float(__float2bfloat16_rn(c)) : c;
+    }
     out[(size_t)r * W + k] = acc;
   }
+}
+
+template <bool BF16>
+int launch(const float* carry, const int* ptr, const int* idx, float* out,
+           int R, int W, void* stream) {
+  if (R < 1 || W < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  partial_parents_kernel<BF16><<<R, THREADS, 0, st>>>(carry, ptr, idx, out,
+                                                      W);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -60,10 +81,15 @@ partial_parents_kernel(const float* __restrict__ carry,
 extern "C" int partial_parents(const float* carry, const int* ptr,
                                const int* idx, float* out, int R, int W,
                                void* stream) {
-  if (R < 1 || W < 1) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  partial_parents_kernel<<<R, THREADS, 0, st>>>(carry, ptr, idx, out, W);
-  return cudaGetLastError();
+  return launch<false>(carry, ptr, idx, out, R, W, stream);
+}
+
+// partial_parents with each carry rounded to bfloat16 before it is added
+// (stream_precision "default").
+extern "C" int partial_parents_bf16(const float* carry, const int* ptr,
+                                    const int* idx, float* out, int R, int W,
+                                    void* stream) {
+  return launch<true>(carry, ptr, idx, out, R, W, stream);
 }
 
 extern "C" const char* stream_sharded_error_string(int err) {

@@ -71,11 +71,28 @@ No controller routes to it: ``backend="stream"`` stays the two-kernel
 path, as in the JAX package, whose only caller of the fused kernel is
 its config ladder (``bench_ladder.py:563-577``); the port's is
 ``rapidnet_tpu_torch/bench_ladder.py``.
+
+Precision (``precision=``, the JAX package's ``stream_precision``):
+"highest" (the default) computes every in-kernel product in full
+float32; "default" is the TPU kernels' one bf16 MXU pass a product
+(``pallas_stream.py:304-307``): each product's operands are rounded to
+bfloat16 (to nearest, ties to even: ``bf16_round``) and their products
+summed in float32, the carries, the elementwise passes and everything
+outside the products staying float32.  The prefix handoff, one-hot
+products on the TPU (:401-404), rounds twice there: each child's carry
+before the sum and the parent's sum before it is handed down, so the
+plain versions do the same (``_handoff``) and so does the kernels'
+index-list gather.  ``stream_constants`` keeps the matrices rounded
+(``"bf16"``), so a kernel rounds only its vector operands; the "default"
+kernels are the ``_bf16`` C entries of the same source, whose launches
+are counted under the ``_bf16`` wrappers (``apg_stream_bf16``,
+``k1_call_bf16``, ...).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -104,7 +121,8 @@ MODES = {"solve": 0, "k1": 1, "k2": 2}
 FUSED_MODES = {"solve": 0, "iteration": 1}
 MAX_FUSED_RANGES = 32    # K1 ranges the fused kernel takes (MAX_RANGES in
                          # the source, whose entry refuses more)
-FUSED_PRECISIONS = ("highest",)
+PRECISIONS = ("highest", "default")   # the JAX package's stream_precision
+BF16_KEYS = ("L", "BbT", "iWT", "LT", "BT")   # kept rounded for "default"
 # the instrumented build (csrc/apg_stream.cu's Part, in its order): the
 # parts of a block's stage whose SM cycles ``stage_spans`` reads
 CLOCK_DEFINES = ("APG_STREAM_CLOCK",)
@@ -116,6 +134,45 @@ TOLERANCE_MESSAGE = (
     "termination; use backend='cuda' (in-kernel early exit) or 'torch'")
 
 
+def check_precision(precision, name: str = "precision") -> bool:
+    """Raise a ValueError naming ``name`` unless ``precision`` is one of
+    ``PRECISIONS``; True for "default" (one bf16 pass a product)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"{name} must be 'highest' or 'default', got "
+                         f"'{precision}'")
+    return precision == "default"
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (to nearest, ties to even) and widened
+    back to its dtype: a product's operand at "default"."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _same(t):
+    return t
+
+
+def rounding(precision):
+    """What a product does to its operands at ``precision``: round them to
+    bfloat16 ("default") or nothing ("highest")."""
+    return bf16_round if check_precision(precision) else _same
+
+
+def matrices(kc: dict, precision) -> dict:
+    """The shared matrices a product at ``precision`` reads: ``kc``'s, or
+    at "default" their bfloat16-rounded copies (``kc["bf16"]``)."""
+    return kc["bf16"] if check_precision(precision) else kc
+
+
+def _handoff(Cp, Bp, q, rnd):
+    """The child -> parent handoff Bp (Cp q), each product's operand
+    through ``rnd``: at "default" each child's carry is rounded before
+    the sum and the parent's sum before it is handed down (the TPU
+    kernel's one-hot products, pallas_stream.py:401-404)."""
+    return Bp @ rnd(Cp @ rnd(q))
+
+
 class NotStreamable(ValueError):
     """The factors are not of the form the streaming kernels take: a
     preconditioner or bound that is not sqrt(prob) x a per-stage row, or
@@ -125,28 +182,45 @@ class NotStreamable(ValueError):
 
 
 def stream_fits(N: int, ns: int, nx: int, nu: int, nv: int,
-                smem_limit: int | None = None) -> bool:
+                smem_limit: int | None = None,
+                precision: str = "highest") -> bool:
     """Whether the streaming kernels take a tree of these sizes: their
     shared memory (the K1 and K2 tiles, the same formula as the launch)
     within ``smem_limit`` (default: the current CUDA device's opt-in
     limit per block), and the stages within the tail's grid."""
     return (ns >= 1 and 1 <= N <= MAX_GRID_Y and
-            smem(N, ns, nx, nu, nv) <= build.smem_optin(smem_limit))
+            smem(N, ns, nx, nu, nv, precision) <=
+            build.smem_optin(smem_limit))
 
 
-def smem(N: int, ns: int, nx: int, nu: int, nv: int) -> int:
+def _work(nx: int, nu: int, nv: int, precision: str) -> tuple:
+    """The K1 and K2 work areas in floats a slot: the carries and product
+    operands, at "default" with K1's rounded t and inner and K2's rounded
+    u beside them (``k1_work_floats``/``k2_work_floats`` in the
+    source)."""
+    bf16 = check_precision(precision)
+    return (nx + nv + nu + (nx + nv if bf16 else 0),
+            2 * nu + nx + nv + (nu if bf16 else 0))
+
+
+def smem(N: int, ns: int, nx: int, nu: int, nv: int,
+         precision: str = "highest") -> int:
     """The most shared memory (bytes) a launch at these sizes asks for,
     the larger of the K1 and K2 tiles (``apg_stream_smem`` in the
-    source, checked at every launch)."""
-    return 4 * TILE * max(nx + nv + nu, 2 * nu + nx + nv)
+    source, ``apg_stream_bf16_smem`` at "default", checked at every
+    launch)."""
+    return 4 * TILE * max(_work(nx, nu, nv, precision))
 
 
-def fused_smem(N: int, ns: int, nx: int, nu: int, nv: int) -> int:
+def fused_smem(N: int, ns: int, nx: int, nu: int, nv: int,
+               precision: str = "highest") -> int:
     """Shared memory (bytes) of the fused kernel: the (N, nv, TILE) tiles
     of v it keeps on chip beside the larger of K1's work and K2's
-    without its v tile (``apg_stream_fused_smem`` in the source, checked
-    at every launch)."""
-    return 4 * TILE * (N * nv + max(nx + nv + nu, 2 * nu + nx))
+    without its v tile (``apg_stream_fused_smem`` in the source,
+    ``apg_stream_fused_bf16_smem`` at "default", checked at every
+    launch)."""
+    k1, k2 = _work(nx, nu, nv, precision)
+    return 4 * TILE * (N * nv + max(k1, k2 - nv))
 
 
 def _room(n: int) -> int:
@@ -156,7 +230,8 @@ def _room(n: int) -> int:
     return -(-n // 4) * 4 + 4 if n else 0
 
 
-def staged_smem(N: int, ns: int, nx: int, nu: int, nv: int) -> tuple:
+def staged_smem(N: int, ns: int, nx: int, nu: int, nv: int,
+                precision: str = "highest") -> tuple:
     """Dynamic shared memory (bytes) of the staged variants of K1, K2 and
     the fused kernel (``apg_stream_staged_smem`` in the source, which
     the card tests hold this to): the work areas, the matrices and the
@@ -164,9 +239,10 @@ def staged_smem(N: int, ns: int, nx: int, nu: int, nv: int) -> tuple:
     K2's for the fused kernel.  A launch takes the staged variant where
     this and the kernel's static shared memory fit the device's opt-in
     limit, else the unstaged one (``smem``, ``fused_smem``); the source
-    decides (``staged``)."""
+    decides (``staged``).  ``precision`` "default": the bf16 entries'
+    (``apg_stream_bf16_staged_smem``)."""
     t = TILE
-    k1_work, k2_work = (nx + nv + nu) * t, (2 * nu + nx + nv) * t
+    k1_work, k2_work = (w * t for w in _work(nx, nu, nv, precision))
     k1_mats = _room(nx * nv) + _room(nu * nv) + _room(nv * nv)
     k2_mats = _room(nv * nu) + _room(nu * nx)
     rows_x = [nx] * 5
@@ -185,14 +261,16 @@ def staged_smem(N: int, ns: int, nx: int, nu: int, nv: int) -> tuple:
                  max(k1_buf, 2 * k2_buf(True))))
 
 
-def staged(N: int, ns: int, nx: int, nu: int, nv: int) -> dict:
+def staged(N: int, ns: int, nx: int, nu: int, nv: int,
+           precision: str = "highest") -> dict:
     """Which variant each kernel takes at these sizes on the current CUDA
-    device, as the source's C entries choose it (``apg_stream_staged``):
-    {"k1", "k2", "fused"} -> True where staged (the matrices and a
-    stage's operands in shared memory), False where it reads them from
-    device memory."""
+    device, as the source's C entries choose it (``apg_stream_staged``,
+    ``apg_stream_bf16_staged`` at "default"): {"k1", "k2", "fused"} ->
+    True where staged (the matrices and a stage's operands in shared
+    memory), False where it reads them from device memory."""
     lib = build.load("apg_stream")
-    fn = lib.apg_stream_staged
+    fn = (lib.apg_stream_bf16_staged if check_precision(precision)
+          else lib.apg_stream_staged)
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
     mask = fn(N, ns, nx, nu, nv)
@@ -204,7 +282,8 @@ def staged(N: int, ns: int, nx: int, nu: int, nv: int) -> dict:
 
 def fused_fits(N: int, ns: int, nx: int, nu: int, nv: int,
                smem_limit: int | None = None,
-               sm_count: int | None = None) -> bool:
+               sm_count: int | None = None,
+               precision: str = "highest") -> bool:
     """Whether the fused kernel takes a tree of these sizes: the
     streaming kernels' limits (``stream_fits``), its shared memory
     (``fused_smem``) within ``smem_limit``, and its grid (one block per
@@ -215,9 +294,9 @@ def fused_fits(N: int, ns: int, nx: int, nu: int, nv: int,
     if sm_count is None:
         sm_count = torch.cuda.get_device_properties(
             torch.cuda.current_device()).multi_processor_count
-    return (stream_fits(N, ns, nx, nu, nv, smem_limit) and
-            fused_smem(N, ns, nx, nu, nv) <= build.smem_optin(smem_limit)
-            and -(-ns // TILE) <= int(sm_count))
+    return (stream_fits(N, ns, nx, nu, nv, smem_limit, precision) and
+            fused_smem(N, ns, nx, nu, nv, precision) <=
+            build.smem_optin(smem_limit) and -(-ns // TILE) <= int(sm_count))
 
 
 def _rank1_rows(fa: dict, sq: torch.Tensor) -> dict:
@@ -309,6 +388,8 @@ def stream_constants(fa: dict, *, prefix_stages: tuple,
         "lams": torch.as_tensor(apg_mod.nesterov_lambdas(max_iterations + 1),
                                 device=dev),
     })
+    # the matrices as the products read them at "default"
+    kc["bf16"] = {k: bf16_round(kc[k]).contiguous() for k in BF16_KEYS}
     return kc
 
 
@@ -357,11 +438,12 @@ def _champion(r_xi, r_psi):
 
 
 def k1_plain(kc, beta, pre, y, z, *, lam_prev, lam_i, upd, k1f, k2f, c,
-             step, xs_upper):
+             step, xs_upper, precision="highest"):
     """One K1 pass in plain PyTorch: the previous iteration's residual
     and dual update, its champion, the extrapolation and the backward
-    recursion.  ``pre``, ``y``, ``z``: {"xi", "psi"} on (N, ns, d).
-    Returns (y', z', v, champion)."""
+    recursion, its products at ``precision``.  ``pre``, ``y``, ``z``:
+    {"xi", "psi"} on (N, ns, d).  Returns (y', z', v, champion)."""
+    rnd, mats = rounding(precision), matrices(kc, precision)
     fa = kc["fa"]
     nx = kc["cx1"].shape[-1]
     w_prev = {k: y[k] + lam_prev * z[k] for k in y}
@@ -372,39 +454,41 @@ def k1_plain(kc, beta, pre, y, z, *, lam_prev, lam_i, upd, k1f, k2f, c,
     w = {k: y_n[k] + lam_i * z_n[k] for k in y}
     tb = (_rows(kc, "cx1") * w["xi"][..., :nx] +
           _rows(kc, "cx2") * w["xi"][..., nx:])
-    gw = _rows(kc, "cu") * w["psi"]
-    BbT, L = kc["BbT"], kc["L"]
+    gw = rnd(_rows(kc, "cu") * w["psi"])
+    BbT, L = mats["BbT"], mats["L"]
     N = tb.shape[0]
     q = torch.zeros_like(tb[0])
     r = torch.zeros_like(beta[0])
     inner = []
     for s in range(N - 1, -1, -1):
         q = tb[s] + q
-        r = beta[s] + r + q @ BbT + gw[s] @ L
+        r = beta[s] + r + rnd(q) @ BbT + gw[s] @ L
         inner.append(r)
         if s in kc["agg_stages"]:
             Cp, Bp = fa["prefix_Cp"][s], fa["prefix_Bp"][s]
-            q = Bp @ (Cp @ q)
-            r = Bp @ (Cp @ r)
+            q = _handoff(Cp, Bp, q, rnd)
+            r = _handoff(Cp, Bp, r, rnd)
     inner = torch.stack(inner[::-1])
-    v = kc["nhp"][..., None] * (inner @ kc["iWT"])
+    v = kc["nhp"][..., None] * (rnd(inner) @ mats["iWT"])
     return y_n, z_n, v, _champion(r_xi, r_psi)
 
 
-def k2_plain(kc, v, uhat, e, x0, pdu, y, z, *, lam_i, c, xs_upper):
+def k2_plain(kc, v, uhat, e, x0, pdu, y, z, *, lam_i, c, xs_upper,
+             precision="highest"):
     """One K2 pass in plain PyTorch: the forward recursion, the prox
-    pre-images and the two rep-weighted squared distances.  Returns
-    (x, u, pre {"xi", "psi"}, d1sq, d2sq)."""
+    pre-images and the two rep-weighted squared distances, its products
+    at ``precision``.  Returns (x, u, pre {"xi", "psi"}, d1sq, d2sq)."""
+    rnd, mats = rounding(precision), matrices(kc, precision)
     nx = kc["cx1"].shape[-1]
     ns = v.shape[1]
-    dv = v @ kc["LT"]
+    dv = rnd(v) @ mats["LT"]
     du = pdu.expand(ns, -1)
     xs = x0.expand(ns, -1)
     x, u = [], []
     for s in range(v.shape[0]):
         du = du + dv[s]
         u_s = uhat[s] + du
-        xs = xs + e[s] + u_s @ kc["BT"]
+        xs = xs + e[s] + rnd(u_s) @ mats["BT"]
         x.append(xs)
         u.append(u_s)
     x, u = torch.stack(x), torch.stack(u)
@@ -433,9 +517,9 @@ def _hyper(inv_step, penalty_state, penalty_safety, **_):
 
 def plain_iterations(kc, step, y0=None, *, iterations, inv_step,
                      step_size, penalty_state, penalty_safety, xs_upper,
-                     **_):
+                     precision="highest", **_):
     """``iterations`` passes of K1 then K2 from a cold (or ``y0``) start,
-    in plain PyTorch.  Returns the state the next K1 reads: y, z, pre,
+    in plain PyTorch, the products at ``precision``.  Returns the state the next K1 reads: y, z, pre,
     x, u, v, the shrinks k1f, k2f and the champions of iterations
     -1 .. iterations - 2 (the first is of no residual: K1 of the first
     iteration updates nothing)."""
@@ -461,10 +545,10 @@ def plain_iterations(kc, step, y0=None, *, iterations, inv_step,
         y, z, v, champ = k1_plain(
             kc, step["beta"], pre, y, z, lam_prev=lams[max(it - 1, 0)],
             lam_i=lam_i, upd=1.0 if it > 0 else 0.0, k1f=k1f, k2f=k2f,
-            c=c, step=step_size, xs_upper=xs_upper)
+            c=c, step=step_size, xs_upper=xs_upper, precision=precision)
         x, u, pre, d1sq, d2sq = k2_plain(
             kc, v, step["uhat"], step["e"], step["x0"], pdu, y, z,
-            lam_i=lam_i, c=c, xs_upper=xs_upper)
+            lam_i=lam_i, c=c, xs_upper=xs_upper, precision=precision)
         k1f, k2f = _shrink(d1sq, t1c), _shrink(d2sq, t2c)
         champs.append(champ)
     return {"y": y, "z": z, "pre": pre, "x": x, "u": u, "v": v,
@@ -472,22 +556,22 @@ def plain_iterations(kc, step, y0=None, *, iterations, inv_step,
 
 
 def fused_iteration_plain(kc, step, state, scalars, *, inv_step,
-                          step_size, xs_upper, **_):
+                          step_size, xs_upper, precision="highest", **_):
     """One fused iteration in plain PyTorch: ``k1_plain`` then
-    ``k2_plain`` with the same scalars (lam_prev, lam_i, upd, k1f, k2f),
-    from ``state`` = {"pre", "y", "z"}, each {"xi", "psi"}.  Returns y',
-    z', v, the champion, x, u, the pre-images and the two squared
-    distances."""
+    ``k2_plain`` with the same scalars (lam_prev, lam_i, upd, k1f, k2f)
+    and ``precision``, from ``state`` = {"pre", "y", "z"}, each {"xi",
+    "psi"}.  Returns y', z', v, the champion, x, u, the pre-images and
+    the two squared distances."""
     lam_prev, lam_i, upd, k1f, k2f = scalars
     c = float(inv_step)
     y, z, v, champ = k1_plain(
         kc, step["beta"], state["pre"], state["y"], state["z"],
         lam_prev=lam_prev, lam_i=lam_i, upd=upd, k1f=k1f, k2f=k2f, c=c,
-        step=step_size, xs_upper=xs_upper)
+        step=step_size, xs_upper=xs_upper, precision=precision)
     x, u, pre, d1sq, d2sq = k2_plain(
         kc, v, step["uhat"], step["e"], step["x0"],
         step["prev_u"] - step["prev_uhat"], y, z, lam_i=lam_i, c=c,
-        xs_upper=xs_upper)
+        xs_upper=xs_upper, precision=precision)
     return {"y": y, "z": z, "v": v, "champion": champ, "x": x, "u": u,
             "pre": pre, "d1sq": d1sq, "d2sq": d2sq}
 
@@ -501,14 +585,15 @@ def _check_budget(max_iterations, tolerance):
 
 def apg_stream_plain(kc, step, y0=None, *, inv_step, step_size,
                      penalty_state, penalty_safety, xs_upper,
-                     max_iterations, tolerance=None):
+                     max_iterations, tolerance=None, precision="highest"):
     """The whole streaming solve in plain PyTorch: ``max_iterations``
-    K1/K2 passes, then the final dual update (the tail,
-    pallas_stream.py:629-660), with the trace shifted by one place."""
+    K1/K2 passes with their products at ``precision``, then the final
+    dual update (the tail, pallas_stream.py:629-660), with the trace
+    shifted by one place."""
     _check_budget(max_iterations, tolerance)
     hyper = dict(inv_step=inv_step, step_size=step_size,
                  penalty_state=penalty_state, penalty_safety=penalty_safety,
-                 xs_upper=xs_upper)
+                 xs_upper=xs_upper, precision=precision)
     st = plain_iterations(kc, step, y0, iterations=max_iterations, **hyper)
     c = float(inv_step)
     lam = kc["lams"][max_iterations - 1]
@@ -547,9 +632,10 @@ def _dims(kc):
     return N, ns, kc["cx1"].shape[-1], kc["cu"].shape[-1], kc["iWT"].shape[0]
 
 
-def _check_inputs(kc, step, y0, max_iterations):
+def _check_inputs(kc, step, y0, max_iterations, precision="highest"):
     """The constants' and the step's devices, types and shapes (as
-    ``apg_solve._check_inputs``); returns the device."""
+    ``apg_solve._check_inputs``), at "default" the rounded matrices too;
+    returns the device."""
     N, ns, nx, nu, nv = _dims(kc)
     dev = kc["sq"].device
     shapes = {"cx1": (N, nx), "cx2": (N, nx), "cu": (N, nu),
@@ -560,6 +646,9 @@ def _check_inputs(kc, step, y0, max_iterations):
               "BT": (nu, nx), "lams": (max_iterations + 1,)}
     for k, shp in shapes.items():
         _check(k, kc[k], shp, dev)
+    if check_precision(precision):
+        for k in BF16_KEYS:
+            _check(f"bf16.{k}", kc["bf16"][k], shapes[k], dev)
     for k in INDEX_KEYS:
         _check(k, kc[k], tuple(kc[k].shape), dev, torch.int32)
     for k, shp in {"beta": (N, ns, nv), "uhat": (N, ns, nu),
@@ -572,10 +661,18 @@ def _check_inputs(kc, step, y0, max_iterations):
     return dev
 
 
-def _entry(lib, fused=False):
+def _entry_name(fused, precision):
+    """The C entry of the two-kernel (or ``fused``) iteration at
+    ``precision``: ``apg_stream[_fused][_bf16]``."""
+    return ("apg_stream" + ("_fused" if fused else "") +
+            ("_bf16" if check_precision(precision) else ""))
+
+
+def _entry(lib, fused=False, precision="highest"):
     """The C entry ``apg_stream`` (or ``apg_stream_fused``, which takes
-    the scratch w after the counter), declared."""
-    fn = lib.apg_stream_fused if fused else lib.apg_stream
+    the scratch w after the counter; at "default" ``apg_stream_bf16``,
+    ``apg_stream_fused_bf16``, with the same arguments), declared."""
+    fn = getattr(lib, _entry_name(fused, precision))
     if fn.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([ptr] * (len(ROW_KEYS) + len(MATRIX_KEYS) +
@@ -623,29 +720,36 @@ def _state(kc, step, y0, max_iterations, fused=False):
             "ctr": torch.zeros(1, dtype=torch.int32, device=dev)}
 
 
-def _call(kc, step, state, entry, fused, mode, *, inv_step, step_size,
+def _call(kc, step, state, fused, mode, *, inv_step, step_size,
           penalty_state, penalty_safety, xs_upper, max_iterations,
-          lib=None):
-    """Enqueue ``mode`` of the C entry ``entry`` of ``lib`` (default: the
-    checkout's build) on the current stream of the constants' device:
-    the argument order of ``apg_stream`` (and of ``apg_stream_fused``,
-    with the scratch w after the counter) in the source.  Raises on a
-    refused launch."""
+          precision="highest", lib=None):
+    """Enqueue ``mode`` of the C entry of the two-kernel (or ``fused``)
+    iteration at ``precision`` of ``lib`` (default: the checkout's build)
+    on the current stream of the constants' device: the argument order
+    of ``apg_stream`` (and of ``apg_stream_fused``, with the scratch w
+    after the counter) in the source; at "default" the matrices are the
+    rounded ones.  Raises on a refused launch (no other entry runs in its
+    place)."""
     N, ns, nx, nu, nv = _dims(kc)
-    if not stream_fits(N, ns, nx, nu, nv):
+    if not stream_fits(N, ns, nx, nu, nv, precision=precision):
         raise ValueError(f"the streaming kernels do not take this tree "
                          f"(N {N}, ns {ns}, nx {nx}, nu {nu}, nv {nv}): "
                          "past stream_fits")
     dev = kc["sq"].device
     lib = lib or build.load("apg_stream")
-    fn = _entry(lib, fused)
-    build.check_smem(lib, "apg_stream", (N, ns, nx, nu, nv),
-                     smem(N, ns, nx, nu, nv))
+    fn = _entry(lib, fused, precision)
+    dims = (N, ns, nx, nu, nv)
+    build.check_smem(lib, _entry_name(False, precision), dims,
+                     smem(*dims, precision))
     if fused:
-        build.check_smem(lib, "apg_stream_fused", (N, ns, nx, nu, nv),
-                         fused_smem(N, ns, nx, nu, nv))
+        build.check_smem(lib, _entry_name(True, precision), dims,
+                         fused_smem(*dims, precision))
     stepd = dict(step, pdu=(step["prev_u"] - step["prev_uhat"]).contiguous())
-    ptrs = ([kc[k].data_ptr() for k in ROW_KEYS + MATRIX_KEYS + INDEX_KEYS]
+    mats = matrices(kc, precision)
+    ptrs = ([kc[k].data_ptr() for k in ROW_KEYS]
+            + [(mats[k] if k in BF16_KEYS else kc[k]).data_ptr()
+               for k in MATRIX_KEYS]
+            + [kc[k].data_ptr() for k in INDEX_KEYS]
             + [stepd[k].data_ptr() for k in STEP_KEYS]
             + [state[k].data_ptr() for k in STATE_KEYS + ("ctr",)]
             + ([state["w"].data_ptr()] if fused else []))
@@ -659,26 +763,26 @@ def _call(kc, step, state, entry, fused, mode, *, inv_step, step_size,
                  float(xs_upper), mode, stream)
     if err != 0:
         msg = lib.apg_stream_error_string(err).decode()
-        raise RuntimeError(f"{entry} kernel failed: error {err} ({msg})")
+        raise RuntimeError(f"{_entry_name(fused, precision)} kernel failed: "
+                           f"error {err} ({msg})")
 
 
 def _launch(kc, step, state, mode, **hyper):
     """``mode`` ("solve", "k1" or "k2") of the two-kernel entry."""
-    _call(kc, step, state, "apg_stream", False, MODES[mode], **hyper)
+    _call(kc, step, state, False, MODES[mode], **hyper)
 
 
 def _launch_fused(kc, step, state, mode, **hyper):
     """``mode`` ("solve" or "iteration") of the fused entry."""
-    _check_fused(kc)
-    _call(kc, step, state, "apg_stream_fused", True, FUSED_MODES[mode],
-          **hyper)
+    _check_fused(kc, precision=hyper.get("precision", "highest"))
+    _call(kc, step, state, True, FUSED_MODES[mode], **hyper)
 
 
-def _check_fused(kc, smem_limit=None, sm_count=None):
+def _check_fused(kc, smem_limit=None, sm_count=None, precision="highest"):
     """Raise where the fused kernel does not take the tree: past
     ``fused_fits``, or more K1 ranges than it carries."""
     N, ns, nx, nu, nv = _dims(kc)
-    if not fused_fits(N, ns, nx, nu, nv, smem_limit, sm_count):
+    if not fused_fits(N, ns, nx, nu, nv, smem_limit, sm_count, precision):
         raise ValueError(f"the fused kernel does not take this tree (N {N}, "
                          f"ns {ns}, nx {nx}, nu {nu}, nv {nv}): past "
                          "fused_fits")
@@ -698,64 +802,88 @@ def _outputs(kc, state, max_iterations):
                                        device=state["u"].device)}
 
 
-def apg_stream(kc, step, y0=None, *, inv_step, step_size, penalty_state,
-               penalty_safety, xs_upper, max_iterations, tolerance=None):
-    """One streaming APG solve of ``max_iterations`` iterations.  Returns
-    control, x, u, v, y, the trace and ``iterations``.
+def bf16_wrapper(fn):
+    """``fn`` at precision "default": the wrapper under whose name the
+    launches of the ``_bf16`` entry are counted (``fn.launches`` counts
+    "highest"'s)."""
+    wrapper = functools.partial(fn, precision="default")
+    wrapper.launches = 0
+    return wrapper
 
-    CPU tensors run the plain version; CUDA tensors launch the kernels.
+
+def count(fn, bf16_fn, precision):
+    """One launch more for ``fn``, or at "default" for ``bf16_fn``."""
+    (bf16_fn if check_precision(precision) else fn).launches += 1
+
+
+def apg_stream(kc, step, y0=None, *, inv_step, step_size, penalty_state,
+               penalty_safety, xs_upper, max_iterations, tolerance=None,
+               precision="highest"):
+    """One streaming APG solve of ``max_iterations`` iterations, its
+    products at ``precision``.  Returns control, x, u, v, y, the trace
+    and ``iterations``.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernels
+    (at "default" the ``apg_stream_bf16`` entry) or raise.
     """
     hyper = dict(inv_step=inv_step, step_size=step_size,
                  penalty_state=penalty_state, penalty_safety=penalty_safety,
-                 xs_upper=xs_upper, max_iterations=max_iterations)
+                 xs_upper=xs_upper, max_iterations=max_iterations,
+                 precision=precision)
     _check_budget(max_iterations, tolerance)
-    dev = _check_inputs(kc, step, y0, max_iterations)
+    dev = _check_inputs(kc, step, y0, max_iterations, precision)
     if dev.type == "cpu":
         return apg_stream_plain(kc, step, y0, **hyper)
     if dev.type != "cuda":
         raise ValueError(f"apg_stream runs on cpu or cuda, not {dev.type}")
     state = _state(kc, step, y0, max_iterations)
-    apg_stream.launches += 1
+    count(apg_stream, apg_stream_bf16, precision)
     _launch(kc, step, state, "solve", **hyper)
     return _outputs(kc, state, max_iterations)
 
 
 apg_stream.launches = 0
+apg_stream_bf16 = bf16_wrapper(apg_stream)
 
 
 def apg_stream_fused(kc, step, y0=None, *, inv_step, step_size,
                      penalty_state, penalty_safety, xs_upper,
-                     max_iterations, tolerance=None):
+                     max_iterations, tolerance=None, precision="highest"):
     """One streaming APG solve of ``max_iterations`` fused iterations
-    (one cooperative launch each), with ``apg_stream``'s outputs.
+    (one cooperative launch each), with ``apg_stream``'s outputs, its
+    products at ``precision``.
 
     CPU tensors run the plain version (``apg_stream_plain``); CUDA
-    tensors launch the fused kernel or raise.
+    tensors launch the fused kernel (at "default" the
+    ``apg_stream_fused_bf16`` entry) or raise.
     """
     hyper = dict(inv_step=inv_step, step_size=step_size,
                  penalty_state=penalty_state, penalty_safety=penalty_safety,
-                 xs_upper=xs_upper, max_iterations=max_iterations)
+                 xs_upper=xs_upper, max_iterations=max_iterations,
+                 precision=precision)
     _check_budget(max_iterations, tolerance)
-    dev = _check_inputs(kc, step, y0, max_iterations)
+    dev = _check_inputs(kc, step, y0, max_iterations, precision)
     if dev.type == "cpu":
         return apg_stream_plain(kc, step, y0, **hyper)
     if dev.type != "cuda":
         raise ValueError(f"apg_stream_fused runs on cpu or cuda, not "
                          f"{dev.type}")
     state = _state(kc, step, y0, max_iterations, fused=True)
-    apg_stream_fused.launches += 1
+    count(apg_stream_fused, apg_stream_fused_bf16, precision)
     _launch_fused(kc, step, state, "solve", **hyper)
     return _outputs(kc, state, max_iterations)
 
 
 apg_stream_fused.launches = 0
+apg_stream_fused_bf16 = bf16_wrapper(apg_stream_fused)
 
 
 def _single_pass(kc, step, scalars, hyper, mode, fill, lib=None):
     """One K1 or K2 pass on the card with the given scalars (lam_prev,
     lam_i, upd, k1f, k2f) and the state ``fill`` puts in place, by
     ``lib`` (default: the checkout's build)."""
-    dev = _check_inputs(kc, step, None, hyper["max_iterations"])
+    dev = _check_inputs(kc, step, None, hyper["max_iterations"],
+                        hyper.get("precision", "highest"))
     if dev.type != "cuda":
         raise ValueError(f"the single {mode} pass runs on cuda only")
     fused = mode == "iteration"
@@ -804,29 +932,35 @@ def _k2_pass(kc, step, v, y, z, scalars, hyper, lib=None):
             st["norm_part"][:, 0].sum(), st["norm_part"][:, 1].sum())
 
 
-def k1_call(kc, step, pre, y, z, scalars, **hyper):
+def k1_call(kc, step, pre, y, z, scalars, precision="highest", **hyper):
     """One K1 pass of the kernel on CUDA tensors (every range of stages),
     from the state ``pre``, ``y``, ``z`` with ``scalars`` = (lam_prev,
-    lam_i, upd, k1f, k2f).  Returns (y', z', v, champion), as
-    ``k1_plain``; the champion is combined from the kernel's per-block
-    partials."""
-    k1_call.launches += 1
-    return _k1_pass(kc, step, pre, y, z, scalars, hyper)
+    lam_i, upd, k1f, k2f), its products at ``precision``.  Returns (y',
+    z', v, champion), as ``k1_plain``; the champion is combined from the
+    kernel's per-block partials."""
+    check_precision(precision)
+    count(k1_call, k1_call_bf16, precision)
+    return _k1_pass(kc, step, pre, y, z, scalars,
+                    dict(hyper, precision=precision))
 
 
 k1_call.launches = 0
+k1_call_bf16 = bf16_wrapper(k1_call)
 
 
-def k2_call(kc, step, v, y, z, scalars, **hyper):
+def k2_call(kc, step, v, y, z, scalars, precision="highest", **hyper):
     """One K2 pass of the kernel on CUDA tensors from v and the updated
-    y, z, with ``scalars`` as ``k1_call``'s.  Returns (x, u, pre, d1sq,
-    d2sq), as ``k2_plain``; the sums are the kernel's per-block partials
-    added up."""
-    k2_call.launches += 1
-    return _k2_pass(kc, step, v, y, z, scalars, hyper)
+    y, z, with ``scalars`` and ``precision`` as ``k1_call``'s.  Returns
+    (x, u, pre, d1sq, d2sq), as ``k2_plain``; the sums are the kernel's
+    per-block partials added up."""
+    check_precision(precision)
+    count(k2_call, k2_call_bf16, precision)
+    return _k2_pass(kc, step, v, y, z, scalars,
+                    dict(hyper, precision=precision))
 
 
 k2_call.launches = 0
+k2_call_bf16 = bf16_wrapper(k2_call)
 
 
 def stage_spans(kc, step, pre, y, z, scalars, **hyper):
@@ -858,20 +992,22 @@ def stage_spans(kc, step, pre, y, z, scalars, **hyper):
             "cycles": dict(zip(SPAN_PARTS, cycles.tolist()))}
 
 
-def fused_call(kc, step, state, scalars, **hyper):
+def fused_call(kc, step, state, scalars, precision="highest", **hyper):
     """One fused iteration of the kernel on CUDA tensors, from ``state``
     = {"pre", "y", "z"} with ``scalars`` = (lam_prev, lam_i, upd, k1f,
-    k2f).  Returns ``fused_iteration_plain``'s dict; the champion and the
-    squared distances are combined from the kernel's per-block
-    partials."""
+    k2f), its products at ``precision``.  Returns
+    ``fused_iteration_plain``'s dict; the champion and the squared
+    distances are combined from the kernel's per-block partials."""
     def fill(st):
         for k in ("xi", "psi"):
             st[f"pre_{k}"].copy_(state["pre"][k])
             st[f"y_{k}"].copy_(state["y"][k])
             st[f"z_{k}"].copy_(state["z"][k])
 
-    fused_call.launches += 1
-    st = _single_pass(kc, step, scalars, hyper, "iteration", fill)
+    check_precision(precision)
+    count(fused_call, fused_call_bf16, precision)
+    st = _single_pass(kc, step, scalars, dict(hyper, precision=precision),
+                      "iteration", fill)
     return {"y": {"xi": st["y_xi"], "psi": st["y_psi"]},
             "z": {"xi": st["z_xi"], "psi": st["z_psi"]}, "v": st["v"],
             "champion": _champion_of(kc, st), "x": st["x"], "u": st["u"],
@@ -881,6 +1017,7 @@ def fused_call(kc, step, state, scalars, **hyper):
 
 
 fused_call.launches = 0
+fused_call_bf16 = bf16_wrapper(fused_call)
 
 
 def make_apg_stream_fused(fa: dict, *, prefix_stages: tuple, inv_step,
@@ -889,19 +1026,18 @@ def make_apg_stream_fused(fa: dict, *, prefix_stages: tuple, inv_step,
                           tolerance=None, consts=None):
     """The fused streaming solve (``make_apg_stream_fused``'s
     counterpart): builds the constants once (or takes ``consts`` from
-    ``stream_constants``) and returns run(step, y0=None).  ``precision``
-    takes only "highest" (the products run in full float32, as the
-    port's streaming path does); a tolerance raises."""
-    if precision not in FUSED_PRECISIONS:
-        raise ValueError(f"precision must be 'highest' (the fused kernel's "
-                         f"products run in full float32), got "
-                         f"'{precision}'")
+    ``stream_constants``) and returns run(step, y0=None).  ``precision``:
+    "highest" (full float32 products) or "default" (one bf16 pass a
+    product, module docstring); any other raises, as does a
+    tolerance."""
+    check_precision(precision)
     _check_budget(max_iterations, tolerance)
     kc = consts if consts is not None else stream_constants(
         fa, prefix_stages=prefix_stages, max_iterations=max_iterations)
     hyper = dict(inv_step=inv_step, step_size=step_size,
                  penalty_state=penalty_state, penalty_safety=penalty_safety,
-                 xs_upper=xs_upper, max_iterations=max_iterations)
+                 xs_upper=xs_upper, max_iterations=max_iterations,
+                 precision=precision)
 
     def run(step, y0=None):
         return apg_stream_fused(kc, step, y0, **hyper)
@@ -912,18 +1048,21 @@ def make_apg_stream_fused(fa: dict, *, prefix_stages: tuple, inv_step,
 def make_apg_stream_kernel(fa: dict, *, prefix_stages: tuple, inv_step,
                            step_size, penalty_state, penalty_safety,
                            xs_upper, max_iterations, tolerance=None,
-                           consts=None):
+                           consts=None, precision="highest"):
     """The streaming solve (``make_apg_stream``'s counterpart), with the
     contract of ``apg_solve.make_apg_kernel``: builds the constants once
     (or takes ``consts`` from ``stream_constants``) and returns
-    run(step, y0=None).  Raises on a tolerance, as the JAX package's
-    ``backend='stream'`` does."""
+    run(step, y0=None), its products at ``precision`` ("highest" or
+    "default"; any other raises).  Raises on a tolerance, as the JAX
+    package's ``backend='stream'`` does."""
+    check_precision(precision)
     _check_budget(max_iterations, tolerance)
     kc = consts if consts is not None else stream_constants(
         fa, prefix_stages=prefix_stages, max_iterations=max_iterations)
     hyper = dict(inv_step=inv_step, step_size=step_size,
                  penalty_state=penalty_state, penalty_safety=penalty_safety,
-                 xs_upper=xs_upper, max_iterations=max_iterations)
+                 xs_upper=xs_upper, max_iterations=max_iterations,
+                 precision=precision)
 
     def run(step, y0=None):
         return apg_stream(kc, step, y0, **hyper)

@@ -44,6 +44,17 @@ from masked values.  On CPU tensors the plain halves run (``k1a_plain``,
 ``partial_parents_plain``, ``apg_stream.k2_plain`` on the block); on
 CUDA tensors the kernels run or the call raises.  The layout is the
 port's unpadded (N, nsl, d) per rank, with no lane padding.
+
+``precision`` "default" (one bf16 pass a product, the JAX module's
+``precision=``): K1 and K2 run their ``_bf16`` entries on the block,
+and the partial parent block rounds each child's carry before its sum
+(``partial_parents_bf16``, :357-358); the all-reduce, the broadcast back
+to the slots (HIGHEST, :567-568) and ``low_tail`` (XLA at HIGHEST,
+:531-536) stay float32.  So the sharded solve's handoff at s_hi rounds
+once where the single-device one rounds twice (the parent's sum too),
+and the two do not repeat each other bit for bit at "default", as in
+the JAX package.  The launches are counted under ``k1a_call_bf16``,
+``k2_local_bf16`` and ``partial_parents_bf16``.
 """
 
 from __future__ import annotations
@@ -196,57 +207,65 @@ def parent_block(x_Cp: torch.Tensor, width: int) -> dict:
             "x_width": int(width), "x_device": dev}
 
 
-def partial_parents_plain(kc: dict, carry: torch.Tensor) -> torch.Tensor:
+def partial_parents_plain(kc: dict, carry: torch.Tensor,
+                          precision: str = "highest") -> torch.Tensor:
     """The shard's share of each stage-s_hi parent's child sum of the
     exit carries ``carry`` (nsl, nx + nv): (n_parents, nx + nv), the
     0/1 child-sum block over the local columns times the carries
-    (``dot(t_s, XCpT)``)."""
-    return kc["x_Cp"] @ carry
+    (``dot(t_s, XCpT)``), the carries rounded to bfloat16 at
+    "default"."""
+    return kc["x_Cp"] @ S.rounding(precision)(carry)
 
 
-def _lib():
+def _lib(entry="partial_parents"):
+    """The library and its C entry ``entry`` (``partial_parents`` or
+    ``partial_parents_bf16``, one argument list), declared."""
     lib = build.load("stream_sharded")
-    fn = lib.partial_parents
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr] * 4 + [i32, i32, ptr]
         fn.restype = i32
         lib.stream_sharded_error_string.argtypes = [i32]
         lib.stream_sharded_error_string.restype = ctypes.c_char_p
-    return lib
+    return lib, fn
 
 
-def partial_parents(kc: dict, carry: torch.Tensor) -> torch.Tensor:
+def partial_parents(kc: dict, carry: torch.Tensor,
+                    precision: str = "highest") -> torch.Tensor:
     """``partial_parents_plain`` on CPU tensors; on CUDA tensors the
-    kernel of ``csrc/stream_sharded.cu`` (or a raise).  A call checks
-    only ``carry``: (nsl, x_width) float32, contiguous, on the lists'
-    device (``parent_block`` made and checked the lists once), and
-    enters no device context when that device is the current one."""
+    kernel of ``csrc/stream_sharded.cu`` (at "default" its entry
+    ``partial_parents_bf16``), or a raise.  A call checks only ``carry``:
+    (nsl, x_width) float32, contiguous, on the lists' device
+    (``parent_block`` made and checked the lists once), and enters no
+    device context when that device is the current one."""
+    bf16 = S.check_precision(precision)
     dev, R, W = kc["x_device"], kc["n_parents"], kc["x_width"]
     S._check("carry", carry, (kc["nsl"], W), dev)
     if dev.type == "cpu":
-        return partial_parents_plain(kc, carry)
+        return partial_parents_plain(kc, carry, precision)
     if dev.type != "cuda":
         raise ValueError(f"partial_parents runs on cpu or cuda, not "
                          f"{dev.type}")
     out = carry.new_empty((R, W))
-    lib = _lib()
-    partial_parents.launches += 1
+    entry = "partial_parents_bf16" if bf16 else "partial_parents"
+    lib, fn = _lib(entry)
+    S.count(partial_parents, partial_parents_bf16, precision)
     args = (carry.data_ptr(), kc["x_ptr"].data_ptr(), kc["x_idx"].data_ptr(),
             out.data_ptr(), R, W, torch.cuda.current_stream(dev).cuda_stream)
     if dev.index == torch.cuda.current_device():
-        err = lib.partial_parents(*args)
+        err = fn(*args)
     else:
         with torch.cuda.device(dev):
-            err = lib.partial_parents(*args)
+            err = fn(*args)
     if err != 0:
         msg = lib.stream_sharded_error_string(err).decode()
-        raise RuntimeError(f"partial_parents kernel failed: error {err} "
-                           f"({msg})")
+        raise RuntimeError(f"{entry} kernel failed: error {err} ({msg})")
     return out
 
 
 partial_parents.launches = 0
+partial_parents_bf16 = S.bf16_wrapper(partial_parents)
 
 
 def spread_parents(kc: dict, parents: torch.Tensor) -> tuple:
@@ -302,14 +321,16 @@ def _dual_update(kr, pre, y, z, sc, c, step, xs_upper):
     return y_n, {k: y_n[k] - y[k] for k in y}, r_xi, r_psi
 
 
-def _stage(kr, i, beta_s, w, t, a, BbT, L):
+def _stage(kr, i, beta_s, w, t, a, BbT, L, rnd=S._same):
     """The backward recursion at stage index ``i`` of ``kr``'s rows:
-    t = d1 w1 + d2 w2 + t, a = beta + a + Bb t + L'(g wp)."""
+    t = d1 w1 + d2 w2 + t, a = beta + a + Bb t + L'(g wp), each product's
+    vector operand through ``rnd`` (the matrices given as the products
+    read them)."""
     nx = kr["cx1"].shape[-1]
     sq = kr["sq"][i][:, None]
     t = (kr["cx1"][i] * sq) * w["xi"][:, :nx] + \
         (kr["cx2"][i] * sq) * w["xi"][:, nx:] + t
-    a = beta_s + a + t @ BbT + ((kr["cu"][i] * sq) * w["psi"]) @ L
+    a = beta_s + a + rnd(t) @ BbT + rnd((kr["cu"][i] * sq) * w["psi"]) @ L
     return t, a
 
 
@@ -319,12 +340,15 @@ def _views(state, stages):
             {"xi": state["z_xi"][stages], "psi": state["z_psi"][stages]})
 
 
-def k1a_plain(kc, step, state, *, inv_step, step_size, xs_upper, **_):
+def k1a_plain(kc, step, state, *, inv_step, step_size, xs_upper,
+              precision="highest", **_):
     """One K1a pass in plain PyTorch on the rank's block: the dual update
     and the backward recursion over stages N-1 .. s_hi with the local
     handoffs, in place on ``state`` (y, z, and v of those stages; the
-    scalars in ``state["sc"]``).  Returns ([hi_x, lo_x, hi_u, lo_u] of
-    those stages' residual, the shard's partial parent block)."""
+    scalars in ``state["sc"]``), the products at ``precision``.  Returns
+    ([hi_x, lo_x, hi_u, lo_u] of those stages' residual, the shard's
+    partial parent block)."""
+    rnd, mats = S.rounding(precision), S.matrices(kc, precision)
     N = kc["sq"].shape[0]
     s_hi = kc["s_hi"]
     hs = slice(s_hi, N)
@@ -343,39 +367,42 @@ def k1a_plain(kc, step, state, *, inv_step, step_size, xs_upper, **_):
     for s in range(N - 1, s_hi - 1, -1):
         i = s - s_hi
         t, a = _stage(kr, i, beta[s], {k: w[k][i] for k in w}, t, a,
-                      kc["BbT"], kc["L"])
+                      mats["BbT"], mats["L"], rnd)
         inner[i] = a
         if s in kc["agg_stages"]:
             Cp, Bp = kc["fa"]["prefix_Cp"][s], kc["fa"]["prefix_Bp"][s]
-            t, a = Bp @ (Cp @ t), Bp @ (Cp @ a)
+            t, a = S._handoff(Cp, Bp, t, rnd), S._handoff(Cp, Bp, a, rnd)
     for k in ("xi", "psi"):
         state[f"y_{k}"][hs] = y_n[k]
         state[f"z_{k}"][hs] = z_n[k]
-    state["v"][hs] = kc["nhp"][hs][..., None] * (torch.stack(inner) @
-                                                 kc["iWT"])
-    parents = partial_parents_plain(kc, torch.cat([t, a], dim=-1))
+    state["v"][hs] = kc["nhp"][hs][..., None] * (rnd(torch.stack(inner)) @
+                                                 mats["iWT"])
+    parents = partial_parents_plain(kc, torch.cat([t, a], dim=-1), precision)
     return _extrema(r_xi, r_psi), parents
 
 
-def k1a_call(kc, step, state, **hyper):
+def k1a_call(kc, step, state, precision="highest", **hyper):
     """One K1a pass: on CPU tensors ``k1a_plain``; on CUDA tensors K1 of
     ``csrc/apg_stream.cu`` over the shard's stage ranges (mode 1), then
-    ``partial_parents`` on the carries its last launch wrote."""
+    ``partial_parents`` on the carries its last launch wrote, both at
+    ``precision``."""
+    S.check_precision(precision)
     dev = kc["sq"].device
     if dev.type == "cpu":
-        return k1a_plain(kc, step, state, **hyper)
+        return k1a_plain(kc, step, state, precision=precision, **hyper)
     if dev.type != "cuda":
         raise ValueError(f"k1a_call runs on cpu or cuda, not {dev.type}")
-    k1a_call.launches += 1
-    S._launch(kc, step, state, "k1", **hyper)
+    S.count(k1a_call, k1a_call_bf16, precision)
+    S._launch(kc, step, state, "k1", precision=precision, **hyper)
     n = len(kc["ranges"])
     part = state["champ_part"][:n * -(-kc["nsl"] // S.TILE)]
     ext = torch.stack([part[:, 0].max(), part[:, 1].min(),
                        part[:, 2].max(), part[:, 3].min()])
-    return ext, partial_parents(kc, state["carry"][(n - 1) & 1])
+    return ext, partial_parents(kc, state["carry"][(n - 1) & 1], precision)
 
 
 k1a_call.launches = 0
+k1a_call_bf16 = S.bf16_wrapper(k1a_call)
 
 
 # ------------------------------------------------------------ low tail
@@ -387,7 +414,8 @@ def low_tail(kc, step, state, parents, mesh, *, inv_step, step_size,
     JAX module's XLA tail, :560-628): from the all-reduced parents of
     stage s_hi, the dual update, the recursion and v of each stage, in
     place on ``state``, with the handoff of every lower cross stage
-    all-reduced.  Returns the extrema of those stages' residual."""
+    all-reduced; float32 at any precision (HIGHEST there, :531-536).
+    Returns the extrema of those stages' residual."""
     s_hi = kc["s_hi"]
     c = float(inv_step)
     sc = state["sc"]
@@ -416,11 +444,13 @@ def low_tail(kc, step, state, parents, mesh, *, inv_step, step_size,
 # ------------------------------------------------------------------ K2
 
 
-def k2_local(kc, step, state, **hyper):
-    """One K2 pass on the rank's block, in place on ``state`` (x, u and
-    the pre-images); returns the block's two squared distances (2,).  On
-    CPU tensors ``apg_stream.k2_plain``; on CUDA tensors K2 of
-    ``csrc/apg_stream.cu`` (mode 2) and its partials summed."""
+def k2_local(kc, step, state, precision="highest", **hyper):
+    """One K2 pass on the rank's block at ``precision``, in place on
+    ``state`` (x, u and the pre-images); returns the block's two squared
+    distances (2,).  On CPU tensors ``apg_stream.k2_plain``; on CUDA
+    tensors K2 of ``csrc/apg_stream.cu`` (mode 2) and its partials
+    summed."""
+    S.check_precision(precision)
     dev = kc["sq"].device
     if dev.type == "cpu":
         y = {"xi": state["y_xi"], "psi": state["y_psi"]}
@@ -429,7 +459,7 @@ def k2_local(kc, step, state, **hyper):
             kc, state["v"], step["uhat"], step["e"], step["x0"],
             step["prev_u"] - step["prev_uhat"], y, z,
             lam_i=state["sc"][1], c=float(hyper["inv_step"]),
-            xs_upper=hyper["xs_upper"])
+            xs_upper=hyper["xs_upper"], precision=precision)
         state["x"].copy_(x)
         state["u"].copy_(u)
         state["pre_xi"].copy_(pre["xi"])
@@ -437,12 +467,13 @@ def k2_local(kc, step, state, **hyper):
         return torch.stack([d1sq, d2sq])
     if dev.type != "cuda":
         raise ValueError(f"k2_local runs on cpu or cuda, not {dev.type}")
-    k2_local.launches += 1
-    S._launch(kc, step, state, "k2", **hyper)
+    S.count(k2_local, k2_local_bf16, precision)
+    S._launch(kc, step, state, "k2", precision=precision, **hyper)
     return state["norm_part"].sum(dim=0)
 
 
 k2_local.launches = 0
+k2_local_bf16 = S.bf16_wrapper(k2_local)
 
 
 # --------------------------------------------------------------- helpers
@@ -516,14 +547,17 @@ def check_consts(mesh, kc: dict) -> None:
 def make_apg_stream_sharded(mesh, fa: dict, *, prefix_stages: tuple,
                             inv_step, step_size, penalty_state,
                             penalty_safety, xs_upper, max_iterations,
-                            tolerance=None, consts=None):
+                            tolerance=None, consts=None,
+                            precision="highest"):
     """The streaming APG solve over a 1-D scenario mesh (``make_apg_
     stream_sharded``, :217-793): run(step, y0=None), collective, every
     rank calling it with the same global step.  Same output contract as
     ``apg_stream.make_apg_stream_kernel``; x, u, v and y come back in the
     global layout on every rank.  ``consts``: this rank's
     ``pack_stream_sharded`` when the caller already packed it (the
-    controller's gate)."""
+    controller's gate).  ``precision``: the kernels' products, "highest"
+    or "default" (module docstring); any other raises."""
+    S.check_precision(precision)
     S._check_budget(max_iterations, tolerance)
     check_mesh(mesh, fa)
     K = int(max_iterations)
@@ -541,17 +575,17 @@ def make_apg_stream_sharded(mesh, fa: dict, *, prefix_stages: tuple,
     def run(step, y0=None):
         stl = shard_step(kc, step)
         y0l = None if y0 is None else {k: mesh.shard(y0[k]) for k in y0}
-        S._check_inputs(kc, stl, y0l, K)
+        S._check_inputs(kc, stl, y0l, K, precision)
         state = new_state(kc, stl, y0l, K)
         k1f = k2f = torch.zeros((), device=dev)
         cparts = torch.empty(K + 1, 4, device=dev)
         for it in range(K):
             set_scalars(state, kc, it, k1f, k2f)
-            ext, parents = k1a_call(kc, stl, state, **hyper)
+            ext, parents = k1a_call(kc, stl, state, precision, **hyper)
             tail = low_tail(kc, stl, state, mesh.psum(parents), mesh,
                             **hyper)
             cparts[it] = for_max(_merge(ext, tail))
-            d = mesh.psum(k2_local(kc, stl, state, **hyper))
+            d = mesh.psum(k2_local(kc, stl, state, precision, **hyper))
             k1f, k2f = S._shrink(d[0], t1c), S._shrink(d[1], t2c)
         # the final dual update (the tail), shard-local
         lam = kc["lams"][K - 1]

@@ -54,6 +54,11 @@ JAX package's ``'pallas'`` does, and so does ``'stream'`` under a
 tolerance.  Both routes return x, u, v and the duals y in the global
 layout on every rank, so a warm start carries over either.
 
+``stream_precision`` ('highest' or 'default') reaches every streaming
+solve, single-device and sharded (``controller.py:195``, ``:202``,
+``:266``, ``:280`` of the JAX package): at 'default' the streaming
+kernels' products take one bf16 pass (``ops/apg_stream.py``).
+
 Differences from the reference (intentional, as in the JAX package):
   * the built-in simulator applies the demand disturbance e to the state
     update (the reference adds it to a dead buffer,
@@ -92,20 +97,21 @@ from rapidnet_tpu_torch.solver import quasi_newton as qn_mod
 
 BACKENDS = ("auto", "cuda", "stream", "torch")
 ALGORITHMS = (ALGORITHM_APG, ALGORITHM_FBE, ALGORITHM_NAMA)
-STREAM_PRECISIONS = (None, "highest")
+STREAM_PRECISIONS = (None,) + apg_stream.PRECISIONS
 STREAM_LBFGS_DTYPES = (None, "float32", "bfloat16")
 
 
 def auto_route(algorithm: str, *, tolerance, N: int, ns: int, nx: int,
                nu: int, nv: int, smem_limit: int | None = None,
-               lbfgs_buffer_size: int | None = None) -> str:
+               lbfgs_buffer_size: int | None = None,
+               precision: str = "highest") -> str:
     """The solve ``backend='auto'`` runs on a CUDA device, from the
     tree's sizes: 'kernel' (the whole-solve kernel) when the tree fits
     it; else, with no tolerance, 'stream' when the algorithm's streaming
-    kernels take the tree (for FBE and NAMA, also a history of
-    ``lbfgs_buffer_size`` + 1 columns); else 'plain'.  ``smem_limit``:
-    the card's opt-in shared memory per block (default: the current
-    device's)."""
+    kernels take the tree at ``precision`` (for FBE and NAMA, also a
+    history of ``lbfgs_buffer_size`` + 1 columns); else 'plain'.
+    ``smem_limit``: the card's opt-in shared memory per block (default:
+    the current device's)."""
     dims = (N, ns, nx, nu, nv)
     if algorithm == ALGORITHM_APG:
         whole, stream_fits = apg_solve.fits, apg_stream.stream_fits
@@ -116,7 +122,7 @@ def auto_route(algorithm: str, *, tolerance, N: int, ns: int, nx: int,
     history_fits = (algorithm == ALGORITHM_APG or lbfgs_buffer_size is None
                     or int(lbfgs_buffer_size) + 1 <= lbfgs.MAX_COLS)
     if (tolerance is None and history_fits and
-            stream_fits(*dims, smem_limit=smem_limit)):
+            stream_fits(*dims, smem_limit=smem_limit, precision=precision)):
         return "stream"
     return "plain"
 
@@ -152,8 +158,14 @@ class SmpcController:
                  stream_lbfgs_dtype: Optional[str] = None):
         """device: where the solve runs ('cuda' by default; raises when
         no GPU is present).  stream_precision: the streaming kernels'
-        products, None or 'highest' (full float32; no reduced-precision
-        knob is measured yet).  stream_lbfgs_dtype: the storage of the
+        products (APG, FBE and NAMA, single device and on a mesh):
+        'highest' (full float32, the default, also None) or 'default'
+        (the JAX package's one bf16 pass a product: each product's
+        operands rounded to bfloat16 and summed in float32; with
+        stream_lbfgs_dtype='bfloat16', the reference's documented
+        serving configuration for large trees); any other value raises.
+        The whole-solve kernels and the plain route ignore it, as in
+        the JAX package.  stream_lbfgs_dtype: the storage of the
         streaming FBE/NAMA solve's L-BFGS history, 'float32' (the
         default, also None) or 'bfloat16' (half the history's bytes; the
         history holds differences, and the line search guards the
@@ -176,9 +188,9 @@ class SmpcController:
                     "kernels) or 'auto'")
         if stream_precision not in STREAM_PRECISIONS:
             raise ValueError(
-                f"stream_precision must be None or 'highest' (the "
-                f"streaming kernels' products run in full float32), got "
+                f"stream_precision must be 'highest' or 'default', got "
                 f"'{stream_precision}'")
+        self.stream_precision = stream_precision or "highest"
         if stream_lbfgs_dtype not in STREAM_LBFGS_DTYPES:
             raise ValueError(
                 f"stream_lbfgs_dtype must be 'float32' or 'bfloat16', got "
@@ -258,11 +270,13 @@ class SmpcController:
             self._solver = lambda step, y0: run(fa, step, y0)
         elif route == "stream" and cfg.algorithm == ALGORITHM_APG:
             self._solver = apg_stream.make_apg_stream_kernel(
-                self._fa, consts=consts, **kw)
+                self._fa, consts=consts, precision=self.stream_precision,
+                **kw)
         elif route == "stream":
             self._solver = qn_stream.make_qn_stream(
                 self._fa, consts=consts,
-                lbfgs_dtype=self.stream_lbfgs_dtype, **kw)
+                lbfgs_dtype=self.stream_lbfgs_dtype,
+                precision=self.stream_precision, **kw)
         else:
             self._solver = make_kernel(self._fa, **kw)
 
@@ -288,11 +302,13 @@ class SmpcController:
         if self.backend == "stream" or consts is not None:
             if self.config.algorithm == ALGORITHM_APG:
                 self._solver = apg_stream_sharded.make_apg_stream_sharded(
-                    self.mesh, self._fa, consts=consts, **kw)
+                    self.mesh, self._fa, consts=consts,
+                    precision=self.stream_precision, **kw)
             else:
                 self._solver = qn_stream.make_qn_stream(
                     self._fa, mesh=self.mesh, consts=consts,
-                    lbfgs_dtype=self.stream_lbfgs_dtype, **kw)
+                    lbfgs_dtype=self.stream_lbfgs_dtype,
+                    precision=self.stream_precision, **kw)
             self.route = "stream"
             return
         N, ns = self._fa["d1"].shape[:2]
@@ -317,6 +333,7 @@ class SmpcController:
             return auto_route(
                 self.config.algorithm, tolerance=None,
                 lbfgs_buffer_size=self.config.lbfgs_buffer_size,
+                precision=self.stream_precision,
                 **tree_dims(self._fa)) == "stream"
 
     def _route(self, kw: dict):
@@ -333,6 +350,7 @@ class SmpcController:
             return "kernel", None
         route = auto_route(self.config.algorithm, tolerance=self.tolerance,
                            lbfgs_buffer_size=self.config.lbfgs_buffer_size,
+                           precision=self.stream_precision,
                            **tree_dims(self._fa))
         if route != "stream":
             return route, None

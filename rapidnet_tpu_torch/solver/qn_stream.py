@@ -65,9 +65,18 @@ waits for the card).  ``run(step, y0)`` takes the global step and warm
 start on every rank and returns the global layout on every rank, the
 control rank 0's root slot summed from masked values.
 
+``precision`` is the JAX package's ``precision=`` (``stream_precision``
+of its controller, ``qn_stream.py:98``, ``:166-196``): "highest" runs
+the sweeps' products in full float32; "default" runs them at one bf16
+pass a product, the sweeps' ``_bf16`` entries (``ops/stream_qn.py``).
+It reaches the sweeps alone, single-device and on a mesh: the glue
+between them (the prox scalars, the FBE value's f-terms, the line
+search's quadratics, the L-BFGS history passes) stays float32, as the
+JAX code computes it at HIGHEST (``:313``, ``:465-466``), and so does the
+sharded backward sweep's root-side tail.
+
 Not ported: ``emulate_shards``, ``ablate``, ``stage_block``,
-``interpret``, the padded transposed layout and any precision but full
-float32.
+``interpret`` and the padded transposed layout.
 """
 
 from __future__ import annotations
@@ -130,7 +139,7 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
                    penalty_safety: float, xs_upper: float,
                    max_iterations: int, lbfgs_buffer_size: int,
                    tolerance=None, lbfgs_dtype=None, consts=None,
-                   mesh=None):
+                   mesh=None, precision="highest"):
     """Build the streaming FBE/NAMA solve: run(step, y0=None) -> outputs.
 
     ``consts``: ``apg_stream.stream_constants(fa, ...)``, or on a mesh
@@ -140,9 +149,11 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
     bfloat16.  ``y0``: a dual warm start {"xi", "psi"} in the XLA path's
     layout; the history starts fresh.  ``mesh``: a ``parallel.Mesh``, the
     scenario-sharded solve (module docstring); every rank calls ``run``
-    with the same global inputs.  On CPU tensors the kernels' plain
-    versions run.
+    with the same global inputs.  ``precision``: the sweeps' products,
+    "highest" or "default" (module docstring); any other raises.  On CPU
+    tensors the kernels' plain versions run.
     """
+    S.check_precision(precision)
     if tolerance is not None:
         raise ValueError(TOLERANCE_MESSAGE)
     is_fbe = algorithm == ALGORITHM_FBE
@@ -279,19 +290,19 @@ def make_qn_stream(fa: dict, *, algorithm: str, prefix_stages: tuple,
     # ---------------- oracles ----------------
     def backward(w, beta=None):
         if mesh is None:
-            return SQ.s1_call(kc, w, beta)
-        return SQ.s1a_call(kc, w, mesh, beta)
+            return SQ.s1_call(kc, w, beta, precision)
+        return SQ.s1a_call(kc, w, mesh, beta, precision)
 
     def solve(sp, w):
         v = backward(w, sp["beta"])
         x, u, prim = SQ.s2_call(kc, v, sp["uhat"], sp["e"], sp["x0"],
-                                sp["pdu"])
+                                sp["pdu"], precision)
         return {"v": v, "x": x, "u": u, "prim": prim}
 
     def linmap(d):
         """The Hessian oracle: the same recursion, no affine terms."""
         v = backward(d.contiguous())
-        x, u, prim = SQ.s2_call(kc, v)
+        x, u, prim = SQ.s2_call(kc, v, precision=precision)
         return {"v": v, "x": x, "u": u, "prim": prim}
 
     # ---------------- L-BFGS: Gram-matrix two-loop ----------------

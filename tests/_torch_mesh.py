@@ -451,6 +451,25 @@ def mesh_controller(mesh, algorithm, backend, iterations=10, seed=7,
                           backend=backend, device="cpu", mesh=mesh, **kw)
 
 
+def precision_job(mesh, iterations, steps, precisions):
+    """``steps``-step closed loops of ``SmpcController(mesh=...,
+    backend="stream", stream_precision=p)`` on ``mesh_controller``'s
+    problem, for each algorithm of ``iterations`` (algorithm ->
+    iterations per solve) and each p of ``precisions``: {(algorithm, p):
+    (controls (steps, nu), route)}."""
+    out = {}
+    for algorithm, iters in iterations.items():
+        for precision in precisions:
+            ctrl = mesh_controller(mesh, algorithm, "stream", iters,
+                                   stream_precision=precision)
+            controls = []
+            for t in range(steps):
+                controls.append(ctrl.control_action(t))
+                ctrl.move_forward_in_time()
+            out[(algorithm, precision)] = (np.array(controls), ctrl.route)
+    return finish(mesh, out)
+
+
 def warm_resume(ctrl_factory, path):
     """A warm controller's step 0, saved to ``path``, and step 1 both
     uninterrupted and resumed in a fresh controller from the file:

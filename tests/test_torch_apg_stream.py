@@ -411,8 +411,11 @@ def test_stream_backend_refusals():
         ctrl = _port_controller(backend="stream", algorithm=algorithm)
         ctrl.initialise()
         assert ctrl.route == "stream"
+    ctrl = _port_controller(backend="stream", stream_precision="default")
+    ctrl.initialise()
+    assert ctrl.route == "stream" and ctrl.stream_precision == "default"
     with pytest.raises(ValueError, match="stream_precision"):
-        _port_controller(backend="stream", stream_precision="default")
+        _port_controller(backend="stream", stream_precision="high")
     with pytest.raises(ValueError, match="stream_lbfgs_dtype"):
         _port_controller(stream_lbfgs_dtype="float16")
     ctrl = _port_controller()
@@ -424,7 +427,11 @@ def test_stream_backend_refusals():
 
 def test_cli_stream_backend(tmp_path, capsys):
     """``--backend stream --stream-precision highest`` on the CPU: the
-    plain halves, against the plain backend on the same files."""
+    plain halves, against the plain backend on the same files; and
+    ``--stream-precision default``, the plain halves' products at one
+    bf16 pass, within the reference's solver-numerics tier of the
+    float32 run (1e-1 x max(|control|, 1), docs/roofline.md:125-132) and
+    not equal to it."""
     import json
 
     from rapidnet_tpu_torch import cli
@@ -440,19 +447,26 @@ def test_cli_stream_backend(tmp_path, capsys):
     cfg = synthetic_config(net, tree, max_iterations=ITERS, step_size=1e-3)
     paths = export_problem(net, tree, fc, cfg, tmp_path / "problem")
     logs = {}
-    for backend in ("stream", "torch"):
-        out = tmp_path / f"{backend}.json"
-        extra = ["--stream-precision", "highest"] if backend == "stream" \
-            else []
+    runs = {"stream": ("stream", "highest"), "torch": ("torch", None),
+            "default": ("stream", "default")}
+    for name, (backend, precision) in runs.items():
+        out = tmp_path / f"{name}.json"
+        extra = ["--stream-precision", precision] if precision else []
         assert cli.main(["--config", paths["config"], "--steps", "2",
                          "--device", "cpu", "--backend", backend,
                          "--output", str(out)] + extra) == 0
-        logs[backend] = json.loads(out.read_text())
+        logs[name] = json.loads(out.read_text())
     assert "economic kpi" in capsys.readouterr().out
     for t in range(2):
         np.testing.assert_allclose(logs["stream"][f"control{t}"],
                                    logs["torch"][f"control{t}"], rtol=1e-4,
                                    atol=1e-3)
+    # step 0 starts both runs from the same state; later steps move the
+    # state by the controls applied
+    got = np.asarray(logs["default"]["control0"])
+    ref = np.asarray(logs["stream"]["control0"])
+    assert np.abs(got - ref).max() <= 1e-1 * max(np.abs(ref).max(), 1.0)
+    assert not np.array_equal(got, ref)
 
 
 def test_package_exports_match_jax():

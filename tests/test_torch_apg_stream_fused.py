@@ -166,9 +166,11 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="tolerance"):
         S.make_apg_stream_fused(fa_t, prefix_stages=prefix, tolerance=1e-3,
                                 **kw)
+    S.make_apg_stream_fused(fa_t, prefix_stages=prefix, precision="default",
+                            **kw)
     with pytest.raises(ValueError, match="precision"):
         S.make_apg_stream_fused(fa_t, prefix_stages=prefix,
-                                precision="default", **kw)
+                                precision="high", **kw)
     kc = S.stream_constants(fa_t, prefix_stages=prefix, max_iterations=ITERS)
     with pytest.raises(ValueError, match="tolerance"):
         S.apg_stream_fused(kc, step_t, None, tolerance=1e-3, **kw)

@@ -253,9 +253,9 @@ def test_device_and_backend_requests_raise():
 
 
 def test_unported_options_raise():
-    """A mesh that is not a ``parallel.Mesh``, a stream precision that is
-    not measured and a streaming FBE/NAMA history storage other than
-    float32 or bfloat16 raise; a mesh with backend 'torch' builds the
+    """A mesh that is not a ``parallel.Mesh``, a stream precision other
+    than 'highest' and 'default' (None is 'highest') and a streaming
+    FBE/NAMA history storage other than float32 or bfloat16 raise; a mesh with backend 'torch' builds the
     plain sharded solve (route 'plain'; its solves are
     tests/test_torch_sharded_plain.py's and
     tests/test_torch_stream_sharded.py's); single-device FBE controllers,
@@ -282,8 +282,11 @@ def test_unported_options_raise():
     assert on_mesh.route == "plain"
     with pytest.raises(TypeError, match="parallel.Mesh"):
         SmpcController(cfg, mesh=object(), **kw)
+    assert SmpcController(cfg, stream_precision="default",
+                          **kw).stream_precision == "default"
+    assert SmpcController(cfg, **kw).stream_precision == "highest"
     with pytest.raises(ValueError, match="stream_precision"):
-        SmpcController(cfg, stream_precision="default", **kw)
+        SmpcController(cfg, stream_precision="high", **kw)
     assert SmpcController(fbe, stream_lbfgs_dtype="bfloat16",
                           **kw).stream_lbfgs_dtype == "bfloat16"
     with pytest.raises(ValueError, match="stream_lbfgs_dtype"):

@@ -1756,3 +1756,66 @@ def test_apg_instrumented_build_equals_the_plain_build(cuda_device, batch):
                  "prefix.children", "forward.iW", "forward.LT",
                  "forward.BT", "forward.prox", "dual.update"):
         assert cycles[part] > 0, (part, cycles)
+
+
+# stream_precision="default": the _bf16 entries of csrc/apg_stream.cu,
+# csrc/stream_qn.cu and csrc/stream_sharded.cu (chip_smoke.py phases 23d-e
+# and 35 hold them to their "default" plain versions)
+@pytest.mark.cuda
+def test_bf16_smem_formulas_match_the_sources(cuda_device):
+    """The "default" gates (``smem``, ``fused_smem`` and ``staged_smem``
+    of ``apg_stream``, ``smem`` of ``stream_qn``) equal the sources'
+    ``_bf16`` formulas, and the "default" variants pick staged at config
+    5's widths and unstaged at twice them."""
+    import ctypes
+
+    from rapidnet_tpu_torch.ops import apg_stream, build, stream_qn
+
+    lib = build.load("apg_stream")
+    fn = lib.apg_stream_bf16_staged_smem
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    for dims in [(24, 1024, 63, 114, 97), (24, 512, 63, 114, 97),
+                 (8, 12, 126, 228, 194), (8, 12, 4, 7, 5)]:
+        build.check_smem(lib, "apg_stream_bf16", dims,
+                         apg_stream.smem(*dims, "default"))
+        build.check_smem(lib, "apg_stream_fused_bf16", dims,
+                         apg_stream.fused_smem(*dims, "default"))
+        build.check_smem(build.load("stream_qn"), "stream_qn_bf16", dims,
+                         stream_qn.smem(*dims, "default"))
+        assert tuple(fn(*dims, k) for k in range(3)) == \
+            apg_stream.staged_smem(*dims, "default"), dims
+    for dims, want in (((24, 1024, 63, 114, 97), True),
+                       ((8, 12, 126, 228, 194), False)):
+        picked = apg_stream.staged(*dims, precision="default")
+        assert picked["k1"] == picked["k2"] == want, picked
+        picked = stream_qn.staged(*dims, precision="default")
+        assert picked["s1"] == picked["s2"] == want, picked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branching,N", [((3, 2, 2), 8), ((16, 16), 4)])
+def test_bf16_fused_solve_equals_the_two_kernel_solve(cuda_device, branching,
+                                                      N):
+    """At "default" the fused kernel runs the same stage bodies as K1 and
+    K2: its solve equals the two-kernel solve bit for bit and repeats
+    itself, differs from the "highest" solve, and both count under their
+    ``_bf16`` wrappers only."""
+    from rapidnet_tpu_torch.ops import apg_stream as S
+
+    fa, prefix, step, kw = _stream_problem(cuda_device, branching=branching,
+                                           N=N)
+    kc = S.stream_constants(fa, prefix_stages=prefix, max_iterations=ITERS)
+    before = (S.apg_stream.launches, S.apg_stream_fused.launches,
+              S.apg_stream_bf16.launches, S.apg_stream_fused_bf16.launches)
+    got = S.apg_stream_fused(kc, step, None, precision="default", **kw)
+    ref = S.apg_stream(kc, step, None, precision="default", **kw)
+    again = S.apg_stream_fused_bf16(kc, step, None, **kw)
+    for out in (ref, again):
+        for k in ("control", "u", "x", "v", "primal_infeasibility"):
+            assert torch.equal(got[k], out[k]), k
+    assert (S.apg_stream.launches, S.apg_stream_fused.launches,
+            S.apg_stream_bf16.launches, S.apg_stream_fused_bf16.launches) \
+        == (before[0], before[1], before[2] + 1, before[3] + 2)
+    high = S.apg_stream(kc, step, None, **kw)
+    assert not torch.equal(got["v"], high["v"])
